@@ -1,0 +1,121 @@
+"""Fused Mamba inner function: conv1d -> projections -> selective scan.
+
+Port of the JAX package's ``kernels/mamba_inner.py`` (``mamba_inner``,
+``mamba_inner_grouped``).  The conv and the projection matmuls are plain
+PyTorch; the scan is the CUDA kernel on the GPU
+(``kernels/selective_scan.py``).  B, C and z reach the kernel as strided
+views of the projection outputs, so nothing is copied for them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vivim_tpu_torch.kernels.causal_conv1d import causal_conv1d
+from vivim_tpu_torch.kernels.selective_scan import selective_scan
+
+
+def mamba_inner(
+    xz,
+    conv1d_weight,
+    conv1d_bias,
+    x_proj_weight,
+    delta_proj_weight,
+    A,
+    D=None,
+    delta_bias=None,
+    out_proj_weight=None,
+    out_proj_bias=None,
+    delta_softplus=True,
+    implementation=None,
+):
+    """Fused Mamba-block inner function, time-major.
+
+    xz (batch, L, 2*d_inner), conv1d_weight (width, d_inner), x_proj_weight
+    (dt_rank + 2*dstate, d_inner), delta_proj_weight (d_inner, dt_rank),
+    A (d_inner, dstate).  Returns (batch, L, d_inner), or (batch, L,
+    d_model) with out_proj.
+    """
+    d_inner = xz.shape[-1] // 2
+    dstate = A.shape[1]
+    delta_rank = delta_proj_weight.shape[1]
+    x, z = xz[..., :d_inner], xz[..., d_inner:]
+    x = causal_conv1d(x, conv1d_weight, conv1d_bias, activation="silu")
+    # projections stay in the activation dtype (fp32 weights would promote
+    # the scan's inputs to fp32)
+    x_dbl = x @ x_proj_weight.to(x.dtype).t()
+    delta = x_dbl[..., :delta_rank] @ delta_proj_weight.to(x.dtype).t()
+    B = x_dbl[..., delta_rank:delta_rank + dstate]
+    C = x_dbl[..., delta_rank + dstate:]
+    y = selective_scan(x, delta, A, B, C, D=D, z=z, delta_bias=delta_bias,
+                       delta_softplus=delta_softplus,
+                       implementation=implementation)
+    if out_proj_weight is not None:
+        y = y @ out_proj_weight.t()
+        if out_proj_bias is not None:
+            y = y + out_proj_bias
+    return y
+
+
+def _pre_scan_grouped(xz, conv_w_g, conv_b_g, x_proj_g, dt_proj_g, dstate):
+    """Grouped conv + projections of the batched tri-directional path.
+
+    xz: (G*nb, L, 2*d_inner), direction-major; weights stacked with a
+    leading (G,) axis.  The depthwise conv runs in fp32 over (G, nb, L, d).
+    """
+    G = conv_w_g.shape[0]
+    GB, L, dd = xz.shape
+    d_inner = dd // 2
+    nb = GB // G
+    delta_rank = dt_proj_g.shape[-1]
+    x, z = xz[..., :d_inner], xz[..., d_inner:]
+    width = conv_w_g.shape[1]
+    xp = F.pad(x.reshape(G, nb, L, d_inner).float(), (0, 0, width - 1, 0))
+    wf = conv_w_g.float()[:, None, :, None, :]          # (G, 1, W, 1, d)
+    out = xp[:, :, 0:L] * wf[:, :, 0]
+    for w in range(1, width):
+        out = out + xp[:, :, w:w + L] * wf[:, :, w]
+    if conv_b_g is not None:
+        out = out + conv_b_g.float()[:, None, None, :]
+    xc = F.silu(out).to(x.dtype)                         # (G, nb, L, d)
+    x_dbl = torch.matmul(xc.reshape(G, nb * L, d_inner),
+                         x_proj_g.to(x.dtype).transpose(1, 2))
+    delta = torch.matmul(x_dbl[..., :delta_rank],
+                         dt_proj_g.to(x.dtype).transpose(1, 2))
+    x_dbl = x_dbl.reshape(GB, L, -1)
+    Bv = x_dbl[..., delta_rank:delta_rank + dstate]
+    Cv = x_dbl[..., delta_rank + dstate:]
+    return (xc.reshape(GB, L, d_inner), z, delta.reshape(GB, L, d_inner),
+            Bv, Cv)
+
+
+def mamba_inner_grouped(
+    xz_grouped,
+    conv_w_g,
+    conv_b_g,
+    x_proj_g,
+    dt_proj_g,
+    A_log_g,
+    D_g,
+    delta_bias_g,
+    nb: int,
+    delta_softplus=True,
+    implementation=None,
+):
+    """Batched multi-direction Mamba inner: one scan launch for all G
+    directions.
+
+    xz_grouped: (G*nb, L, 2*d_inner), direction-major.  Parameter stacks
+    carry a leading (G,) axis: conv_w_g (G, width, d), conv_b_g (G, d),
+    x_proj_g (G, R, d), dt_proj_g (G, d, rank), A_log_g (G, d, N), D_g and
+    delta_bias_g (G, d).  Returns (G*nb, L, d_inner).
+    """
+    dstate = A_log_g.shape[-1]
+    x, z, delta, Bv, Cv = _pre_scan_grouped(
+        xz_grouped, conv_w_g, conv_b_g, x_proj_g, dt_proj_g, dstate)
+    rep = lambda t: t.float().repeat_interleave(nb, dim=0)  # (G,.)->(G*nb,.)
+    return selective_scan(
+        x, delta, rep(-torch.exp(A_log_g.float())), Bv, Cv,
+        D=rep(D_g), z=z, delta_bias=rep(delta_bias_g),
+        delta_softplus=delta_softplus, implementation=implementation)

@@ -1,0 +1,125 @@
+"""Shared layers: DropPath, FastDropout, 3-D depthwise conv, Mix-FFN Mlp,
+and seeded weight init.
+
+Port of the JAX package's ``nn/layers.py``.  Tokens stay channels-last
+``(B, N, C)``; ``DWConv3d`` permutes to NCDHW only around its
+``nn.Conv3d``.  State-dict keys are the reference Vivim's
+(``mlp.fc1``, ``mlp.dwconv.dwconv``, ``mlp.fc2``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in training, zero a sample's branch with
+    probability ``rate`` and scale survivors by 1/(1-rate); identity in
+    eval."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class FastDropout(nn.Module):
+    """Dropout with the keep probability quantized to 1/256 (uint8 random
+    bits), as the JAX package's ``FastDropout``; identity in eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        q = int(round((1.0 - self.rate) * 256.0))
+        if q >= 256:
+            return x
+        bits = torch.randint(0, 256, x.shape, device=x.device,
+                             dtype=torch.int32)
+        return torch.where(bits < q, x / (q / 256.0), torch.zeros_like(x))
+
+
+class DWConv3d(nn.Module):
+    """Depthwise 3x3x3 conv over (T, H, W) on frame-major tokens
+    (reference vivim.py DWConv; key ``dwconv.dwconv``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv3d(dim, dim, 3, padding=1, groups=dim)
+
+    def forward(self, x, nframes: int, H: int, W: int):
+        B, N, C = x.shape
+        if N != nframes * H * W:
+            raise ValueError(f"{N} tokens != {nframes}x{H}x{W}")
+        xv = x.reshape(B, nframes, H, W, C).permute(0, 4, 1, 2, 3)
+        y = self.dwconv(xv)
+        return y.permute(0, 2, 3, 4, 1).reshape(B, N, C)
+
+
+class Mlp(nn.Module):
+    """fc1 -> 3-D depthwise conv -> GELU -> dropout -> fc2 -> dropout.
+
+    GELU is the exact erf form unless ``gelu_approximate`` (tanh form)."""
+
+    def __init__(self, dim, hidden_dim=None, out_dim=None,
+                 dropout_rate: float = 0.0, gelu_approximate: bool = False):
+        super().__init__()
+        hidden = hidden_dim or dim
+        self.fc1 = nn.Linear(dim, hidden)
+        self.dwconv = DWConv3d(hidden)
+        self.fc2 = nn.Linear(hidden, out_dim or dim)
+        self.drop = nn.Dropout(dropout_rate)
+        self.approximate = "tanh" if gelu_approximate else "none"
+
+    def forward(self, x, nframes: int, H: int, W: int):
+        x = self.fc1(x)
+        x = self.dwconv(x, nframes, H, W)
+        x = self.drop(F.gelu(x, approximate=self.approximate))
+        return self.drop(self.fc2(x))
+
+    def init_parameters(self, gen):
+        for lin in (self.fc1, self.fc2):  # trunc-normal(0.02), vivim.py:84-97
+            nn.init.trunc_normal_(lin.weight, std=0.02, a=-2.0, b=2.0,
+                                  generator=gen)
+            nn.init.zeros_(lin.bias)
+
+
+@torch.no_grad()
+def init_weights(root: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Seeded init of every parameter under ``root`` (CPU generator).
+
+    Plain Linear / conv layers get U(+-1/sqrt(fan_in)) weights and zero
+    biases, norms unit scale and zero shift, BatchNorm running stats
+    (0, 1); then modules with a scheme of their own (``init_parameters``)
+    overwrite theirs.
+    """
+    for m in root.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            nn.init.uniform_(m.weight, -bound, bound, generator=gen)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    for m in root.modules():
+        if hasattr(m, "init_parameters"):
+            m.init_parameters(gen)
+    return root

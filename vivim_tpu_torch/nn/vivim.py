@@ -1,0 +1,158 @@
+"""Vivim: SegFormer encoder interleaved with temporal Mamba stacks.
+
+Port of the JAX package's ``nn/vivim.py`` (``VivimConfig``, ``VivimEncoder``,
+``Vivim``), eval mode.  State-dict keys are the reference Vivim's:
+``encoder.downsample_layers.*`` (the HF SegFormer encoder, its per-stage
+``layer_norm.{i}`` kept though unused), ``encoder.stages.{i}.{j}.0.*``
+(MambaLayer j of stage i), ``decoder.linear_c.{i}.proj``,
+``decoder.linear_fuse``, ``decoder.batch_norm``, ``out`` and the optional
+``edgeocr_cls_head``.
+
+Reference quirks kept: the per-stage SegFormer LayerNorm is skipped, and
+the Mamba drop-path rate is indexed by stage.  Clips are (B, T, H, W, 3)
+channels-last and logits (B, T, H, W, C).
+
+Only the eval decode exists in this slice: each scale is fused at its
+native resolution (the 1x1 fuse conv commutes with the bilinear upsample),
+upsampled and summed; then BatchNorm with running stats, ReLU, ``out``,
+the resize to the input size and the optional edge head.  A forward in
+``.train()`` mode raises (the train-mode decode and its dropouts come with
+the training slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from vivim_tpu_torch.nn import segformer as sf
+from vivim_tpu_torch.nn.mamba import MambaLayer
+
+
+@dataclasses.dataclass(frozen=True)
+class VivimConfig:
+    in_chans: int = 3
+    out_chans: int = 3  # background / solid / non-solid
+    depths: Sequence[int] = (2, 2, 2, 2)  # Mamba layers per stage
+    feat_size: Sequence[int] = (64, 128, 320, 512)
+    drop_path_rate: float = 0.2
+    dropout_rate: float = 0.3
+    with_edge: bool = False
+    hidden_size: int = 768
+    segformer: sf.SegformerConfig = dataclasses.field(
+        default_factory=sf.mit_b3)
+    scan_implementation: str | None = None
+
+    @classmethod
+    def tiny_test(cls, **kw):
+        seg = sf.mit_tiny_test()
+        return cls(feat_size=seg.hidden_sizes, hidden_size=32, segformer=seg,
+                   scan_implementation=kw.pop("scan_implementation", "ref"),
+                   **kw)
+
+    @classmethod
+    def micro_test(cls, **kw):
+        """2-stage micro model (mit_micro_test + 1 MambaLayer per stage)."""
+        seg = sf.mit_micro_test()
+        return cls(depths=(1, 1), feat_size=seg.hidden_sizes, hidden_size=16,
+                   segformer=seg,
+                   scan_implementation=kw.pop("scan_implementation", "ref"),
+                   **kw)
+
+
+class VivimEncoder(nn.Module):
+    """SegFormer stages interleaved with temporal-Mamba stacks."""
+
+    def __init__(self, cfg: VivimConfig):
+        super().__init__()
+        self.cfg = cfg
+        seg = cfg.segformer
+        self.downsample_layers = sf.SegformerEncoder(seg)
+        total = sum(cfg.depths)
+        self.stages = nn.ModuleList()
+        for i in range(seg.num_stages):
+            dp_rate = cfg.drop_path_rate * i / max(total - 1, 1)
+            self.stages.append(nn.ModuleList(
+                nn.Sequential(MambaLayer(
+                    seg.hidden_sizes[i], drop_path=dp_rate,
+                    scan_implementation=cfg.scan_implementation,
+                    gelu_approximate=seg.gelu_approximate))
+                for _ in range(cfg.depths[i])))
+
+    def forward(self, x):
+        """x: (B, T, H, W, 3) -> list of per-stage (B*T, H_i, W_i, C_i)."""
+        B, T, H, W, C = x.shape
+        h = x.reshape(B * T, H, W, C)
+        feats = []
+        for i, stage in enumerate(self.stages):
+            tokens, Hi, Wi = self.downsample_layers.stage(i, h)
+            dim = tokens.shape[-1]
+            t5 = tokens.reshape(B, T * Hi * Wi, dim)
+            for block in stage:
+                t5 = block[0](t5, T, Hi, Wi)
+            h = t5.reshape(B * T, Hi, Wi, dim)
+            feats.append(h)
+        return feats
+
+
+class Vivim(nn.Module):
+    """Video Vision Mamba segmentation model."""
+
+    def __init__(self, cfg: VivimConfig):
+        super().__init__()
+        self.cfg = cfg
+        seg = cfg.segformer
+        hid = cfg.hidden_size
+        self.encoder = VivimEncoder(cfg)
+        self.decoder = nn.Module()
+        self.decoder.linear_c = nn.ModuleList(
+            nn.ModuleDict({"proj": nn.Linear(c, hid)})
+            for c in seg.hidden_sizes)
+        self.decoder.linear_fuse = nn.Conv2d(seg.num_stages * hid, hid, 1,
+                                             bias=False)
+        self.decoder.batch_norm = nn.BatchNorm2d(hid, eps=1e-5, momentum=0.1)
+        self.out = nn.Conv2d(hid, cfg.out_chans, 1)
+        if cfg.with_edge:
+            self.edgeocr_cls_head = nn.Conv2d(seg.hidden_sizes[0], 1, 1)
+
+    def forward(self, x):
+        """x: (B, T, H, W, in_chans) -> logits (B, T, H, W, out_chans);
+        with ``cfg.with_edge`` also an edge map (B, T, H, W, 1)."""
+        if self.training:
+            raise NotImplementedError(
+                "Vivim's train-mode decode comes with the training slice; "
+                "call .eval() first")
+        cfg = self.cfg
+        B, T, H, W, _ = x.shape
+        feats = self.encoder(x)
+        BT, H0, W0, _ = feats[0].shape
+        n_stages = len(feats)
+        hid = cfg.hidden_size
+        dec = self.decoder
+        Wf = dec.linear_fuse.weight[:, :, 0, 0]     # (hid, n_stages*hid)
+        hmap = None
+        for i, f in enumerate(feats):
+            _, Hi, Wi, _ = f.shape
+            t = dec.linear_c[i]["proj"](f)           # (BT, Hi, Wi, hid)
+            # concat order is reversed scales: scale i owns fuse-kernel
+            # input columns (n_stages-1-i)*hid : (n_stages-i)*hid
+            j = n_stages - 1 - i
+            t = t @ Wf[:, j * hid:(j + 1) * hid].t()
+            t = sf.resize_bilinear(t, (H0, W0))
+            hmap = t if hmap is None else hmap + t
+        bn = dec.batch_norm
+        hmap = torch.relu((hmap - bn.running_mean)
+                          * torch.rsqrt(bn.running_var + bn.eps)
+                          * bn.weight + bn.bias)
+        logits = hmap @ self.out.weight[:, :, 0, 0].t() + self.out.bias
+        logits = sf.resize_bilinear(logits, (H, W))
+        logits = logits.reshape(B, T, H, W, cfg.out_chans)
+        if not cfg.with_edge:
+            return logits
+        head = self.edgeocr_cls_head
+        edge = feats[0] @ head.weight[:, :, 0, 0].t() + head.bias
+        edge = sf.resize_bilinear(edge, (H, W)).reshape(B, T, H, W, 1)
+        return logits, edge

@@ -6,29 +6,51 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. build every CUDA kernel of the port from ``vivim_tpu_torch/kernels/csrc``
-   with nvcc (sm_90a) and print the build seconds;
+   with nvcc (sm_90a), one nvcc per source started together, and print the
+   build seconds and the ptxas register report;
 2. print the card's name and power limit (nvidia-smi);
-3. hold the selective-scan kernel (K1) against its plain PyTorch version
-   at the four Vivim-b3 stage shapes, fp32 and bf16, plus a ragged case
-   with a per-batch initial state; print error, kernel / plain / bound ms;
+3. hold the selective-scan forward (K1, inference variant) against its
+   plain PyTorch version at the four Vivim-b3 stage shapes of a serving
+   forward, fp32 and bf16, plus a ragged case with an initial state;
+3b. hold K1's training variant and the selective-scan backward (K2)
+   against their plain versions at the four stage shapes of a training step
+   (scan batch 9), fp32 and bf16, plus a ragged case (L = 333, d = 160)
+   with an initial state, a non-zero last-state cotangent and shared
+   A / D / bias, through the autograd Function against autograd through
+   the sequential plain scan; print error, kernel / plain / bound ms;
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
-   ``run_inference``; K1 must launch 8 times per forward, the confusion
-   matrix must count every pixel, and one forward's logits must agree
-   with the same model on the plain scan; a torch.profiler window then
-   splits one forward's device time by kernel group;
-5. print the kernels line, the card line and, last, the device line.
+   ``run_inference``; K1 must launch 8 times per forward and nothing else,
+   the confusion matrix must count every pixel, and one forward's logits
+   must agree with the same model on the plain scan; a torch.profiler
+   window then splits one forward's device time by kernel group;
+5. train: the same model, ``recall_focused``, batch 3: ``Trainer.fit`` for
+   one epoch of 4 fp32 steps and a validation pass of 2 batches, then 3
+   steps of ``make_train_step`` in bf16; every train step must launch
+   K1-training 8 times and K2 8 times, every validation forward the
+   inference K1 8 times; loss and grad norm finite; the checkpoint written
+   must restore; step ms, clips/s, peak memory and a torch.profiler split
+   of one fp32 and one bf16 step by kernel group;
+5b. one fp32 step at full width, batch 1, dropouts 0, through the kernels
+   and through the plain scan: loss within 1e-5 relative, every
+   parameter's gradient within rtol 1e-3 / atol 2e-3;
+6. print the kernels line, the card line and, last, the device line.
 
-Without CUDA it exits non-zero before printing any result.
+Each phase prints its seconds.  Without CUDA the script exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -38,12 +60,16 @@ JAX_PACKAGE = "vivim_tpu_torch".removesuffix("_torch")
 N = 16                      # d_state
 STAGES = (                  # (L = T*H*W, d_inner) of MiT-b3 Vivim at 5x256^2
     (20480, 128), (5120, 256), (1280, 640), (320, 1024))
-LAYERS_PER_STAGE = 2        # MambaLayers per stage: K1 launches per shape
-SCAN_BATCH = 3              # three scan directions x batch 1
+LAYERS_PER_STAGE = 2        # MambaLayers per stage: launches per shape
+SCAN_BATCH = 3              # three scan directions x batch 1 (serving)
+TRAIN_BATCH = 3             # clips per training step (bench.py's batch)
+TRAIN_SCAN_BATCH = 3 * TRAIN_BATCH
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
+GRAD_TOL = {torch.float32: (1e-3, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 # H100 SXM data sheet: HBM3 bytes/s and fp32 (non-tensor-core) FLOP/s
 CARDS = {"H100 PCIe": (2.0e12, 51e12), "H200": (4.8e12, 67e12),
          "H100": (3.35e12, 67e12)}
+GRADS = ("ddelta", "du", "dB", "dC", "dA", "dD", "dbias", "dh0")
 
 
 def card_peaks(name):
@@ -53,11 +79,40 @@ def card_peaks(name):
     raise RuntimeError(f"no peak figures for card {name!r}")
 
 
+def bound(nbytes, ops, peaks):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, ops / peaks[1] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def scan_work(batch, L, d, elem):
-    """Bytes the scan must move and operations it must do."""
+    """Bytes K1 (inference) must move and operations it must do."""
     nbytes = (batch * L * (4 * d + 2 * N) * elem       # u, delta, z, y, B, C
               + batch * d * (2 * N + 2) * 4)            # A, last, D, bias
     ops = batch * L * d * (7 * N + 8)
+    return nbytes, ops
+
+
+def train_fwd_work(batch, L, d, elem, chunk):
+    """K1, training variant: reads u, delta, B, C, writes y and the chunk
+    states, and the last state; no z."""
+    nbytes = (batch * L * (3 * d + 2 * N) * elem
+              + batch * -(-L // chunk) * d * N * 4
+              + batch * d * (2 * N + 2) * 4)
+    ops = batch * L * d * (6 * N + 4)
+    return nbytes, ops
+
+
+def bwd_work(batch, L, d, elem, chunk):
+    """K2, as the training step calls it (no dlast): reads u, delta, dy, B,
+    C and the chunk states, writes ddelta, du, dB, dC and the per-batch parameter grads.  About 21
+    operations per state and step (the recompute and the adjoint, an exp
+    as one) and 20 per channel and step."""
+    nbytes = (batch * L * (5 * d + 4 * N) * elem
+              + batch * -(-L // chunk) * d * N * 4
+              + batch * d * (2 * N + 2 + 4) * 4)      # A, D, bias; grads
+    ops = batch * L * d * (21 * N + 20)
     return nbytes, ops
 
 
@@ -73,6 +128,17 @@ def cuda_ms(fn, repeats):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """(fn(), ms) of one call timed with CUDA events."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
 
 
 def scan_inputs(batch, L, d, dtype, gen, strided=True):
@@ -96,11 +162,14 @@ def scan_inputs(batch, L, d, dtype, gen, strided=True):
     return u, delta, A, B, C, D, z, bias
 
 
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
 def phase_kernels(peaks):
     from vivim_tpu_torch.kernels import refs
     from vivim_tpu_torch.kernels import selective_scan as ss
 
-    bw, fp32 = peaks
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for si, (L, d) in enumerate(STAGES):
@@ -111,15 +180,9 @@ def phase_kernels(peaks):
                 delta_softplus=True)
             got, _ = run()
             torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            want = refs.selective_scan_ref(
+            want, plain_ms = once_ms(lambda: refs.selective_scan_ref(
                 *args[:5], D=args[5], z=args[6], delta_bias=args[7],
-                delta_softplus=True)
-            t1.record()
-            t1.synchronize()
-            plain_ms = t0.elapsed_time(t1)
+                delta_softplus=True))
             err = (got.float() - want.float()).abs().max().item()
             rtol, atol = TOL[dtype]
             torch.testing.assert_close(got.float(), want.float(),
@@ -127,28 +190,28 @@ def phase_kernels(peaks):
             run()
             ms = cuda_ms(run, 10 if L > 10000 else 30)
             nbytes, ops = scan_work(SCAN_BATCH, L, d, got.element_size())
-            t_bytes, t_ops = nbytes / bw * 1e3, ops / fp32 * 1e3
-            row = dict(stage=si, L=L, d=d, dtype=str(dtype).split(".")[-1],
+            bound_ms, bound_by = bound(nbytes, ops, peaks)
+            row = dict(stage=si, L=L, d=d, dtype=dtype_name(dtype),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bound_ms=bound_ms, bound_by=bound_by,
                        mbytes=nbytes / 1e6)
             rows.append(row)
             print(f"K1 stage {si} {row['dtype']:8s} L={L:5d} d={d:4d}: "
                   f"max_abs_err={err:.3e} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.1f} bound_ms={row['bound_ms']:.4f} "
-                  f"({row['bound_by']}, {nbytes / 1e6:.1f} MB)", flush=True)
+                  f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}, {nbytes / 1e6:.1f} MB)", flush=True)
     # ragged L and d, per-batch parameters, initial state and last state
     L, d = 333, 160
     u, delta, A, B, C, D, z, bias = scan_inputs(
         SCAN_BATCH, L, d, torch.float32, gen, strided=False)
     h0 = torch.randn(SCAN_BATCH, d, N, generator=gen, device="cuda")
-    got, got_last = ss.selective_scan(
-        u, delta, A, B, C, D, z, bias, delta_softplus=True,
-        return_last_state=True, initial_state=h0)
-    want, want_last = refs.selective_scan_ref(
-        u, delta, A, B, C, D, z, bias, delta_softplus=True,
-        return_last_state=True, initial_state=h0)
+    with torch.no_grad():
+        got, got_last = ss.selective_scan(
+            u, delta, A, B, C, D, z, bias, delta_softplus=True,
+            return_last_state=True, initial_state=h0)
+        want, want_last = refs.selective_scan_ref(
+            u, delta, A, B, C, D, z, bias, delta_softplus=True,
+            return_last_state=True, initial_state=h0)
     torch.cuda.synchronize()
     rtol, atol = TOL[torch.float32]
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
@@ -162,75 +225,198 @@ def phase_kernels(peaks):
     return rows
 
 
+def phase_train_kernels(peaks):
+    """K1's training variant and K2 at the training step's stage shapes,
+    each against its plain version on the same inputs (K2 on the chunk
+    states K1 saved), and a ragged case through the autograd Function."""
+    from vivim_tpu_torch.kernels import refs
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fwd_rows, bwd_rows = [], []
+    b = TRAIN_SCAN_BATCH
+    for si, (L, d) in enumerate(STAGES):
+        for dtype in (torch.float32, torch.bfloat16):
+            u, delta, A, B, C, D, _, bias = scan_inputs(b, L, d, dtype, gen)
+            dout = torch.randn(b, L, d, generator=gen, device="cuda").to(
+                dtype)
+            fwd = lambda: ss.selective_scan_fwd_states_cuda(
+                u, delta, A, B, C, D, bias, True)
+            got = fwd()
+            torch.cuda.synchronize()
+            want, fwd_plain = once_ms(
+                lambda: refs.selective_scan_fwd_states_ref(
+                    u, delta, A, B, C, D, bias, True, chunk=ss.CHUNK))
+            rtol, atol = TOL[dtype]
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                           atol=atol)
+            fwd_err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got, want))
+            cs = got[1]
+            bwd = lambda: ss.selective_scan_bwd_cuda(
+                u, delta, A, B, C, D, bias, cs, dout, None, True)
+            got_b = bwd()
+            torch.cuda.synchronize()
+            want_b, bwd_plain = once_ms(lambda: refs.selective_scan_bwd_ref(
+                u, delta, A, B, C, D, bias, cs, dout, None, True,
+                chunk=ss.CHUNK))
+            rtol, atol = GRAD_TOL[dtype]
+            for name, g, w in zip(GRADS, got_b, want_b):
+                torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                           atol=atol, msg=f"K2 {name}")
+            bwd_err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got_b, want_b))
+            reps = 5 if L > 10000 else 20
+            fwd_ms, bwd_ms = cuda_ms(fwd, reps), cuda_ms(bwd, reps)
+            elem = u.element_size()
+            for rows, kind, err, ms, plain, work in (
+                    (fwd_rows, "K1-train", fwd_err, fwd_ms, fwd_plain,
+                     train_fwd_work(b, L, d, elem, ss.CHUNK)),
+                    (bwd_rows, "K2", bwd_err, bwd_ms, bwd_plain,
+                     bwd_work(b, L, d, elem, ss.CHUNK))):
+                bound_ms, bound_by = bound(*work, peaks)
+                rows.append(dict(stage=si, L=L, d=d, dtype=dtype_name(dtype),
+                                 max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 mbytes=work[0] / 1e6))
+                print(f"{kind:8s} stage {si} {dtype_name(dtype):8s} "
+                      f"b={b} L={L:5d} d={d:4d}: max_abs_err={err:.3e} "
+                      f"ms={ms:.4f} plain_ms={plain:.1f} "
+                      f"bound_ms={bound_ms:.4f} ({bound_by}, "
+                      f"{work[0] / 1e6:.1f} MB)", flush=True)
+            del got, want, got_b, want_b, cs
+    # ragged: L = 333, d = 160 (ten K2 blocks), shared A / D / bias (the
+    # batch-sum path), an initial state and a non-zero dlast; the whole
+    # Function against autograd through the sequential plain scan
+    L, d = 333, 160
+    u, delta, A, B, C, D, z, bias = scan_inputs(b, L, d, torch.float32, gen,
+                                                strided=False)
+    leaves0 = dict(u=u, delta=delta, A=A[0], B=B, C=C, D=D[0], z=z,
+                   delta_bias=bias[0],
+                   initial_state=torch.randn(b, d, N, generator=gen,
+                                             device="cuda"))
+    dout = torch.randn(b, L, d, generator=gen, device="cuda")
+    dlast = torch.randn(b, d, N, generator=gen, device="cuda")
+    outs = []
+    for impl in (None, "ref"):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in leaves0.items()}
+        kw = dict(leaves)
+        c0 = (ss.TRAIN_LAUNCHES, ss.BWD_LAUNCHES)
+        y, last = ss.selective_scan(
+            kw.pop("u"), kw.pop("delta"), kw.pop("A"), kw.pop("B"),
+            kw.pop("C"), delta_softplus=True, return_last_state=True,
+            implementation=impl, **kw)
+        torch.autograd.backward((y, last), (dout, dlast))
+        launched = (ss.TRAIN_LAUNCHES - c0[0], ss.BWD_LAUNCHES - c0[1])
+        if launched != ((1, 1) if impl is None else (0, 0)):
+            raise AssertionError(f"ragged call ({impl}) launched "
+                                 f"K1-training / K2 {launched} times")
+        outs.append(dict(y=y.detach(), last=last.detach(),
+                         **{f"d{k}": v.grad for k, v in leaves.items()}))
+    torch.cuda.synchronize()
+    err = 0.0
+    for k, g in outs[0].items():
+        rtol, atol = (TOL if k in ("y", "last") else GRAD_TOL)[torch.float32]
+        torch.testing.assert_close(g, outs[1][k], rtol=rtol, atol=atol,
+                                   msg=f"ragged {k}")
+        err = max(err, (g - outs[1][k]).abs().max().item())
+    print(f"K1-train+K2 ragged float32 b={b} L={L} d={d}, shared A/D/bias, "
+          f"h0, dlast: y, last and 9 grads vs autograd through the plain "
+          f"scan: max_abs_err={err:.3e}", flush=True)
+    return fwd_rows, bwd_rows, err
+
+
 class Requests:
-    """The requests of phase 4 as an iterable loader of batch dicts."""
+    """In-memory batches of numpy dicts as an iterable loader."""
 
     def __init__(self, batches):
         self.batches = batches
         self.batch_size = batches[0]["clip"].shape[0]
 
+    def __len__(self):
+        return len(self.batches)
+
     def __iter__(self):
         return iter(self.batches)
 
 
-def make_requests(n, clip_len, size, num_classes, seed=0):
-    """(1, T, S, S, 3) normalized clips and one-hot (1, T, S, S, C) masks
-    of random discs, made by numpy from ``seed``."""
+def make_requests(n, clip_len, size, num_classes, seed=0, batch=1):
+    """(batch, T, S, S, 3) normalized clips and one-hot (batch, T, S, S, C)
+    masks of random discs, made by numpy from ``seed``."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:size, :size]
     batches = []
     for _ in range(n):
-        clip = rng.standard_normal((1, clip_len, size, size, 3), np.float32)
-        labels = np.zeros((clip_len, size, size), np.int64)
-        for t in range(clip_len):
-            for c in range(1, num_classes):
-                cy, cx = rng.integers(size // 8, size - size // 8, 2)
-                r = rng.integers(size // 16, size // 4)
-                labels[t][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = c
-        masks = np.eye(num_classes, dtype=np.float32)[labels][None]
+        clip = rng.standard_normal((batch, clip_len, size, size, 3),
+                                   np.float32)
+        labels = np.zeros((batch, clip_len, size, size), np.int64)
+        for b in range(batch):
+            for t in range(clip_len):
+                for c in range(1, num_classes):
+                    cy, cx = rng.integers(size // 8, size - size // 8, 2)
+                    r = rng.integers(size // 16, size // 4)
+                    labels[b, t][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = c
+        masks = np.eye(num_classes, dtype=np.float32)[labels]
         batches.append({"clip": clip, "masks": masks})
     return batches
 
 
-def phase_serve():
-    import argparse
-    import dataclasses
-    import tempfile
+def counts():
+    from vivim_tpu_torch.kernels import selective_scan as ss
 
+    return {"K1 inference": ss.LAUNCHES, "K1 training": ss.TRAIN_LAUNCHES,
+            "K2": ss.BWD_LAUNCHES}
+
+
+def reset_counts():
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    ss.LAUNCHES = ss.TRAIN_LAUNCHES = ss.BWD_LAUNCHES = 0
+
+
+def model_args(segformer, nc=3):
+    return argparse.Namespace(segformer=segformer, num_classes=nc,
+                              with_edge=False)
+
+
+def phase_serve(segformer="b3", size=256, clip_len=5, n_req=4):
     from vivim_tpu_torch.cli.common import build_model
     from vivim_tpu_torch.cli.infer import run_inference
-    from vivim_tpu_torch.kernels import selective_scan as ss
     from vivim_tpu_torch.nn.vivim import Vivim
 
-    n_req, clip_len, size, nc = 4, 5, 256, 3
+    nc = 3
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
         args = argparse.Namespace(
-            segformer="b3", num_classes=nc, with_edge=False,
-            clip_length=clip_len, image_size=size, output_dir=out_dir,
-            save_vis=False, vis_count=0)
+            **vars(model_args(segformer, nc)), clip_length=clip_len,
+            image_size=size, output_dir=out_dir, save_vis=False,
+            vis_count=0)
         model, cfg = build_model(args, device="cuda", seed=0)
         n_params = sum(p.numel() for p in model.parameters())
         batches = make_requests(n_req, clip_len, size, nc)
-        print(f"serve: MiT-b3 Vivim, {n_params / 1e6:.2f} M parameters, "
-              f"depths {tuple(cfg.depths)}, built in "
+        print(f"serve: MiT-{segformer} Vivim, {n_params / 1e6:.2f} M "
+              f"parameters, depths {tuple(cfg.depths)}, built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         torch.cuda.reset_peak_memory_stats()
-        ss.LAUNCHES = 0
+        reset_counts()
         results, cm, perf = run_inference(args, model, Requests(batches),
                                           device="cuda")
-        launches = ss.LAUNCHES
+        launched = counts()
     per_fwd = sum(cfg.depths)
-    if launches != per_fwd * n_req:
-        raise AssertionError(f"K1 launched {launches} times for {n_req} "
-                             f"forwards, expected {per_fwd * n_req}")
+    if launched != {"K1 inference": per_fwd * n_req, "K1 training": 0,
+                    "K2": 0}:
+        raise AssertionError(f"serving {n_req} forwards launched "
+                             f"{launched}; expected {per_fwd} inference K1 "
+                             "launches per forward and nothing else")
     if int(cm.sum()) != n_req * clip_len * size * size:
         raise AssertionError(f"confusion matrix counts {int(cm.sum())} "
                              "pixels")
     print(f"serve: {n_req} requests of (1, {clip_len}, {size}, {size}, 3): "
-          f"K1 launches {launches} ({launches // n_req} per forward), "
+          f"launches {launched} ({per_fwd} K1 per forward), "
           f"fps {perf['fps']:.2f}, per-batch ms "
           f"{perf['avg_batch_time'] * 1e3:.3f} avg, "
           f"{perf['min_batch_time'] * 1e3:.3f} min, "
@@ -257,52 +443,277 @@ def phase_serve():
     print(f"serve: logits vs plain-scan model: max_abs_err={err:.3e} "
           f"(atol 1e-3), |logits| max {want.abs().max().item():.3f}; plain "
           f"forward {ref_s:.1f} s", flush=True)
-    phase_profile(model, clip0)
-    return launches, perf
+
+    def forward():
+        with torch.inference_mode():
+            model(clip0)
+
+    phase_profile("serve forward", forward)
+    return launched, perf
 
 
-def phase_profile(model, clip, n_fwd=3):
-    """Device time of ``n_fwd`` forwards by kernel group (torch.profiler),
-    and the device's busy share of the window's wall time."""
+# first match wins: cuDNN's conv kernels carry "gemm" in their names
+PROFILE_GROUPS = {
+    "selective_scan_bwd (K2)": ("selective_scan_bwd", "sum_partials"),
+    "selective_scan_fwd (K1)": ("selective_scan_fwd",),
+    "conv": ("conv", "fprop", "dgrad", "wgrad", "winograd"),
+    "layout (cudnn nhwc<->nchw)": ("nhwctonchw", "nchwtonhwc"),
+    "matmul": ("gemm", "cutlass", "cublas"),
+}
+
+
+def phase_profile(label, run, n_runs=3):
+    """Device time of ``n_runs`` calls of ``run`` by kernel group
+    (torch.profiler), and the device's busy share of the window's wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
-    # first match wins: cuDNN's conv kernels carry "gemm" in their names
-    groups = {"selective_scan_fwd (K1)": ("selective_scan_fwd",),
-              "conv": ("conv", "fprop", "winograd"),
-              "layout (cudnn nhwc<->nchw)": ("nhwctonchw", "nchwtonhwc"),
-              "matmul": ("gemm", "cutlass", "cublas")}
-    with torch.inference_mode():
-        model(clip)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_runs):
+            run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_fwd):
-                model(clip)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n_fwd
-    kernels = [(e.name, e.time_range.elapsed_us() / 1e3 / n_fwd)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_runs
+    kernels = [(e.name, e.time_range.elapsed_us() / 1e3 / n_runs)
                for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("profile: no device events recorded", flush=True)
+        print(f"profile {label}: no device events recorded", flush=True)
         return
     busy_ms = sum(ms for _, ms in kernels)
     by_group, by_name = {}, {}
     for name, ms in kernels:
         low = name.lower()
-        g = next((g for g, keys in groups.items()
+        g = next((g for g, keys in PROFILE_GROUPS.items()
                   if any(k in low for k in keys)), "other")
         by_group[g] = by_group.get(g, 0.0) + ms
         by_name[name] = by_name.get(name, 0.0) + ms
-    print(f"profile: per forward {wall_ms:.3f} ms wall, {busy_ms:.3f} ms "
-          f"device busy ({100 * busy_ms / wall_ms:.1f} %), "
-          f"{len(kernels) // n_fwd} kernels", flush=True)
+    print(f"profile {label}: per call {wall_ms:.3f} ms wall, {busy_ms:.3f} "
+          f"ms device busy ({100 * busy_ms / wall_ms:.1f} %), "
+          f"{len(kernels) // n_runs} kernels", flush=True)
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"profile: group {g:26s} {ms:9.3f} ms "
+        print(f"profile {label}: group {g:26s} {ms:9.3f} ms "
               f"({100 * ms / busy_ms:.1f} % of busy)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"profile: kernel {ms:9.3f} ms {name[:90]}")
+        print(f"profile {label}: kernel {ms:9.3f} ms {name[:90]}")
+
+
+def _recorded(fn, log, dev):
+    """``fn`` that appends (ms, launches, result) of each call to
+    ``log``; CUDA-event time on the card, host time on the CPU."""
+    from vivim_tpu_torch.cli.infer import _timed
+
+    def run(*args):
+        c0 = counts()
+        out, secs = _timed(dev, lambda: fn(*args))
+        log.append((secs * 1e3, {k: v - c0[k] for k, v in counts().items()},
+                    out))
+        return out
+
+    return run
+
+
+def _check_launches(log, want, what):
+    for i, (_, launched, _) in enumerate(log):
+        if launched != want:
+            raise AssertionError(f"{what} {i} launched {launched}, "
+                                 f"expected {want}")
+
+
+def _step_summary(label, log, batch):
+    ms = [m for m, _, _ in log[1:]] or [log[0][0]]
+    med = statistics.median(ms)
+    print(f"train {label}: {len(log)} steps of batch {batch}, step ms "
+          f"{log[0][0]:.1f} first, {min(ms):.3f} min, {med:.3f} median "
+          f"over the rest; {batch / med * 1e3:.3f} clips/s; losses "
+          + ", ".join(f"{float(o[1]['loss']):.4f}" for _, _, o in log)
+          + "; grad norms "
+          + ", ".join(f"{float(o[1]['grad_norm']):.4f}" for _, _, o in log),
+          flush=True)
+    return {"steps": len(log), "first_ms": log[0][0], "min_ms": min(ms),
+            "median_ms": med, "clips_per_s": batch / med * 1e3}
+
+
+def phase_train(dev="cuda", segformer="b3", size=256, clip_len=5,
+                batch=TRAIN_BATCH, n_steps=4, n_val=2, n_bf16=3):
+    """Trainer.fit (fp32) with a validation pass, then bf16 steps."""
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.train import loop
+    from vivim_tpu_torch.train.logging import MetricLogger
+    from vivim_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    model, cfg = build_model(model_args(segformer), device=dev, seed=0)
+    per_pass = sum(cfg.depths)
+    train = make_requests(n_steps, clip_len, size, 3, seed=1, batch=batch)
+    val = make_requests(n_val, clip_len, size, 3, seed=2, batch=batch)
+    steps, evals = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(
+            model, TrainerConfig(epochs=1, log_every=1, seed=0,
+                                 device=str(dev)),
+            Requests(train), Requests(val), os.path.join(tmp, "ckpt"),
+            MetricLogger(os.path.join(tmp, "logs")))
+        trainer.train_step = _recorded(trainer.train_step, steps, dev)
+        trainer.eval_step = _recorded(trainer.eval_step, evals, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        if on_card:
+            _check_launches(steps, {"K1 inference": 0,
+                                    "K1 training": per_pass,
+                                    "K2": per_pass}, "train step")
+            _check_launches(evals, {"K1 inference": per_pass,
+                                    "K1 training": 0, "K2": 0},
+                            "validation forward")
+        if len(steps) != n_steps or len(evals) != n_val:
+            raise AssertionError(f"{len(steps)} steps, {len(evals)} "
+                                 "validation batches")
+        for _, _, (_, m) in steps:
+            for k in ("loss", "grad_norm"):
+                if not math.isfinite(float(m[k])):
+                    raise AssertionError(f"train {k} {float(m[k])}")
+        last = trainer.ckpt.last_path()
+        if last is None or not last.endswith(f"last_{n_steps}.pt"):
+            raise AssertionError(f"no last checkpoint: {last}")
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        trainer.state.step = -1
+        trainer.ckpt.restore(trainer.state, last)
+        if trainer.state.step != n_steps or any(
+                not torch.equal(v, saved[k])
+                for k, v in model.state_dict().items()):
+            raise AssertionError("the checkpoint did not restore the state")
+    fp32 = _step_summary("fp32 (Trainer.fit)", steps, batch)
+    print(f"train fp32: fit {fit_s:.1f} s for {n_steps} steps + {n_val} "
+          f"validation batches; launches {launched}; validation forward ms "
+          + ", ".join(f"{m:.3f}" for m, _, _ in evals)
+          + f"; peak memory {peak / 2**30:.2f} GiB; checkpoint "
+          f"{os.path.basename(last)} restored", flush=True)
+
+    state = loop.create_train_state(model, 1e-4, 1e-2, n_bf16, seed=1)
+    step = loop.make_train_step(model, "recall_focused", 3,
+                                compute_dtype=torch.bfloat16)
+    bf16_log = []
+    run = _recorded(step, bf16_log, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(n_bf16):
+        b_ = {k: torch.from_numpy(v).to(dev)
+              for k, v in train[i % n_steps].items()}
+        run(state, b_)
+    peak_bf16 = torch.cuda.max_memory_allocated() if on_card else 0
+    if on_card:
+        _check_launches(bf16_log, {"K1 inference": 0,
+                                   "K1 training": per_pass,
+                                   "K2": per_pass}, "bf16 train step")
+    for _, _, (_, m) in bf16_log:
+        for k in ("loss", "grad_norm"):
+            if not math.isfinite(float(m[k])):
+                raise AssertionError(f"bf16 train {k} {float(m[k])}")
+    bf16 = _step_summary("bf16 (make_train_step)", bf16_log, batch)
+    print(f"train bf16: peak memory {peak_bf16 / 2**30:.2f} GiB", flush=True)
+
+    if on_card:
+        fp32_step = loop.make_train_step(model, "recall_focused", 3)
+        b0 = {k: torch.from_numpy(v).to(dev) for k, v in train[0].items()}
+        phase_profile("train step fp32",
+                      lambda: fp32_step(trainer.state, b0), n_runs=2)
+        phase_profile("train step bf16", lambda: step(state, b0), n_runs=2)
+    return launched, dict(fp32=fp32, bf16=bf16, peak_gib=peak / 2**30,
+                          peak_bf16_gib=peak_bf16 / 2**30)
+
+
+def phase_train_vs_plain(dev="cuda", segformer="b3", size=256, clip_len=5):
+    """One fp32 step (forward, loss, backward) of the same weights through
+    the kernels and through the plain scan, every dropout at 0."""
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.nn.layers import init_weights, use_generator
+    from vivim_tpu_torch.nn.vivim import Vivim
+    from vivim_tpu_torch.train import loop
+    from vivim_tpu_torch.train.losses import LOSSES
+
+    dev = torch.device(dev)
+    _, cfg = build_model(model_args(segformer), device="cpu", seed=0)
+    cfg = dataclasses.replace(
+        cfg, drop_path_rate=0.0, dropout_rate=0.0,
+        segformer=dataclasses.replace(cfg.segformer, drop_path_rate=0.0,
+                                      classifier_dropout=0.0))
+    batch = make_requests(1, clip_len, size, 3, seed=3)[0]
+    clip = torch.from_numpy(batch["clip"]).to(dev)
+    masks = torch.from_numpy(batch["masks"]).to(dev)
+    results = []
+    for impl in (None, "ref"):  # impl None: the kernels
+        model = init_weights(Vivim(dataclasses.replace(
+            cfg, scan_implementation=impl)), torch.Generator().manual_seed(0))
+        model = use_generator(model.to(dev).train(),
+                              torch.Generator(dev).manual_seed(0))
+        t0 = time.perf_counter()
+        logits, targets = loop.flatten_frames(model(clip), masks)
+        loss = LOSSES["recall_focused"](logits, targets, 3)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        results.append((loss.item(), {n: p.grad for n, p in
+                                      model.named_parameters()
+                                      if p.grad is not None}, secs))
+        del model, logits, loss
+    (loss_k, grads_k, secs_k), (loss_r, grads_r, secs_r) = results
+    if not math.isfinite(loss_k) or abs(loss_k - loss_r) > 1e-5 * abs(loss_r):
+        raise AssertionError(f"loss {loss_k} vs plain scan {loss_r}")
+    if set(grads_k) != set(grads_r):
+        raise AssertionError("the two steps give gradients to different "
+                             "parameters")
+    worst, x_proj = 0.0, []
+    for name, g in grads_k.items():
+        torch.testing.assert_close(g, grads_r[name], rtol=1e-3, atol=2e-3,
+                                   msg=name)
+        err = (g - grads_r[name]).abs().max().item()
+        worst = max(worst, err)
+        if ".x_proj" in name:
+            x_proj.append((err, grads_r[name].abs().max().item()))
+    if len(x_proj) != 3 * sum(cfg.depths):
+        raise AssertionError(f"{len(x_proj)} x_proj gradients compared")
+    # their scale can sit far below atol: hold them to rtol 1e-3 of their
+    # largest element as well (the gradients F1 corrupts in Pallas)
+    for err, scale in x_proj:
+        if err > 1e-3 * scale:
+            raise AssertionError(f"x_proj gradient error {err:.3e} above "
+                                 f"1e-3 of its scale {scale:.3e}")
+    print(f"train vs plain: fp32 step, batch 1, dropouts 0: loss "
+          f"{loss_k:.7f} vs {loss_r:.7f} (rel "
+          f"{abs(loss_k - loss_r) / abs(loss_r):.2e}); {len(grads_k)} "
+          f"parameter gradients within rtol 1e-3 / atol 2e-3, max abs err "
+          f"{worst:.3e}; the {len(x_proj)} x_proj / x_proj_b / x_proj_s "
+          f"gradients: max abs err {max(e for e, _ in x_proj):.3e} at "
+          f"|grad| max {max(m for _, m in x_proj):.3e}; kernel step "
+          f"{secs_k:.2f} s, plain-scan step {secs_r:.1f} s", flush=True)
+    return worst
+
+
+def _kernel_entry(name, source, replaces, launches, rows, per, **extra):
+    fp32 = [r for r in rows if r["dtype"] == "float32" and "ms" in r]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows
+                        if r["dtype"] == "float32"),
+        per=per,
+        ms=sum(LAYERS_PER_STAGE * r["ms"] for r in fp32),
+        plain_ms=sum(LAYERS_PER_STAGE * r["plain_ms"] for r in fp32),
+        bound_ms=sum(LAYERS_PER_STAGE * r["bound_ms"] for r in fp32),
+        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in fp32)
+                  else "operations"),
+        library_ms=None, ok=True, shapes=rows, **extra)
 
 
 def main():
@@ -315,13 +726,20 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("tf32: cudnn.allow_tf32=False cuda.matmul.allow_tf32=False")
+    t_start = time.perf_counter()
 
+    def done(phase, t0):
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
     secs = _build.build_all()
-    print(f"build: {secs:.1f} s for {len(_build.SOURCES)} CUDA source(s)")
+    print(f"build: {secs:.1f} s for {len(_build.SOURCES)} CUDA sources")
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    t0 = done("1 build", t0)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -332,29 +750,42 @@ def main():
     peaks = card_peaks(kind)
 
     rows = phase_kernels(peaks)
-    launches, _ = phase_serve()
+    t0 = done("3 K1 inference", t0)
+    fwd_rows, bwd_rows, ragged_err = phase_train_kernels(peaks)
+    t0 = done("3b K1 training + K2", t0)
+    serve_launched, _ = phase_serve()
+    t0 = done("4 serve", t0)
+    train_launched, train_perf = phase_train()
+    t0 = done("5 train", t0)
+    phase_train_vs_plain()
+    t0 = done("5b train vs plain scan", t0)
 
-    fp32 = [r for r in rows if r["dtype"] == "float32" and "ms" in r]
-    kernels = {"kernels": [{
-        "name": "selective_scan_fwd",
-        "route": "cuda",
-        "source": "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
-        "replaces": f"{JAX_PACKAGE}/kernels/selective_scan.py:174",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
-        "per": f"forward: {LAYERS_PER_STAGE} launches at each stage shape, "
-               "fp32, each timed alone",
-        "ms": sum(LAYERS_PER_STAGE * r["ms"] for r in fp32),
-        "plain_ms": sum(LAYERS_PER_STAGE * r["plain_ms"] for r in fp32),
-        "bound_ms": sum(LAYERS_PER_STAGE * r["bound_ms"] for r in fp32),
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in fp32)
-                     else "operations"),
-        "library_ms": None,
-        "ok": True,
-        "shapes": rows,
-    }]}
-    print(json.dumps(kernels))
+    k1 = _kernel_entry(
+        "selective_scan_fwd",
+        "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
+        f"{JAX_PACKAGE}/kernels/selective_scan.py:174",
+        serve_launched["K1 inference"] + train_launched["K1 inference"]
+        + train_launched["K1 training"], rows,
+        f"serving forward: {LAYERS_PER_STAGE} inference launches at each "
+        "stage shape (scan batch 3), fp32, each timed alone",
+        launches_by_path={"serve": serve_launched, "train": train_launched},
+        training_variant=_kernel_entry(
+            "selective_scan_fwd (training variant)",
+            "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
+            f"{JAX_PACKAGE}/kernels/selective_scan.py:174",
+            train_launched["K1 training"], fwd_rows,
+            f"train step: {LAYERS_PER_STAGE} launches at each stage shape "
+            f"(scan batch {TRAIN_SCAN_BATCH}), fp32, each timed alone"))
+    k2 = _kernel_entry(
+        "selective_scan_bwd",
+        "vivim_tpu_torch/kernels/csrc/selective_scan_bwd.cu",
+        f"{JAX_PACKAGE}/kernels/selective_scan.py:227",
+        train_launched["K2"], bwd_rows,
+        f"train step: {LAYERS_PER_STAGE} launches at each stage shape "
+        f"(scan batch {TRAIN_SCAN_BATCH}), fp32, each timed alone",
+        ragged_max_abs_err=ragged_err)
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": [k1, k2], "train": train_perf}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""The PyTorch port's CUDA kernel on the card, against its plain version.
+"""The PyTorch port's CUDA kernels on the card, against their plain versions.
 
 Marked ``cuda``: each test skips without a CUDA device.  The file imports
 torch and the port only, so it runs on a machine without JAX:
@@ -7,7 +7,7 @@ torch and the port only, so it runs on a machine without JAX:
 
 (``--noconftest`` because tests/conftest.py sets up JAX.)  Tolerances are
 the JAX suite's: fp32 rtol 6e-4 / atol 2e-3, bf16 rtol 3e-2 / atol 5e-2;
-model logits atol 1e-3.
+grads rtol 1e-3 / atol 2e-3; model logits atol 1e-3.
 """
 
 import dataclasses
@@ -22,6 +22,7 @@ from vivim_tpu_torch.kernels import selective_scan as ss
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
+GRAD_TOL = {torch.float32: (1e-3, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 
 
 @pytest.fixture
@@ -89,9 +90,6 @@ def test_grouped_bc_and_shared_params(cuda):
 
 def test_cuda_refuses_what_has_no_kernel(cuda):
     t = _inputs(cuda, b=1, L=16, d=8)
-    with pytest.raises(NotImplementedError, match="K2"):
-        _scan(ss.selective_scan, dict(t, u=t["u"].requires_grad_(True)),
-              torch.float32)
     with pytest.raises(NotImplementedError, match="constant"):
         with torch.no_grad():
             ss.selective_scan(t["u"], t["delta"], t["A"][0],
@@ -101,6 +99,74 @@ def test_cuda_refuses_what_has_no_kernel(cuda):
         with torch.no_grad():
             ss.selective_scan(t["u"], t["delta"], t["A"][..., :8],
                               t["B"][..., :8], t["C"][..., :8])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_match_plain_versions(cuda, dtype):
+    """K1's training variant and K2 against their plain versions: ragged L,
+    d = 160 (ten K2 blocks), shared A / D / bias, an initial state and a
+    non-zero dlast.  K2 runs on K1's own chunk states, so each kernel is
+    held alone."""
+    t = _inputs(cuda)
+    u, delta = t["u"].to(dtype), t["delta"].to(dtype)
+    B, C = t["B"].to(dtype), t["C"].to(dtype)
+    A, D, bias = t["A"][0], t["D"][0], t["delta_bias"][0]
+    h0 = t["initial_state"]
+    got = ss.selective_scan_fwd_states_cuda(u, delta, A, B, C, D, bias,
+                                            True, h0)
+    want = refs.selective_scan_fwd_states_ref(u, delta, A, B, C, D, bias,
+                                              True, h0, chunk=ss.CHUNK)
+    rtol, atol = TOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+    rng = np.random.default_rng(3)
+    dout = torch.from_numpy(rng.standard_normal(u.shape).astype(
+        np.float32)).to(cuda, dtype)
+    dlast = torch.from_numpy(rng.standard_normal(h0.shape).astype(
+        np.float32)).to(cuda)
+    before = ss.BWD_LAUNCHES
+    got = ss.selective_scan_bwd_cuda(u, delta, A, B, C, D, bias, got[1],
+                                     dout, dlast, True)
+    assert ss.BWD_LAUNCHES == before + 1
+    want = refs.selective_scan_bwd_ref(u, delta, A, B, C, D, bias,
+                                       want[1], dout, dlast, True,
+                                       chunk=ss.CHUNK)
+    torch.cuda.synchronize()
+    rtol, atol = GRAD_TOL[dtype]
+    names = ("ddelta", "du", "dB", "dC", "dA", "dD", "dbias", "dh0")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == (dtype if name in ("ddelta", "du", "dB", "dC")
+                           else torch.float32), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+
+
+def test_cuda_call_with_grad_launches_k2(cuda):
+    """A CUDA call that needs a gradient runs K1's training variant and K2
+    (z gated outside the kernels), and its nine gradients match autograd
+    through the sequential plain version."""
+    t = _inputs(cuda, b=2, L=77, d=40)
+    rng = np.random.default_rng(4)
+    dout = torch.from_numpy(rng.standard_normal((2, 77, 40)).astype(
+        np.float32)).to(cuda)
+    dlast = torch.from_numpy(rng.standard_normal((2, 40, 16)).astype(
+        np.float32)).to(cuda)
+    grads = []
+    for impl in (None, "ref"):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in t.items()}
+        counts = (ss.LAUNCHES, ss.TRAIN_LAUNCHES, ss.BWD_LAUNCHES)
+        y, last = _scan(lambda *a, **k: ss.selective_scan(
+            *a, implementation=impl, **k), leaves, torch.float32)
+        torch.autograd.backward((y, last), (dout, dlast))
+        launched = tuple(c1 - c0 for c0, c1 in zip(
+            counts, (ss.LAUNCHES, ss.TRAIN_LAUNCHES, ss.BWD_LAUNCHES)))
+        assert launched == ((0, 1, 1) if impl is None else (0, 0, 0))
+        grads.append({k: v.grad for k, v in leaves.items()})
+    torch.cuda.synchronize()
+    for k, g in grads[0].items():
+        torch.testing.assert_close(g, grads[1][k], rtol=1e-3, atol=2e-3,
+                                   msg=k)
 
 
 def test_tiny_vivim_kernel_vs_plain_scan(cuda):
@@ -121,3 +187,45 @@ def test_tiny_vivim_kernel_vs_plain_scan(cuda):
         assert ss.LAUNCHES - before == sum(cfg.depths)
         want = ref(clip)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+def test_tiny_vivim_train_step_kernel_vs_plain_scan(cuda):
+    """One train step of a tiny model through the kernels (8 K1-training
+    and 8 K2 launches) against the same step on the plain scan, dropouts
+    at 0: loss, jaccard and grad norm, and every gradient within rtol 1e-3
+    / atol 2e-3."""
+    from vivim_tpu_torch.nn.layers import init_weights
+    from vivim_tpu_torch.nn.vivim import Vivim, VivimConfig
+    from vivim_tpu_torch.train import loop
+
+    cfg = VivimConfig.tiny_test(scan_implementation=None)
+    cfg = dataclasses.replace(
+        cfg, drop_path_rate=0.0, dropout_rate=0.0,
+        segformer=dataclasses.replace(cfg.segformer, drop_path_rate=0.0,
+                                      classifier_dropout=0.0))
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 3, (2, 3, 48, 48))
+    batch = {"clip": torch.from_numpy(rng.standard_normal(
+                 (2, 3, 48, 48, 3)).astype(np.float32)).to(cuda),
+             "masks": torch.from_numpy(np.eye(3, dtype=np.float32)[
+                 labels]).to(cuda)}
+    out = []
+    for impl in (None, "ref"):
+        model = init_weights(Vivim(dataclasses.replace(
+            cfg, scan_implementation=impl)), torch.Generator().manual_seed(0))
+        model = model.to(cuda)
+        state = loop.create_train_state(model, 1e-3, 1e-2, 1, seed=0)
+        c0 = (ss.LAUNCHES, ss.TRAIN_LAUNCHES, ss.BWD_LAUNCHES)
+        _, m = loop.make_train_step(model)(state, batch)
+        launched = (ss.LAUNCHES - c0[0], ss.TRAIN_LAUNCHES - c0[1],
+                    ss.BWD_LAUNCHES - c0[2])
+        assert launched == ((0, 8, 8) if impl is None else (0, 0, 0))
+        out.append((m, {n: p.grad for n, p in model.named_parameters()
+                        if p.grad is not None}))
+    (m_k, g_k), (m_r, g_r) = out
+    for k in ("loss", "jaccard", "grad_norm"):
+        torch.testing.assert_close(m_k[k], m_r[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
+    assert set(g_k) == set(g_r) and len(g_k) > 300
+    for n, g in g_k.items():
+        torch.testing.assert_close(g, g_r[n], rtol=1e-3, atol=2e-3, msg=n)

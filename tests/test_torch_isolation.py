@@ -70,3 +70,19 @@ def test_entry_points_need_cuda_by_default(tmp_path):
         infer.run_inference(args, model, [])
     assert infer.parse_args(["--ckpt", "x", "--data_dir", "y"]).device \
         == "cuda"
+
+
+def test_trainer_needs_cuda_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    from vivim_tpu_torch.nn.layers import init_weights
+    from vivim_tpu_torch.nn.vivim import Vivim, VivimConfig
+    from vivim_tpu_torch.train.logging import MetricLogger
+    from vivim_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    assert TrainerConfig().device == "cuda"
+    model = init_weights(Vivim(VivimConfig.micro_test()),
+                         torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, TrainerConfig(), [None], [], str(tmp_path / "c"),
+                MetricLogger(str(tmp_path / "l")))

@@ -91,16 +91,23 @@ def test_seeded_init_follows_the_reference_scheme():
 
 def test_drop_layers():
     """DropPath and FastDropout: identity in eval; in training each
-    element (DropPath: each sample) is zero or scaled by 1/keep."""
+    element (DropPath: each sample) is zero or scaled by 1/keep, drawn from
+    the explicit generator they are given (none set: they raise)."""
     from vivim_tpu_torch.nn.layers import DropPath, FastDropout
 
     x = torch.ones(64, 3, 5)
+    gen = torch.Generator().manual_seed(0)
     for layer, keep in ((DropPath(0.25), 0.75),
                         (FastDropout(0.25), 192 / 256)):
         assert torch.equal(layer.eval()(x), x)
+        with pytest.raises(RuntimeError, match="explicit generator"):
+            layer.train()(x)
+        layer.generator = gen
         y = layer.train()(x)
         vals = torch.unique(y)
         assert len(vals) == 2 and vals[0] == 0, vals
         assert vals[1] == torch.tensor(1.0 / keep), vals
-    y = DropPath(0.5).train()(x)
+    dp = DropPath(0.5).train()
+    dp.generator = gen
+    y = dp(x)
     assert all(len(set(row.flatten().tolist())) == 1 for row in y)

@@ -125,8 +125,40 @@ def test_hf_segformer_snapshot_maps_like_jax():
                                       np.asarray(v), err_msg=str(path))
 
 
-def test_train_mode_forward_raises():
-    model, _ = _port_model("micro", False)
-    model.train()
-    with pytest.raises(NotImplementedError, match="train-mode"):
-        model(torch.zeros(1, 1, 32, 32, 3))
+def test_train_mode_forward_matches_jax():
+    """The train-mode decode (upsample, concat of the reversed scales, fuse,
+    BatchNorm on batch statistics) against JAX ``deterministic=False`` with
+    every dropout at 0: logits, and the running statistics updated as flax
+    does (biased batch variance, momentum 0.9)."""
+    import dataclasses
+
+    from vivim_tpu_torch.nn.layers import use_generator
+
+    def no_drop(c):
+        return dataclasses.replace(
+            c, drop_path_rate=0.0, dropout_rate=0.0,
+            segformer=dataclasses.replace(c.segformer, drop_path_rate=0.0,
+                                          classifier_dropout=0.0))
+
+    model = Vivim(no_drop(VivimConfig.micro_test()))
+    model.load_state_dict(_port_model("micro", False)[0].state_dict())
+    jcfg = no_drop(JConfig.micro_test())
+    variables = vivim_params_from_torch(_numpy_sd(model), jcfg)
+    clip = np.random.default_rng(2).standard_normal(
+        (2, 2, 32, 32, 3)).astype(np.float32)
+    want, upd = JVivim(jcfg).apply(variables, jnp.asarray(clip),
+                                   deterministic=False,
+                                   rngs={"dropout": jax.random.PRNGKey(0)},
+                                   mutable=["batch_stats"])
+    use_generator(model.train(), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got = model(torch.from_numpy(clip))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
+                               atol=1e-3)
+    bn = model.decoder.batch_norm
+    jbn = upd["batch_stats"]["batch_norm"]
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(jbn["mean"]), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(jbn["var"]), rtol=1e-3, atol=1e-4)
+    assert int(bn.num_batches_tracked) == 1

@@ -179,10 +179,9 @@ def _save_vis(args, batch, preds, start_idx):
 
 def plot_confusion_matrices(cm, output_dir):
     """Raw / row-normalized / column-normalized heatmaps -> PNGs."""
-    import matplotlib
-
-    matplotlib.use("Agg")
     import matplotlib.pyplot as plt
+
+    from vivim_tpu_torch.train.logging import confusion_heatmap
 
     cm = cm.astype(np.float64)
     variants = {
@@ -193,22 +192,7 @@ def plot_confusion_matrices(cm, output_dir):
             cm / np.maximum(cm.sum(0, keepdims=True), 1),
     }
     for name, mat in variants.items():
-        fig, ax = plt.subplots(figsize=(5, 4))
-        im = ax.imshow(mat, cmap="Blues")
-        for i in range(mat.shape[0]):
-            for j in range(mat.shape[1]):
-                ax.text(j, i, f"{mat[i, j]:.2f}" if mat.max() <= 1
-                        else f"{int(mat[i, j])}", ha="center", va="center",
-                        fontsize=8)
-        names = CLASS_NAMES[: mat.shape[0]]
-        ax.set_xticks(range(len(names)))
-        ax.set_xticklabels(names, rotation=30)
-        ax.set_yticks(range(len(names)))
-        ax.set_yticklabels(names)
-        ax.set_xlabel("prediction")
-        ax.set_ylabel("ground truth")
-        fig.colorbar(im)
-        fig.tight_layout()
+        fig = confusion_heatmap(mat, CLASS_NAMES)
         fig.savefig(os.path.join(output_dir, f"{name}.png"))
         plt.close(fig)
 

@@ -1,9 +1,14 @@
-// Selective-scan (Mamba S6) forward for Hopper (sm_90a), inference primal.
+// Selective-scan (Mamba S6) forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
 // the JAX package's kernels/selective_scan.py:174-219 (launched by `_fwd_call`,
-// pl.pallas_call at :390) on the path that kernel takes when serving:
-// `save_cs=False`, silu(z) gate inside the kernel.  For every (b, d, n):
+// pl.pallas_call at :390) in both of its variants:
+// - inference (`save_cs=False`): silu(z) gate inside the kernel;
+// - training (`save_cs=True`, `has_z=False`): no z; the state *before*
+//   every kChunk-th step is written out in fp32 (chunk-start states,
+//   (batch, ceil(L / kChunk), D, N)) for the backward kernel
+//   (selective_scan_bwd.cu), which recomputes h inside each chunk from them.
+// For every (b, d, n):
 //
 //   dt_t = softplus(delta_t + bias)                (when `softplus` is set)
 //   h_t  = exp(dt_t * A) * h_{t-1} + dt_t * u_t * B_t     h_0 = h0 or 0, fp32
@@ -43,6 +48,11 @@ namespace {
 constexpr int kN = 16;                  // d_state: lanes per channel
 constexpr int kChannels = 32 / kN;      // channels per warp (= per block)
 constexpr int kTile = 8;                // timesteps per register tile
+// Steps per saved chunk-start state.  selective_scan_bwd.cu holds one
+// chunk of recomputed states in registers, which is what bounds it; the
+// Python wrapper passes its own value and the launch refuses a mismatch.
+constexpr int kChunk = 16;
+static_assert(kChunk % kTile == 0, "chunk starts must fall on tile starts");
 
 struct Params {
   const void* u;
@@ -56,6 +66,7 @@ struct Params {
   const float* h0;      // (batch, D, N) or null
   void* y;              // (batch, L, D) in T, strides y_sb, y_sl
   float* last;          // (batch, D, N) contiguous
+  float* cs;            // (batch, ceil(L / kChunk), D, N) or null
   int L, D;
   int64_t u_sb, u_sl, dl_sb, dl_sl, z_sb, z_sl, y_sb, y_sl;
   int64_t B_sb, B_sl, C_sb, C_sl;
@@ -98,7 +109,7 @@ struct Tile {
   }
 };
 
-template <typename T, bool kHasZ>
+template <typename T, bool kHasZ, bool kSaveCS>
 __global__ void __launch_bounds__(32)
 selective_scan_fwd_kernel(Params p) {
   const int n = threadIdx.x % kN;
@@ -124,7 +135,10 @@ selective_scan_fwd_kernel(Params p) {
 
   Tile<T, kHasZ> cur, nxt;
   cur.load(u_p, dl_p, z_p, B_p, C_p, p, 0, live);
+  const int64_t n_chunks = (p.L + kChunk - 1) / kChunk;
   for (int t0 = 0; t0 < p.L; t0 += kTile) {
+    if (kSaveCS && t0 % kChunk == 0 && live)
+      p.cs[((b * n_chunks + t0 / kChunk) * p.D + d) * kN + n] = h;
     // issue the next tile's loads before this tile's arithmetic
     nxt.load(u_p, dl_p, z_p, B_p, C_p, p, t0 + kTile, live);
 #pragma unroll
@@ -155,10 +169,14 @@ cudaError_t launch(const Params& p, int batch, bool has_z,
                    cudaStream_t stream) {
   dim3 grid((p.D + kChannels - 1) / kChannels, batch);
   dim3 block(32);
-  if (has_z)
-    selective_scan_fwd_kernel<T, true><<<grid, block, 0, stream>>>(p);
-  else
-    selective_scan_fwd_kernel<T, false><<<grid, block, 0, stream>>>(p);
+  if (p.cs != nullptr) {
+    if (has_z) return cudaErrorInvalidValue;  // training variant: no z
+    selective_scan_fwd_kernel<T, false, true><<<grid, block, 0, stream>>>(p);
+  } else if (has_z) {
+    selective_scan_fwd_kernel<T, true, false><<<grid, block, 0, stream>>>(p);
+  } else {
+    selective_scan_fwd_kernel<T, false, false><<<grid, block, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -168,11 +186,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (u, delta, z, B, C and y share it).
 // Pointers to A, Dskip and bias are fp32; h0 may be null; z may be null.
-// Returns cudaGetLastError() after the launch (0 = success).
+// cs (fp32 chunk-start states) selects the training variant, which takes
+// no z; `chunk` must equal kChunk.  Returns cudaGetLastError() after the
+// launch (0 = success).
 int vivim_selective_scan_fwd(
     const void* u, const void* delta, const void* z, const void* B,
     const void* C, const void* A, const void* Dskip, const void* bias,
-    const void* h0, void* y, void* last, int batch, int L, int D,
+    const void* h0, void* y, void* last, void* cs, int chunk, int batch,
+    int L, int D,
     int64_t u_sb, int64_t u_sl, int64_t dl_sb, int64_t dl_sl, int64_t z_sb,
     int64_t z_sl, int64_t y_sb, int64_t y_sl, int64_t B_sb, int64_t B_sl,
     int64_t C_sb, int64_t C_sl, int64_t A_sb, int64_t D_sb, int64_t bias_sb,
@@ -189,6 +210,7 @@ int vivim_selective_scan_fwd(
   p.h0 = static_cast<const float*>(h0);
   p.y = y;
   p.last = static_cast<float*>(last);
+  p.cs = static_cast<float*>(cs);
   p.L = L;
   p.D = D;
   p.u_sb = u_sb;
@@ -208,6 +230,7 @@ int vivim_selective_scan_fwd(
   p.bias_sb = bias_sb;
   p.h0_sb = h0_sb;
   p.softplus = softplus;
+  if (chunk != kChunk) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool has_z = z != nullptr;
   if (dtype == 0) return (int)launch<float>(p, batch, has_z, s);

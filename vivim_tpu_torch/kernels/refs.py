@@ -8,6 +8,11 @@ CUDA kernels; on the GPU they are what the kernels are held against.
   ``h_t = exp(dt*A) * h_{t-1} + dt*B_t*u_t``, ``y_t = C_t . h_t + D*u_t``,
   gated by ``silu(z)``, computed in fp32 and cast back to the input dtype.
   Vectorised over (batch, dim, dstate); a Python loop walks L.
+- ``selective_scan_fwd_states_ref`` / ``selective_scan_bwd_ref``: what the
+  training variant of the forward kernel and the backward kernel compute
+  (the JAX package's ``_fwd_call(save_cs=True)`` without z and
+  ``_bwd_call``): the pre-gate output with the chunk-start states, and the
+  eight gradients recomputed chunk by chunk from those states.
 - ``causal_conv1d_ref``: depthwise causal conv of width 2-4, optional SiLU.
 - ``mamba_inner_ref``: conv1d -> x_proj -> (dt, B, C) split -> dt_proj ->
   selective scan (z-gated), optionally + out_proj.
@@ -100,6 +105,100 @@ def selective_scan_ref(
         out = out * F.silu(z.float())
     out = out.to(dtype_in)
     return (out, h) if return_last_state else out
+
+
+def _param(p, batch, shared_ndim):
+    """fp32 ``p`` broadcast to per-batch form (batch, ...); ``shared_ndim``
+    is the rank of its shared form (2 for A, 1 for D / delta_bias)."""
+    p = p.float()
+    return p if p.dim() == shared_ndim + 1 else p.expand(
+        (batch,) + tuple(p.shape))
+
+
+def _dt(delta, delta_bias, delta_softplus):
+    """(pre-softplus delta + bias, dt), fp32 (batch, L, dim)."""
+    raw = delta.float()
+    if delta_bias is not None:
+        raw = raw + _param(delta_bias, delta.shape[0], 1)[:, None, :]
+    return raw, (F.softplus(raw) if delta_softplus else raw)
+
+
+def selective_scan_fwd_states_ref(u, delta, A, B, C, D=None, delta_bias=None,
+                                  delta_softplus=False, initial_state=None,
+                                  chunk=16):
+    """What the training variant of the forward kernel computes (the JAX
+    package's ``_fwd_call(..., save_cs=True)`` without z): the pre-gate
+    output ``y`` (batch, L, dim) in u's dtype, the fp32 chunk-start states
+    (batch, ceil(L / chunk), dim, dstate) — the state before steps 0,
+    chunk, 2*chunk, ... — and the fp32 last state (batch, dim, dstate).
+    B, C: (batch, L, dstate)."""
+    batch, L, dim = u.shape
+    _, dt = _dt(delta, delta_bias, delta_softplus)
+    A = _param(A, batch, 2)
+    uf, Bf, Cf = u.float(), B.float(), C.float()
+    h = (u.new_zeros(batch, dim, A.shape[-1], dtype=torch.float32)
+         if initial_state is None else initial_state.float())
+    states, ys = [], []
+    for t in range(L):
+        if t % chunk == 0:
+            states.append(h)
+        h = (torch.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :])
+        ys.append((h * Cf[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + uf * _param(D, batch, 1)[:, None, :]
+    return y.to(u.dtype), torch.stack(states, dim=1), h
+
+
+def selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, chunk_states,
+                           dout, dlast=None, delta_softplus=False, chunk=16):
+    """What the backward kernel computes (the JAX package's ``_bwd_call``):
+    from the forward's inputs, its chunk-start states, the cotangent
+    ``dout`` of the pre-gate output and ``dlast`` of the last state (None =
+    0), the eight gradients (ddelta, du, dB, dC) in the activation dtype and
+    per batch row in fp32 (dA (batch, dim, dstate), dD, dbias (batch, dim),
+    dh0 (batch, dim, dstate)).
+
+    It walks the chunks right to left, recomputes the states inside each
+    chunk from its saved start state, and carries the adjoint
+    g_t = C_t dy_t + a_{t+1} g_{t+1} backward, as the kernel does.  D and
+    delta_bias may be None (zero)."""
+    batch, L, dim = u.shape
+    raw, dt = _dt(delta, delta_bias, delta_softplus)
+    A = _param(A, batch, 2)
+    Dk = (torch.zeros(batch, dim, device=u.device) if D is None
+          else _param(D, batch, 1))
+    uf, Bf, Cf, dy = u.float(), B.float(), C.float(), dout.float()
+    g = torch.zeros_like(A) if dlast is None else dlast.float().clone()
+    dA = torch.zeros_like(A)
+    ddt = torch.empty_like(uf)
+    du = torch.empty_like(uf)
+    dB = torch.empty_like(Bf)
+    dC = torch.empty_like(Cf)
+    for k in reversed(range(chunk_states.shape[1])):
+        t0, t1 = k * chunk, min(L, (k + 1) * chunk)
+        hs = [chunk_states[:, k]]
+        for t in range(t0, t1):
+            hs.append(torch.exp(dt[:, t, :, None] * A) * hs[-1]
+                      + (dt[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            a = torch.exp(dt[:, t, :, None] * A)
+            g = g + Cf[:, t, None, :] * dy[:, t, :, None]
+            gB = (g * Bf[:, t, None, :]).sum(-1)
+            dla = g * hs[t - t0] * a
+            du[:, t] = dt[:, t] * gB + Dk * dy[:, t]
+            ddt[:, t] = uf[:, t] * gB + (dla * A).sum(-1)
+            dB[:, t] = (g * (dt[:, t] * uf[:, t])[..., None]).sum(1)
+            dC[:, t] = (hs[t - t0 + 1] * dy[:, t, :, None]).sum(1)
+            dA += dla * dt[:, t, :, None]
+            g = a * g
+    ddelta = ddt * torch.sigmoid(raw) if delta_softplus else ddt
+    dD = (dy * uf).sum(1)
+    dbias = ddelta.sum(1)
+    act = u.dtype
+    return (ddelta.to(act), du.to(act), dB.to(act), dC.to(act), dA, dD,
+            dbias, g)
 
 
 def causal_conv1d_ref(x, weight, bias=None, activation=None):

@@ -1,19 +1,31 @@
-"""Selective scan (Mamba S6 recurrence): dispatch to the Hopper kernel.
+"""Selective scan (Mamba S6 recurrence): dispatch to the Hopper kernels.
 
 Port of the JAX package's ``kernels/selective_scan.py`` (``selective_scan``,
-``_grouped_selective_scan``, ``selective_scan_cm``).  The Pallas forward
-``_fwd_kernel`` becomes the CUDA kernel ``csrc/selective_scan_fwd.cu``
-(see the note at its top); this module checks and lays out its arguments,
-launches it on PyTorch's current stream and counts the launches.
+``_grouped_selective_scan``, ``selective_scan_cm`` and the custom-VJP glue
+``_selective_scan_core`` / ``_core_fwd`` / ``_core_bwd``).  The Pallas
+kernels become CUDA kernels (see the notes at the top of each source):
 
-Dispatch:
-- ``implementation=None`` on CUDA tensors launches the kernel; on CPU
-  tensors it runs the plain version, ``refs.selective_scan_ref``.
-- ``implementation="ref"`` runs the plain version on any device.
+- K1, ``_fwd_kernel`` -> ``csrc/selective_scan_fwd.cu``, in two variants:
+  inference (silu(z) gated in the kernel; ``selective_scan_fwd_cuda``) and
+  training (no z, chunk-start states saved; ``selective_scan_fwd_states_cuda``);
+- K2, ``_bwd_kernel`` -> ``csrc/selective_scan_bwd.cu``
+  (``selective_scan_bwd_cuda``).
 
-Only the forward exists on the GPU: the backward kernel is the ROADMAP's
-K2, ported with the training slice.  A CUDA call that would need a gradient
-raises.  On the CPU the plain version stays differentiable.
+This module checks and lays out their arguments, launches them on PyTorch's
+current stream and counts the launches.
+
+Dispatch (``implementation=None``):
+- when no input needs a gradient (or under ``no_grad`` / ``inference_mode``):
+  the inference K1 on CUDA tensors, ``refs.selective_scan_ref`` on CPU ones;
+- when one does: ``SelectiveScanFn``, a ``torch.autograd.Function`` that runs
+  K1-training and gates with silu(z) outside the kernel, and whose backward
+  forms dz and the pre-gate cotangent in PyTorch and launches K2 (as
+  ``_core_fwd`` / ``_core_bwd`` do).  On CPU tensors it runs the plain
+  versions of those two kernels, ``refs.selective_scan_fwd_states_ref`` and
+  ``refs.selective_scan_bwd_ref``, so the CPU exercises the same glue.
+``implementation="ref"`` runs the sequential plain version on any device,
+with autograd through it.  A CUDA tensor never falls back to a plain
+version: a failed build or launch raises.
 
 Layout is time-major: ``u/delta/z: (B, L, D)``, ``B/C: (B, L, N)``,
 ``A: (D, N)`` or per batch ``(B, D, N)``.
@@ -24,29 +36,41 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from vivim_tpu_torch.kernels import _build, refs
 
-# Kernel launches so far; a caller resets it to 0 to count one run.
+# Kernel launches so far, per kernel; a caller resets them to 0 to count one
+# run.  LAUNCHES: K1 inference; TRAIN_LAUNCHES: K1 training; BWD_LAUNCHES: K2.
 LAUNCHES = 0
+TRAIN_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
-DSTATE = 16  # the kernel's d_state: one half warp per channel
+DSTATE = 16  # the kernels' d_state: one half warp per channel
+CHUNK = 16   # steps per chunk-start state (kChunk of both sources)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_LIB = None
+_LIBS = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("selective_scan_fwd")
+def _lib(name):
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _build.load(name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.vivim_selective_scan_fwd.argtypes = (
-            [ptr] * 11 + [i32] * 3 + [i64] * 16 + [i32, i32, ptr])
-        lib.vivim_selective_scan_fwd.restype = i32
+        if name == "selective_scan_fwd":
+            lib.vivim_selective_scan_fwd.argtypes = (
+                [ptr] * 12 + [i32] * 4 + [i64] * 16 + [i32, i32, ptr])
+            lib.vivim_selective_scan_fwd.restype = i32
+        else:
+            lib.vivim_selective_scan_bwd.argtypes = (
+                [ptr] * 19 + [i32] * 4 + [i64] * 13 + [i32, i32, ptr])
+            lib.vivim_selective_scan_bwd.restype = i32
+            lib.vivim_selective_scan_bwd_scratch.argtypes = [i32] * 3
+            lib.vivim_selective_scan_bwd_scratch.restype = i64
         lib.vivim_cuda_error_string.argtypes = [i32]
         lib.vivim_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return lib
 
 
 def _param(p, batch, dim, dstate, device):
@@ -77,10 +101,84 @@ def _seq(x, shape, like):
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _state(x, batch, dim, dstate, dev, what):
+    """Optional (batch, dim, dstate) fp32 state, contiguous."""
+    if x is None:
+        return None
+    if tuple(x.shape) != (batch, dim, dstate):
+        raise ValueError(f"{what} must be (batch, dim, dstate)")
+    return x.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _check(u, A, name):
+    if u.device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors")
+    if u.dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {u.dtype} (fp32 or bf16)")
+    dstate = A.shape[-1]
+    if dstate != DSTATE:
+        raise ValueError(f"the CUDA kernel takes d_state {DSTATE}, "
+                         f"got {dstate}")
+    if u.shape[0] > 65535:
+        raise ValueError(f"batch {u.shape[0]} exceeds the kernel grid")
+
+
+def _raise_if(err, lib, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.vivim_cuda_error_string(err).decode())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fwd_launch(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                initial_state, save_states):
+    _check(u, A, "selective_scan_fwd_cuda")
+    batch, L, dim = u.shape
+    dev = u.device
+    u = _seq(u, (batch, L, dim), u)
+    delta = _seq(delta, (batch, L, dim), u)
+    B = _seq(B, (batch, L, DSTATE), u)
+    C = _seq(C, (batch, L, DSTATE), u)
+    if z is not None:
+        z = _seq(z, (batch, L, dim), u)
+    A, a_sb = _param(A, batch, dim, DSTATE, dev)
+    if D is None:
+        D = torch.zeros(dim, device=dev)
+    D, d_sb = _param(D, batch, dim, None, dev)
+    if delta_bias is None:
+        delta_bias = torch.zeros(dim, device=dev)
+    bias, b_sb = _param(delta_bias, batch, dim, None, dev)
+    h0 = _state(initial_state, batch, dim, DSTATE, dev, "initial_state")
+    y = torch.empty((batch, L, dim), dtype=u.dtype, device=dev)
+    last = torch.empty((batch, dim, DSTATE), dtype=torch.float32, device=dev)
+    cs = (torch.empty((batch, -(-L // CHUNK), dim, DSTATE),
+                      dtype=torch.float32, device=dev)
+          if save_states else None)
+    lib = _lib("selective_scan_fwd")
+    with torch.cuda.device(dev):
+        err = lib.vivim_selective_scan_fwd(
+            _ptr(u), _ptr(delta), _ptr(z), _ptr(B), _ptr(C), _ptr(A),
+            _ptr(D), _ptr(bias), _ptr(h0), _ptr(y), _ptr(last), _ptr(cs),
+            CHUNK, batch, L, dim,
+            u.stride(0), u.stride(1), delta.stride(0), delta.stride(1),
+            z.stride(0) if z is not None else 0,
+            z.stride(1) if z is not None else 0,
+            y.stride(0), y.stride(1), B.stride(0), B.stride(1),
+            C.stride(0), C.stride(1), a_sb, d_sb, b_sb,
+            h0.stride(0) if h0 is not None else 0,
+            int(bool(delta_softplus)), _DTYPES[u.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, lib, "selective_scan_fwd")
+    return y, cs, last
+
+
 def selective_scan_fwd_cuda(u, delta, A, B, C, D=None, z=None,
                             delta_bias=None, delta_softplus=False,
                             initial_state=None):
-    """Launch the Hopper forward kernel; returns (out, last_state fp32).
+    """Launch the inference variant of K1; returns (out, last_state fp32).
 
     All tensors lie on one CUDA device; u, delta, z, B and C are fp32 or
     bf16 of one dtype and may be strided views with unit stride on their
@@ -88,58 +186,137 @@ def selective_scan_fwd_cuda(u, delta, A, B, C, D=None, z=None,
     of in_proj's) — nothing is copied for them.
     """
     global LAUNCHES
-    if u.device.type != "cuda":
-        raise ValueError("selective_scan_fwd_cuda takes CUDA tensors")
-    if u.dtype not in _DTYPES:
-        raise ValueError(f"unsupported dtype {u.dtype} (fp32 or bf16)")
+    y, _, last = _fwd_launch(u, delta, A, B, C, D, z, delta_bias,
+                             delta_softplus, initial_state, False)
+    LAUNCHES += 1
+    return y, last
+
+
+def selective_scan_fwd_states_cuda(u, delta, A, B, C, D=None,
+                                   delta_bias=None, delta_softplus=False,
+                                   initial_state=None):
+    """Launch the training variant of K1 (no z); returns the pre-gate
+    output, the fp32 chunk-start states (batch, ceil(L / CHUNK), dim,
+    dstate) and the fp32 last state, as
+    ``refs.selective_scan_fwd_states_ref``."""
+    global TRAIN_LAUNCHES
+    out = _fwd_launch(u, delta, A, B, C, D, None, delta_bias,
+                      delta_softplus, initial_state, True)
+    TRAIN_LAUNCHES += 1
+    return out
+
+
+def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, chunk_states,
+                            dout, dlast=None, delta_softplus=False):
+    """Launch K2; returns what ``refs.selective_scan_bwd_ref`` returns:
+    (ddelta, du, dB, dC) contiguous in the activation dtype and per batch
+    row in fp32 (dA, dD, dbias, dh0).  ``chunk_states`` come from
+    ``selective_scan_fwd_states_cuda`` on the same inputs; D, delta_bias
+    and dlast may be None."""
+    global BWD_LAUNCHES
+    _check(u, A, "selective_scan_bwd_cuda")
     batch, L, dim = u.shape
-    dstate = A.shape[-1]
-    if dstate != DSTATE:
-        raise ValueError(f"the CUDA kernel takes d_state {DSTATE}, "
-                         f"got {dstate}")
-    if batch > 65535:
-        raise ValueError(f"batch {batch} exceeds the kernel grid")
     dev = u.device
     u = _seq(u, (batch, L, dim), u)
     delta = _seq(delta, (batch, L, dim), u)
-    B = _seq(B, (batch, L, dstate), u)
-    C = _seq(C, (batch, L, dstate), u)
-    if z is not None:
-        z = _seq(z, (batch, L, dim), u)
-    A, a_sb = _param(A, batch, dim, dstate, dev)
-    if D is None:
-        D = torch.zeros(dim, device=dev)
-    D, d_sb = _param(D, batch, dim, None, dev)
-    if delta_bias is None:
-        delta_bias = torch.zeros(dim, device=dev)
-    bias, b_sb = _param(delta_bias, batch, dim, None, dev)
-    h0_sb = 0
-    if initial_state is not None:
-        if tuple(initial_state.shape) != (batch, dim, dstate):
-            raise ValueError("initial_state must be (batch, dim, dstate)")
-        initial_state = initial_state.to(
-            device=dev, dtype=torch.float32).contiguous()
-        h0_sb = initial_state.stride(0)
-    y = torch.empty((batch, L, dim), dtype=u.dtype, device=dev)
-    last = torch.empty((batch, dim, dstate), dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _lib()
+    B = _seq(B, (batch, L, DSTATE), u)
+    C = _seq(C, (batch, L, DSTATE), u)
+    dout = _seq(dout, (batch, L, dim), u)
+    A, a_sb = _param(A, batch, dim, DSTATE, dev)
+    D, d_sb = _param(torch.zeros(dim, device=dev) if D is None else D,
+                     batch, dim, None, dev)
+    bias, b_sb = _param(
+        torch.zeros(dim, device=dev) if delta_bias is None else delta_bias,
+        batch, dim, None, dev)
+    if tuple(chunk_states.shape) != (batch, -(-L // CHUNK), dim, DSTATE) \
+            or chunk_states.dtype != torch.float32:
+        raise ValueError("chunk_states must be fp32 (batch, ceil(L / "
+                         f"{CHUNK}), dim, dstate)")
+    cs = chunk_states.contiguous()
+    dlast = _state(dlast, batch, dim, DSTATE, dev, "dlast")
+    seq = lambda *s: torch.empty(s, dtype=u.dtype, device=dev)
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    ddelta, du = seq(batch, L, dim), seq(batch, L, dim)
+    dB, dC = seq(batch, L, DSTATE), seq(batch, L, DSTATE)
+    dA, dh0 = f32(batch, dim, DSTATE), f32(batch, dim, DSTATE)
+    dD, dbias = f32(batch, dim), f32(batch, dim)
+    lib = _lib("selective_scan_bwd")
+    part = f32(lib.vivim_selective_scan_bwd_scratch(batch, L, dim))
     with torch.cuda.device(dev):
-        err = lib.vivim_selective_scan_fwd(
-            ptr(u), ptr(delta), ptr(z), ptr(B), ptr(C), ptr(A), ptr(D),
-            ptr(bias), ptr(initial_state), ptr(y), ptr(last), batch, L, dim,
+        err = lib.vivim_selective_scan_bwd(
+            _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(dout), _ptr(A),
+            _ptr(D), _ptr(bias), _ptr(cs), _ptr(dlast), _ptr(ddelta),
+            _ptr(du), _ptr(dB), _ptr(dC), _ptr(dA), _ptr(dD), _ptr(dbias),
+            _ptr(dh0), _ptr(part), CHUNK, batch, L, dim,
             u.stride(0), u.stride(1), delta.stride(0), delta.stride(1),
-            z.stride(0) if z is not None else 0,
-            z.stride(1) if z is not None else 0,
-            y.stride(0), y.stride(1), B.stride(0), B.stride(1),
-            C.stride(0), C.stride(1), a_sb, d_sb, b_sb, h0_sb,
+            B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+            dout.stride(0), dout.stride(1), a_sb, d_sb, b_sb,
             int(bool(delta_softplus)), _DTYPES[u.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("selective_scan_fwd launch failed: "
-                           + lib.vivim_cuda_error_string(err).decode())
-    LAUNCHES += 1
-    return y, last
+    _raise_if(err, lib, "selective_scan_bwd")
+    BWD_LAUNCHES += 1
+    return ddelta, du, dB, dC, dA, dD, dbias, dh0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """Differentiable selective scan on the kernels (the plain versions of
+    the same two kernels on CPU tensors).  Mirrors the JAX package's
+    ``_core_fwd`` / ``_core_bwd``: the silu(z) gate runs outside the
+    kernels, so K2 never touches z.  B and C are (batch, L, dstate).
+    Returns (out, last_state)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z, delta_bias, initial_state,
+                delta_softplus):
+        if u.is_cuda:
+            y_pre, cs, last = selective_scan_fwd_states_cuda(
+                u, delta, A, B, C, D, delta_bias, delta_softplus,
+                initial_state)
+        else:
+            y_pre, cs, last = refs.selective_scan_fwd_states_ref(
+                u, delta, A, B, C, D, delta_bias, delta_softplus,
+                initial_state, chunk=CHUNK)
+        y = y_pre
+        if z is not None:
+            y = (y_pre.float() * F.silu(z.float())).to(y_pre.dtype)
+        ctx.save_for_backward(u, delta, A, B, C, D, z, delta_bias, cs, y_pre)
+        ctx.delta_softplus = delta_softplus
+        ctx.set_materialize_grads(False)
+        return y, last
+
+    @staticmethod
+    def backward(ctx, dout, dlast):
+        u, delta, A, B, C, D, z, delta_bias, cs, y_pre = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(y_pre)
+        dz = None
+        if z is not None:
+            # gating grads in PyTorch; the kernel sees the pre-gate cotangent
+            zf = z.float()
+            sig = torch.sigmoid(zf)
+            silu = zf * sig
+            doutf = dout.float()
+            dz = (doutf * y_pre.float() * (sig + silu * (1.0 - sig))).to(
+                z.dtype)
+            dout = doutf * silu
+        dout = dout.to(u.dtype)
+        bwd = (selective_scan_bwd_cuda if u.is_cuda
+               else lambda *a: refs.selective_scan_bwd_ref(*a, chunk=CHUNK))
+        ddelta, du, dB, dC, dA, dD, dbias, dh0 = bwd(
+            u, delta, A, B, C, D, delta_bias, cs, dout, dlast,
+            ctx.delta_softplus)
+        # parameter grads are per batch row: sum those of shared parameters
+        if A.dim() == 2:
+            dA = dA.sum(0)
+        if D is not None and D.dim() == 1:
+            dD = dD.sum(0)
+        if delta_bias is not None and delta_bias.dim() == 1:
+            dbias = dbias.sum(0)
+        cast = lambda g, x: None if x is None else g.to(x.dtype)
+        return (du.to(u.dtype), ddelta.to(delta.dtype), cast(dA, A),
+                dB.to(B.dtype), dC.to(C.dtype), cast(dD, D), dz,
+                cast(dbias, delta_bias),
+                dh0 if ctx.needs_input_grad[8] else None, None)
 
 
 def _needs_grad(*tensors):
@@ -162,12 +339,12 @@ def selective_scan(
     implementation=None,
 ):
     """Selective scan, time-major: see ``refs.selective_scan_ref`` for the
-    contract.  ``implementation``: None (the CUDA kernel on CUDA tensors,
-    the plain version on CPU tensors) or "ref" (the plain version).
-    Grouped 4-D (batch, L, groups, dstate) B/C fold the groups into the
-    batch axis (``_grouped_selective_scan``).  On CUDA the kernel takes
-    variable B/C with d_state 16; constant (dim, dstate) B or C, alone or
-    beside grouped ones, raise there.
+    contract.  ``implementation``: None (the kernels on CUDA tensors, their
+    plain versions on CPU tensors; see the module docstring) or "ref" (the
+    sequential plain version).  Grouped 4-D (batch, L, groups, dstate) B/C
+    fold the groups into the batch axis (``_grouped_selective_scan``).  On
+    CUDA the kernels take variable B/C with d_state 16; constant (dim,
+    dstate) B or C, alone or beside grouped ones, raise there.
     """
     if implementation not in (None, "ref"):
         raise ValueError(f"unknown implementation {implementation!r}")
@@ -180,19 +357,21 @@ def selective_scan(
         return _grouped_selective_scan(
             u, delta, A, B, C, D, z, delta_bias, delta_softplus,
             return_last_state, initial_state, implementation)
-    if u.device.type == "cpu":
-        return ref()
     if B.dim() != 3 or C.dim() != 3:
+        if u.device.type == "cpu":
+            return ref()
         raise NotImplementedError(
             "constant (dim, dstate) B or C has no CUDA kernel; pass "
             "implementation='ref'")
     if _needs_grad(u, delta, A, B, C, D, z, delta_bias, initial_state):
-        raise NotImplementedError(
-            "selective_scan has no backward kernel on the GPU yet (ROADMAP "
-            "Queue 2, K2); run under torch.no_grad() / inference_mode(), or "
-            "pass implementation='ref'")
-    y, last = selective_scan_fwd_cuda(
-        u, delta, A, B, C, D, z, delta_bias, delta_softplus, initial_state)
+        y, last = SelectiveScanFn.apply(u, delta, A, B, C, D, z, delta_bias,
+                                        initial_state, delta_softplus)
+    elif u.device.type == "cpu":
+        return ref()
+    else:
+        y, last = selective_scan_fwd_cuda(
+            u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+            initial_state)
     return (y, last) if return_last_state else y
 
 

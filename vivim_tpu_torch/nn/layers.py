@@ -1,10 +1,16 @@
-"""Shared layers: DropPath, FastDropout, 3-D depthwise conv, Mix-FFN Mlp,
-and seeded weight init.
+"""Shared layers: the random layers (Dropout, DropPath, FastDropout and
+``fast_keep_mask``), 3-D depthwise conv, Mix-FFN Mlp, and seeded weight init.
 
 Port of the JAX package's ``nn/layers.py``.  Tokens stay channels-last
 ``(B, N, C)``; ``DWConv3d`` permutes to NCDHW only around its
 ``nn.Conv3d``.  State-dict keys are the reference Vivim's
 (``mlp.fc1``, ``mlp.dwconv.dwconv``, ``mlp.fc2``).
+
+Random numbers come only from explicit ``torch.Generator``s, as JAX's come
+from explicit keys: a random layer in training draws from its
+``generator`` attribute, which whoever runs the step sets
+(``use_generator``; the train step passes the one it owns), and raises
+when none is set.  The global random state is never read.
 """
 
 from __future__ import annotations
@@ -16,41 +22,94 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class DropPath(nn.Module):
-    """Stochastic depth: in training, zero a sample's branch with
-    probability ``rate`` and scale survivors by 1/(1-rate); identity in
-    eval."""
-
-    def __init__(self, rate: float = 0.0):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x):
-        if self.rate == 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
-
-
-class FastDropout(nn.Module):
-    """Dropout with the keep probability quantized to 1/256 (uint8 random
-    bits), as the JAX package's ``FastDropout``; identity in eval."""
+class Stochastic(nn.Module):
+    """Base of the layers that draw random numbers in training, from
+    ``self.generator`` (a ``torch.Generator`` on the activations' device).
+    Identity in eval and at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator = None
+
+    def active(self):
+        if self.rate == 0.0 or not self.training:
+            return False
+        if self.generator is None:
+            raise RuntimeError(
+                f"{type(self).__name__} draws from an explicit generator in "
+                "training: set one with use_generator(model, generator)")
+        return True
+
+
+def use_generator(model: nn.Module, generator) -> nn.Module:
+    """Point every random layer under ``model`` at ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Stochastic):
+            m.generator = generator
+    return model
+
+
+def fast_keep_mask(generator, keep: float, shape, device):
+    """Keep-mask from uint8 random bits: ``bits < round(keep * 256)``, the
+    keep probability quantized to 1/256.  Returns (mask, the exact
+    quantized keep, for rescaling)."""
+    q = int(round(keep * 256.0))
+    if q >= 256:  # keep so close to 1 that the uint8 grid rounds to "all"
+        return torch.ones(shape, dtype=torch.bool, device=device), 1.0
+    bits = torch.randint(0, 256, tuple(shape), generator=generator,
+                         device=device, dtype=torch.uint8)
+    return bits < q, q / 256.0
+
+
+class Dropout(Stochastic):
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    by 1/(1 - rate).  ``broadcast_dims`` share one draw along those axes
+    (``(1, 2)`` on (N, H, W, C) is channelwise Dropout2d)."""
+
+    def __init__(self, rate: float, broadcast_dims=()):
+        super().__init__(rate)
+        self.broadcast_dims = tuple(broadcast_dims)
 
     def forward(self, x):
-        if self.rate == 0.0 or not self.training:
+        if not self.active():
             return x
-        q = int(round((1.0 - self.rate) * 256.0))
-        if q >= 256:
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        shape = [1 if i in self.broadcast_dims else s
+                 for i, s in enumerate(x.shape)]
+        mask = torch.rand(shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
+class DropPath(Stochastic):
+    """Stochastic depth: in training, zero a sample's branch with
+    probability ``rate`` and scale survivors by 1/(1-rate)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__(rate)
+
+    def forward(self, x):
+        if not self.active():
             return x
-        bits = torch.randint(0, 256, x.shape, device=x.device,
-                             dtype=torch.int32)
-        return torch.where(bits < q, x / (q / 256.0), torch.zeros_like(x))
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                          generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
+class FastDropout(Stochastic):
+    """Dropout through ``fast_keep_mask`` (uint8 random bits), as the JAX
+    package's ``FastDropout``."""
+
+    def forward(self, x):
+        if not self.active():
+            return x
+        mask, keep = fast_keep_mask(self.generator, 1.0 - self.rate, x.shape,
+                                    x.device)
+        return torch.where(mask, x / keep, 0.0)
 
 
 class DWConv3d(nn.Module):
@@ -82,7 +141,7 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = DWConv3d(hidden)
         self.fc2 = nn.Linear(hidden, out_dim or dim)
-        self.drop = nn.Dropout(dropout_rate)
+        self.drop = Dropout(dropout_rate)
         self.approximate = "tanh" if gelu_approximate else "none"
 
     def forward(self, x, nframes: int, H: int, W: int):

@@ -22,7 +22,7 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from vivim_tpu_torch.nn.layers import DropPath
+from vivim_tpu_torch.nn.layers import Dropout, DropPath
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, as the JAX package uses
 
@@ -125,8 +125,8 @@ class EfficientSelfAttention(nn.Module):
         self.self = nn.ModuleDict(core)
         self.output = nn.ModuleDict({"dense": nn.Linear(hidden_size,
                                                         hidden_size)})
-        self.attn_drop = nn.Dropout(attention_dropout)
-        self.out_drop = nn.Dropout(hidden_dropout)
+        self.attn_drop = Dropout(attention_dropout)
+        self.out_drop = Dropout(hidden_dropout)
 
     def forward(self, x, H: int, W: int):
         B, L, C = x.shape
@@ -171,7 +171,7 @@ class MixFFN(nn.Module):
         self.dense1 = nn.Linear(hidden_size, mlp_hidden)
         self.dwconv = DepthwiseConv2d(mlp_hidden)
         self.dense2 = nn.Linear(mlp_hidden, hidden_size)
-        self.drop = nn.Dropout(hidden_dropout)
+        self.drop = Dropout(hidden_dropout)
         self.approximate = "tanh" if gelu_approximate else "none"
 
     def forward(self, x, H: int, W: int):

@@ -1,7 +1,7 @@
 """Vivim: SegFormer encoder interleaved with temporal Mamba stacks.
 
 Port of the JAX package's ``nn/vivim.py`` (``VivimConfig``, ``VivimEncoder``,
-``Vivim``), eval mode.  State-dict keys are the reference Vivim's:
+``Vivim``, ``_maybe_scale_dropout``).  State-dict keys are the reference Vivim's:
 ``encoder.downsample_layers.*`` (the HF SegFormer encoder, its per-stage
 ``layer_norm.{i}`` kept though unused), ``encoder.stages.{i}.{j}.0.*``
 (MambaLayer j of stage i), ``decoder.linear_c.{i}.proj``,
@@ -12,12 +12,20 @@ Reference quirks kept: the per-stage SegFormer LayerNorm is skipped, and
 the Mamba drop-path rate is indexed by stage.  Clips are (B, T, H, W, 3)
 channels-last and logits (B, T, H, W, C).
 
-Only the eval decode exists in this slice: each scale is fused at its
-native resolution (the 1x1 fuse conv commutes with the bilinear upsample),
-upsampled and summed; then BatchNorm with running stats, ReLU, ``out``,
-the resize to the input size and the optional edge head.  A forward in
-``.train()`` mode raises (the train-mode decode and its dropouts come with
-the training slice).
+The decode (reference vivim.py:288-327) has two forms, as in the JAX
+package:
+- eval: each scale is fused at its native resolution (the 1x1 fuse conv
+  commutes with the bilinear upsample), upsampled and summed; BatchNorm with
+  the running statistics;
+- train: each scale is upsampled, then dropped whole with a 50 % gate at
+  rate ``dropout_rate / 2`` (``ScaleDropout``), the reversed scales are
+  concatenated and fused; BatchNorm with the batch statistics, computed by
+  hand because flax updates the running variance with the biased batch
+  variance where ``nn.BatchNorm2d`` uses the unbiased one (ROADMAP F3).
+Then ReLU, the head dropout twice (``FastDropout``), channelwise Dropout2d,
+``out``, the resize to the input size and the optional edge head.  The
+random layers draw from the generator the train step sets
+(``nn.layers.use_generator``).
 """
 
 from __future__ import annotations
@@ -29,6 +37,12 @@ import torch
 from torch import nn
 
 from vivim_tpu_torch.nn import segformer as sf
+from vivim_tpu_torch.nn.layers import (
+    Dropout,
+    FastDropout,
+    Stochastic,
+    fast_keep_mask,
+)
 from vivim_tpu_torch.nn.mamba import MambaLayer
 
 
@@ -98,6 +112,19 @@ class VivimEncoder(nn.Module):
         return feats
 
 
+class ScaleDropout(Stochastic):
+    """With probability 1/2, elementwise dropout of a whole scale at
+    ``rate`` (``_maybe_scale_dropout``; reference vivim.py:311-312)."""
+
+    def forward(self, x):
+        if not self.active():
+            return x
+        gate = torch.rand((), generator=self.generator, device=x.device) < 0.5
+        mask, keep = fast_keep_mask(self.generator, 1.0 - self.rate, x.shape,
+                                    x.device)
+        return torch.where(gate, torch.where(mask, x / keep, 0.0), x)
+
+
 class Vivim(nn.Module):
     """Video Vision Mamba segmentation model."""
 
@@ -115,38 +142,26 @@ class Vivim(nn.Module):
                                              bias=False)
         self.decoder.batch_norm = nn.BatchNorm2d(hid, eps=1e-5, momentum=0.1)
         self.out = nn.Conv2d(hid, cfg.out_chans, 1)
+        # the train-mode regularisation of the decode (no parameters)
+        self.scale_drop = ScaleDropout(cfg.dropout_rate / 2)
+        self.head_drop = nn.ModuleList(
+            FastDropout(seg.classifier_dropout) for _ in range(2))
+        self.feature_drop = Dropout(cfg.dropout_rate, broadcast_dims=(1, 2))
         if cfg.with_edge:
             self.edgeocr_cls_head = nn.Conv2d(seg.hidden_sizes[0], 1, 1)
 
     def forward(self, x):
         """x: (B, T, H, W, in_chans) -> logits (B, T, H, W, out_chans);
         with ``cfg.with_edge`` also an edge map (B, T, H, W, 1)."""
-        if self.training:
-            raise NotImplementedError(
-                "Vivim's train-mode decode comes with the training slice; "
-                "call .eval() first")
         cfg = self.cfg
         B, T, H, W, _ = x.shape
         feats = self.encoder(x)
-        BT, H0, W0, _ = feats[0].shape
-        n_stages = len(feats)
-        hid = cfg.hidden_size
-        dec = self.decoder
-        Wf = dec.linear_fuse.weight[:, :, 0, 0]     # (hid, n_stages*hid)
-        hmap = None
-        for i, f in enumerate(feats):
-            _, Hi, Wi, _ = f.shape
-            t = dec.linear_c[i]["proj"](f)           # (BT, Hi, Wi, hid)
-            # concat order is reversed scales: scale i owns fuse-kernel
-            # input columns (n_stages-1-i)*hid : (n_stages-i)*hid
-            j = n_stages - 1 - i
-            t = t @ Wf[:, j * hid:(j + 1) * hid].t()
-            t = sf.resize_bilinear(t, (H0, W0))
-            hmap = t if hmap is None else hmap + t
-        bn = dec.batch_norm
-        hmap = torch.relu((hmap - bn.running_mean)
-                          * torch.rsqrt(bn.running_var + bn.eps)
-                          * bn.weight + bn.bias)
+        hmap = (self._decode_train(feats) if self.training
+                else self._decode_eval(feats))
+        hmap = torch.relu(hmap)
+        for drop in self.head_drop:
+            hmap = drop(hmap)
+        hmap = self.feature_drop(hmap)
         logits = hmap @ self.out.weight[:, :, 0, 0].t() + self.out.bias
         logits = sf.resize_bilinear(logits, (H, W))
         logits = logits.reshape(B, T, H, W, cfg.out_chans)
@@ -156,3 +171,45 @@ class Vivim(nn.Module):
         edge = feats[0] @ head.weight[:, :, 0, 0].t() + head.bias
         edge = sf.resize_bilinear(edge, (H, W)).reshape(B, T, H, W, 1)
         return logits, edge
+
+    def _decode_eval(self, feats):
+        """Per-scale fuse at native resolution, upsample, sum; BatchNorm
+        with the running statistics."""
+        H0, W0 = feats[0].shape[1:3]
+        n_stages = len(feats)
+        hid = self.cfg.hidden_size
+        dec = self.decoder
+        Wf = dec.linear_fuse.weight[:, :, 0, 0]     # (hid, n_stages*hid)
+        hmap = None
+        for i, f in enumerate(feats):
+            t = dec.linear_c[i]["proj"](f)           # (BT, Hi, Wi, hid)
+            # concat order is reversed scales: scale i owns fuse-kernel
+            # input columns (n_stages-1-i)*hid : (n_stages-i)*hid
+            j = n_stages - 1 - i
+            t = t @ Wf[:, j * hid:(j + 1) * hid].t()
+            t = sf.resize_bilinear(t, (H0, W0))
+            hmap = t if hmap is None else hmap + t
+        bn = dec.batch_norm
+        return ((hmap - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
+                * bn.weight + bn.bias).to(hmap.dtype)
+
+    def _decode_train(self, feats):
+        """Upsample, gated per-scale dropout, concat of the reversed scales,
+        1x1 fuse; BatchNorm with the batch statistics, updating the running
+        ones as flax does (biased variance, momentum 0.9 = torch 0.1)."""
+        H0, W0 = feats[0].shape[1:3]
+        dec = self.decoder
+        unified = [self.scale_drop(sf.resize_bilinear(
+            dec.linear_c[i]["proj"](f), (H0, W0))) for i, f in enumerate(feats)]
+        hmap = torch.cat(unified[::-1], dim=-1)
+        hmap = hmap @ dec.linear_fuse.weight[:, :, 0, 0].t()
+        bn = dec.batch_norm
+        hf = hmap.float()
+        mean = hf.mean((0, 1, 2))
+        var = hf.var((0, 1, 2), unbiased=False)
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(var, bn.momentum)
+            bn.num_batches_tracked += 1
+        return ((hf - mean) * torch.rsqrt(var + bn.eps) * bn.weight
+                + bn.bias).to(hmap.dtype)

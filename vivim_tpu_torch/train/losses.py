@@ -1,0 +1,153 @@
+"""Segmentation losses (channels-last, fp32).
+
+Port of the JAX package's ``train/losses.py`` (the ``LOSSES`` table), with
+the reference training scripts' semantics
+(multiclass_training_folds.py:182-423, final_multiclass_training.py:403-445):
+
+- ``dice_loss``: softmax probs, per-class soft Dice over (H, W), batch-mean
+  per class, class-mean.
+- ``tversky_loss``: alpha = 0.3 (FP) / beta = 0.7 (FN), favouring recall.
+- ``class_balanced_focal_loss``: per-class one-vs-rest BCE with focal weight
+  ``t(1-p)^g + (1-t)p^g`` and class weights alpha (None: normalised inverse
+  frequency); per-class means are summed.
+- ``recall_focused_loss``: the production loss,
+  ``0.4 * focal(alpha=[.05, .475, .475], gamma=2) + 0.6 * tversky(.3/.7)``.
+- ``combined_focal_dice_loss``: ``(1-w) * focal(gamma=3) + w * dice``.
+- ``cross_entropy``.
+- ``boundary_aware_loss``: CE + boundary-masked per-class BCE, boundary =
+  clipped forward difference of the one-hot target.
+- ``multiclass_structure_loss``: per-class weighted BCE + weighted IoU with
+  a 31x31 mean-pool boundary-emphasis weight map.
+
+All take ``logits (N, H, W, C)`` and integer ``targets (N, H, W)``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_EPS = 1e-6
+
+
+def _onehot(targets, num_classes):
+    return F.one_hot(targets.long(), num_classes).float()
+
+
+def _probs(logits):
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def dice_loss(logits, targets, num_classes=None, smooth=_EPS):
+    C = num_classes or logits.shape[-1]
+    p = _probs(logits)
+    t = _onehot(targets, C)
+    inter = (p * t).sum((1, 2))                  # (N, C)
+    union = p.sum((1, 2)) + t.sum((1, 2))
+    dice = (2.0 * inter + smooth) / (union + smooth)
+    return (1.0 - dice.mean(0)).mean()
+
+
+def tversky_loss(logits, targets, num_classes=None, alpha=0.3, beta=0.7,
+                 smooth=_EPS):
+    C = num_classes or logits.shape[-1]
+    p = _probs(logits)
+    t = _onehot(targets, C)
+    tp = (p * t).sum((1, 2))
+    fp = (p * (1.0 - t)).sum((1, 2))
+    fn = ((1.0 - p) * t).sum((1, 2))
+    tv = (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)
+    return (1.0 - tv.mean(0)).mean()
+
+
+def class_balanced_focal_loss(logits, targets, num_classes=None, gamma=2.0,
+                              alpha=None):
+    C = num_classes or logits.shape[-1]
+    p = _probs(logits)
+    t = _onehot(targets, C)
+    if alpha is None:
+        counts = t.sum((0, 1, 2)) + _EPS         # (C,)
+        w = t[..., 0].numel() / (C * counts)
+        alpha = w / w.sum()
+    else:
+        alpha = torch.as_tensor(alpha, dtype=torch.float32,
+                                device=logits.device)
+    focal_w = t * (1.0 - p) ** gamma + (1.0 - t) * p ** gamma
+    bce = -t * torch.log(p + _EPS) - (1.0 - t) * torch.log(1.0 - p + _EPS)
+    return (alpha * focal_w * bce).mean((0, 1, 2)).sum()
+
+
+def recall_focused_loss(logits, targets, num_classes=None, gamma=2.0,
+                        alpha=(0.05, 0.475, 0.475)):
+    """The production loss (multiclass_training_folds.py:339-361)."""
+    tv = tversky_loss(logits, targets, num_classes, alpha=0.3, beta=0.7)
+    fo = class_balanced_focal_loss(logits, targets, num_classes, gamma,
+                                   alpha=alpha)
+    return 0.4 * fo + 0.6 * tv
+
+
+def combined_focal_dice_loss(logits, targets, num_classes=None, gamma=3.0,
+                             alpha=None, dice_weight=0.5):
+    fo = class_balanced_focal_loss(logits, targets, num_classes, gamma, alpha)
+    di = dice_loss(logits, targets, num_classes)
+    return (1.0 - dice_weight) * fo + dice_weight * di
+
+
+def cross_entropy(logits, targets, num_classes=None):
+    C = num_classes or logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(_onehot(targets, C) * logp).sum(-1).mean()
+
+
+def boundary_aware_loss(logits, targets, num_classes=None, weight=0.5):
+    C = num_classes or logits.shape[-1]
+    p = _probs(logits)
+    t = _onehot(targets, C)                      # (N, H, W, C)
+    gx = (torch.cat([t[:, :, 1:], t[:, :, -1:]], 2) - t).abs()
+    gy = (torch.cat([t[:, 1:], t[:, -1:]], 1) - t).abs()
+    boundary = (gx + gy).clamp(0.0, 1.0)
+    interior = cross_entropy(logits, targets, C)
+    bce = -t * torch.log(p + _EPS) - (1.0 - t) * torch.log(1.0 - p + _EPS)
+    bl = (boundary * bce).mean((0, 1, 2))        # per class
+    return interior + weight * bl.sum() / C
+
+
+def _mean_pool_31(x):
+    """31x31 stride-1 mean pool, zero padding, constant divisor
+    (avg_pool2d count_include_pad=True).  x: (N, H, W, 1)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 31, stride=1, padding=15,
+                        count_include_pad=True).permute(0, 2, 3, 1)
+
+
+def _weighted_structure(pred_logit, mask, eps):
+    """Weighted BCE + weighted IoU of one binary channel, (N, H, W, 1)."""
+    pred_logit = pred_logit.float()
+    mask = mask.float()
+    weit = 1.0 + 5.0 * (_mean_pool_31(mask) - mask).abs()
+    wbce = F.binary_cross_entropy_with_logits(pred_logit, mask,
+                                              reduction="none")
+    wbce = (weit * wbce).sum((1, 2, 3)) / weit.sum((1, 2, 3))
+    prob = torch.sigmoid(pred_logit)
+    inter = (prob * mask * weit).sum((1, 2, 3))
+    union = ((prob + mask) * weit).sum((1, 2, 3))
+    wiou = 1.0 - (inter + eps) / (union - inter + eps)
+    return (wbce + wiou).mean()
+
+
+def multiclass_structure_loss(logits, targets, num_classes=None, eps=_EPS):
+    C = num_classes or logits.shape[-1]
+    t = _onehot(targets, C)
+    return sum(_weighted_structure(logits[..., c:c + 1], t[..., c:c + 1], eps)
+               for c in range(C)) / C
+
+
+LOSSES = {
+    "recall_focused": recall_focused_loss,
+    "dice": dice_loss,
+    "tversky": tversky_loss,
+    "focal": class_balanced_focal_loss,
+    "combined_focal_dice": combined_focal_dice_loss,
+    "boundary_aware": boundary_aware_loss,
+    "multiclass_structure": multiclass_structure_loss,
+    "cross_entropy": cross_entropy,
+}

@@ -8,16 +8,25 @@ Phases, each of which raises on failure (exit code != 0):
 1. build every CUDA kernel of the port from ``vivim_tpu_torch/kernels/csrc``
    with nvcc (sm_90a), one nvcc per source started together, and print the
    build seconds and the ptxas register report;
-2. print the card's name and power limit (nvidia-smi);
-3. hold the selective-scan forward (K1, inference variant) against its
-   plain PyTorch version at the four Vivim-b3 stage shapes of a serving
-   forward, fp32 and bf16, plus a ragged case with an initial state;
+2. print the card's name and power limit (nvidia-smi), and the exp (MUFU)
+   rate the bounds use: 16 per clock per SM x SMs x the max SM clock;
+3. hold the chunk-parallel selective-scan forward (K1, inference variant)
+   against its plain PyTorch version at the four Vivim-b3 stage shapes of
+   a serving forward, fp32 and bf16, printing each shape's parallel chunk
+   Lc and grid, and at stage 0 in fp32 with dt near 1e-3; then ragged
+   cases that cross the chunk edges (d = 160, L in {1, 17, Lc - 1, Lc + 1,
+   333} at the picked Lc and at Lc = 64, an initial state, per-batch
+   A / D / bias), with dt near 0.05 (so the carried state counts) in fp32
+   and bf16 and near 1e-3 (softplus small) in fp32, output and last state;
 3b. hold K1's training variant and the selective-scan backward (K2)
    against their plain versions at the four stage shapes of a training step
-   (scan batch 9), fp32 and bf16, plus a ragged case (L = 333, d = 160)
-   with an initial state, a non-zero last-state cotangent and shared
-   A / D / bias, through the autograd Function against autograd through
-   the sequential plain scan; print error, kernel / plain / bound ms;
+   (scan batch 9), fp32 and bf16, K2 on the chunk-start states K1 saved;
+   the same ragged chunk-edge cases for K1-training (output, chunk
+   states, last state) and K2 on its states; and a ragged case (L = 333,
+   d = 160) with an initial state, a non-zero last-state cotangent and
+   shared A / D / bias, through the autograd Function against autograd
+   through the sequential plain scan; print error, kernel / plain / bound
+   ms and the bound's binding term (bytes, fp32 operations or exps);
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
    ``run_inference``; K1 must launch 8 times per forward and nothing else,
@@ -37,7 +46,8 @@ Phases, each of which raises on failure (exit code != 0):
 6. print the kernels line, the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
-before printing any result.
+before printing any result.  ``--kernels-only`` stops after phase 3b (a
+quick check of the kernels on the card).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -69,29 +80,62 @@ GRAD_TOL = {torch.float32: (1e-3, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 # H100 SXM data sheet: HBM3 bytes/s and fp32 (non-tensor-core) FLOP/s
 CARDS = {"H100 PCIe": (2.0e12, 51e12), "H200": (4.8e12, 67e12),
          "H100": (3.35e12, 67e12)}
+MUFU_PER_CLOCK_PER_SM = 16  # ex2 results; compute capability 9.0
 GRADS = ("ddelta", "du", "dB", "dC", "dA", "dD", "dbias", "dh0")
+TIMING = ("ms: device time per call (CUDA-graph replay), call_ms: one eager "
+          "call with its launch (CUDA events); earlier versions of this "
+          "script reported the eager call as ms")
+RAGGED_D = 160
+# delta shifts of the chunk-edge cases: dt near 0.05, so the state carried
+# across a chunk edge is not decayed to nothing, and dt near 1e-3 (the floor
+# of the dt init), where softplus must stay accurate while small
+EDGE_CASES = ((torch.float32, -3.0), (torch.bfloat16, -3.0),
+              (torch.float32, -7.0))
+
+
+def nvidia_smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip(
+            ).splitlines()[0]
 
 
 def card_peaks(name):
-    for key, peaks in CARDS.items():
+    """(HBM bytes/s, fp32 FLOP/s, exps/s); the exp (MUFU) rate from this
+    card's SM count and max SM clock."""
+    for key, (bw, flops) in CARDS.items():
         if key in name:
-            return peaks
-    raise RuntimeError(f"no peak figures for card {name!r}")
+            break
+    else:
+        raise RuntimeError(f"no peak figures for card {name!r}")
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu = MUFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    print(f"peaks: {bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s fp32, "
+          f"{mufu / 1e12:.3f} T exp/s = {MUFU_PER_CLOCK_PER_SM} x {sms} SMs "
+          f"x {mhz:.0f} MHz max SM clock", flush=True)
+    return bw, flops, mufu
 
 
-def bound(nbytes, ops, peaks):
-    """(bound ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / peaks[0] * 1e3, ops / peaks[1] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+def bound(work, peaks):
+    """(bound ms, bound_by "bytes" or "operations", binding term "bytes",
+    "fp32" or "exp") of work = (bytes, fp32 operations, exps): the largest
+    of bytes over the memory rate, operations over the fp32 rate and exps
+    over the exp unit's rate."""
+    terms = {"bytes": work[0] / peaks[0], "fp32": work[1] / peaks[1],
+             "exp": work[2] / peaks[2]}
+    term = max(terms, key=terms.get)
+    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def scan_work(batch, L, d, elem):
-    """Bytes K1 (inference) must move and operations it must do."""
+    """(bytes, fp32 operations, exps) of K1's inference variant: it reads u,
+    delta, z, B, C and writes y; per state and step one exp and about six
+    other operations, per channel and step about eight."""
     nbytes = (batch * L * (4 * d + 2 * N) * elem       # u, delta, z, y, B, C
               + batch * d * (2 * N + 2) * 4)            # A, last, D, bias
-    ops = batch * L * d * (7 * N + 8)
-    return nbytes, ops
+    return nbytes, batch * L * d * (6 * N + 8), batch * L * d * N
 
 
 def train_fwd_work(batch, L, d, elem, chunk):
@@ -100,20 +144,19 @@ def train_fwd_work(batch, L, d, elem, chunk):
     nbytes = (batch * L * (3 * d + 2 * N) * elem
               + batch * -(-L // chunk) * d * N * 4
               + batch * d * (2 * N + 2) * 4)
-    ops = batch * L * d * (6 * N + 4)
-    return nbytes, ops
+    return nbytes, batch * L * d * (6 * N + 4), batch * L * d * N
 
 
 def bwd_work(batch, L, d, elem, chunk):
     """K2, as the training step calls it (no dlast): reads u, delta, dy, B,
-    C and the chunk states, writes ddelta, du, dB, dC and the per-batch parameter grads.  About 21
-    operations per state and step (the recompute and the adjoint, an exp
-    as one) and 20 per channel and step."""
+    C and the chunk states, writes ddelta, du, dB, dC and the per-batch
+    parameter grads.  One exp per state and step: the recompute's h_t and
+    the adjoint's g_{t-1} use the same exp(dt_t A); about 19 other
+    operations per state and step and 20 per channel and step."""
     nbytes = (batch * L * (5 * d + 4 * N) * elem
               + batch * -(-L // chunk) * d * N * 4
               + batch * d * (2 * N + 2 + 4) * 4)      # A, D, bias; grads
-    ops = batch * L * d * (21 * N + 20)
-    return nbytes, ops
+    return nbytes, batch * L * d * (19 * N + 20), batch * L * d * N
 
 
 def cuda_ms(fn, repeats):
@@ -128,6 +171,60 @@ def cuda_ms(fn, repeats):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, calls=10, repeats=5):
+    """Device ms per call of ``fn``: ``calls`` calls captured back to back
+    in one CUDA graph, the graph replayed and timed with CUDA events
+    (median of ``repeats``).  The host's time to prepare and launch each
+    call does not count, so this is the kernels' own time (with the gaps
+    between them)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = cuda_ms(graph.replay, repeats) / calls
+    del graph
+    return ms
+
+
+def kernel_split(fn, calls=3):
+    """Device us per call of ``fn`` by CUDA kernel (torch.profiler),
+    keyed by a short name: K1's passes "local", "carry" and "out"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        if "selective_scan_fwd_carry" in name:
+            key = "carry"
+        elif "selective_scan_fwd_chunk" in name:
+            key = ("local" if re.search(r"chunk_kernel<[^,]+, 0,", name)
+                   else "out")
+        else:
+            key = name.split("(")[0][-40:]
+        split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / calls
+    return split
+
+
+def split_text(split):
+    return (", ".join(f"{k} {v:.1f} us" for k, v in split.items())
+            or "no device events recorded")
 
 
 def once_ms(fn):
@@ -166,13 +263,55 @@ def dtype_name(dtype):
     return str(dtype).split(".")[-1]
 
 
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def picked_chunk(batch, L, d):
+    """(Lc, grid) K1's wrapper picks for a shape on this card."""
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    threads = ss.fwd_threads()
+    lc = ss.fwd_l_chunk(batch, L, d, sm_count(), threads)
+    return lc, ss.fwd_grid(batch, L, d, lc, threads)
+
+
+def grid_text(lc, grid):
+    return (f"Lc={lc} grid={grid[0]}x{grid[1]}x{grid[2]} "
+            f"({grid[0] * grid[1] * grid[2]} blocks)")
+
+
+def chunk_edge_cases(batch):
+    """(L, forced Lc or None) at d = RAGGED_D that cross K1's chunk edges:
+    L in {1, 17, Lc - 1, Lc + 1, 333} at the Lc the wrapper picks for
+    L = 333 and at a forced Lc = 64."""
+    cases = []
+    for forced in (None, 64):
+        lc = forced or picked_chunk(batch, 333, RAGGED_D)[0]
+        for L in (1, 17, lc - 1, lc + 1, 333):
+            if (L, forced) not in cases:
+                cases.append((L, forced))
+    return cases
+
+
+def scaled_err(got, want):
+    """Largest error over the largest magnitude, of all the pairs."""
+    return max((g.float() - w.float()).abs().max().item()
+               / max(w.float().abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
 def phase_kernels(peaks):
+    """K1 (inference variant) against its plain version at the serving
+    stage shapes (and at stage 0 with dt near 1e-3), the chunk-edge cases
+    and a ragged call through the dispatch."""
     from vivim_tpu_torch.kernels import refs
     from vivim_tpu_torch.kernels import selective_scan as ss
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for si, (L, d) in enumerate(STAGES):
+        lc, grid = picked_chunk(SCAN_BATCH, L, d)
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_inputs(SCAN_BATCH, L, d, dtype, gen)
             run = lambda: ss.selective_scan_fwd_cuda(
@@ -188,20 +327,78 @@ def phase_kernels(peaks):
             torch.testing.assert_close(got.float(), want.float(),
                                        rtol=rtol, atol=atol)
             run()
-            ms = cuda_ms(run, 10 if L > 10000 else 30)
-            nbytes, ops = scan_work(SCAN_BATCH, L, d, got.element_size())
-            bound_ms, bound_by = bound(nbytes, ops, peaks)
+            call_ms = cuda_ms(run, 10 if L > 10000 else 30)
+            ms = device_ms(run)
+            split = kernel_split(run)
+            work = scan_work(SCAN_BATCH, L, d, got.element_size())
+            bound_ms, bound_by, term = bound(work, peaks)
             row = dict(stage=si, L=L, d=d, dtype=dtype_name(dtype),
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       l_chunk=lc, grid=grid, max_abs_err=err, ms=ms,
+                       call_ms=call_ms, split_us=split, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       mbytes=nbytes / 1e6)
+                       bound_term=term, mbytes=work[0] / 1e6)
             rows.append(row)
-            print(f"K1 stage {si} {row['dtype']:8s} L={L:5d} d={d:4d}: "
-                  f"max_abs_err={err:.3e} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.4f} "
-                  f"({bound_by}, {nbytes / 1e6:.1f} MB)", flush=True)
-    # ragged L and d, per-batch parameters, initial state and last state
-    L, d = 333, 160
+            print(f"K1 stage {si} {row['dtype']:8s} L={L:5d} d={d:4d} "
+                  f"{grid_text(lc, grid)}: max_abs_err={err:.3e} "
+                  f"ms={ms:.4f} (one call with its launch {call_ms:.4f}; "
+                  f"{split_text(split)}) plain_ms={plain_ms:.1f} "
+                  f"bound_ms={bound_ms:.4f} ({term}; {work[0] / 1e6:.1f} "
+                  f"MB, {work[2] / 1e6:.0f} M exps)", flush=True)
+            del args, got, want
+    # stage 0 with dt near 1e-3: softplus small, states built over
+    # thousands of steps
+    L, d = STAGES[0]
+    lc, grid = picked_chunk(SCAN_BATCH, L, d)
+    u, delta, A, B, C, D, z, bias = scan_inputs(SCAN_BATCH, L, d,
+                                                torch.float32, gen)
+    got = ss.selective_scan_fwd_cuda(u, delta - 7.0, A, B, C, D, z, bias,
+                                     True)
+    want = refs.selective_scan_ref(u, delta - 7.0, A, B, C, D, z, bias, True,
+                                   True)
+    torch.cuda.synchronize()
+    for what, g, w in zip(("y", "last"), got, want):
+        torch.testing.assert_close(g, w, rtol=TOL[torch.float32][0],
+                                   atol=TOL[torch.float32][1],
+                                   msg=f"K1 stage 0 small dt {what}")
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    rows.append(dict(stage="0, dt near 1e-3", L=L, d=d, dtype="float32",
+                     l_chunk=lc, max_abs_err=err))
+    print(f"K1 stage 0 float32  L={L} d={d} {grid_text(lc, grid)}, dt near "
+          f"1e-3: y, last max_abs_err={err:.3e}, scaled "
+          f"{scaled_err(got, want):.3e}", flush=True)
+    del u, delta, B, C, z, got, want
+    # chunk edges: ragged L and d, per-batch parameters, strided B/C/z,
+    # an initial state; output and last state
+    for L, forced in chunk_edge_cases(SCAN_BATCH):
+        lc = forced or picked_chunk(SCAN_BATCH, L, RAGGED_D)[0]
+        for dtype, shift in EDGE_CASES:
+            u, delta, A, B, C, D, z, bias = scan_inputs(
+                SCAN_BATCH, L, RAGGED_D, dtype, gen)
+            delta = delta + shift
+            h0 = torch.randn(SCAN_BATCH, RAGGED_D, N, generator=gen,
+                             device="cuda")
+            y, _, last = ss._fwd_launch(u, delta, A, B, C, D, z, bias, True,
+                                        h0, False, forced)
+            got = (y, last)
+            want = refs.selective_scan_ref(u, delta, A, B, C, D, z, bias,
+                                           True, True, h0)
+            torch.cuda.synchronize()
+            rtol, atol = TOL[dtype]
+            for what, g, w in zip(("y", "last"), got, want):
+                torch.testing.assert_close(
+                    g.float(), w.float(), rtol=rtol, atol=atol,
+                    msg=f"K1 chunk edge L={L} Lc={lc} shift {shift} {what}")
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            rows.append(dict(stage="chunk edge", L=L, d=RAGGED_D,
+                             dtype=dtype_name(dtype), l_chunk=lc,
+                             delta_shift=shift, max_abs_err=err))
+            print(f"K1 chunk edge {dtype_name(dtype):8s} L={L:3d} "
+                  f"d={RAGGED_D} Lc={lc:3d} h0, delta {shift:+.0f}: y, last "
+                  f"max_abs_err={err:.3e}, scaled {scaled_err(got, want):.3e}",
+                  flush=True)
+    # ragged L and d through the dispatch, initial state and last state
+    L, d = 333, RAGGED_D
     u, delta, A, B, C, D, z, bias = scan_inputs(
         SCAN_BATCH, L, d, torch.float32, gen, strided=False)
     h0 = torch.randn(SCAN_BATCH, d, N, generator=gen, device="cuda")
@@ -225,10 +422,47 @@ def phase_kernels(peaks):
     return rows
 
 
+def check_train_pair(u, delta, A, B, C, D, bias, h0, dout, dlast, dtype,
+                     l_chunk, what):
+    """K1-training against its plain version (output, chunk states, last
+    state), then K2 on the chunk states K1 saved against its plain version
+    on the same states; returns (K1 error, K2 error, K1's chunk states,
+    the two plain versions' ms).  ``l_chunk`` forces K1's parallel chunk
+    (None: the one the wrapper picks)."""
+    from vivim_tpu_torch.kernels import refs
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    got = ss._fwd_launch(u, delta, A, B, C, D, None, bias, True, h0, True,
+                         l_chunk)
+    torch.cuda.synchronize()
+    want, fwd_plain = once_ms(lambda: refs.selective_scan_fwd_states_ref(
+        u, delta, A, B, C, D, bias, True, h0, chunk=ss.CHUNK))
+    rtol, atol = TOL[dtype]
+    for name, g, w in zip(("y", "chunk states", "last"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=f"K1-train {what} {name}")
+    fwd_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    cs = got[1]
+    got_b = ss.selective_scan_bwd_cuda(u, delta, A, B, C, D, bias, cs, dout,
+                                       dlast, True)
+    torch.cuda.synchronize()
+    want_b, bwd_plain = once_ms(lambda: refs.selective_scan_bwd_ref(
+        u, delta, A, B, C, D, bias, cs, dout, dlast, True, chunk=ss.CHUNK))
+    rtol, atol = GRAD_TOL[dtype]
+    for name, g, w in zip(GRADS, got_b, want_b):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=f"K2 {what} {name}")
+    bwd_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got_b, want_b))
+    return fwd_err, bwd_err, cs, fwd_plain, bwd_plain
+
+
 def phase_train_kernels(peaks):
     """K1's training variant and K2 at the training step's stage shapes,
     each against its plain version on the same inputs (K2 on the chunk
-    states K1 saved), and a ragged case through the autograd Function."""
+    states K1 saved), the chunk-edge cases, and a ragged case through the
+    autograd Function."""
     from vivim_tpu_torch.kernels import refs
     from vivim_tpu_torch.kernels import selective_scan as ss
 
@@ -236,56 +470,68 @@ def phase_train_kernels(peaks):
     fwd_rows, bwd_rows = [], []
     b = TRAIN_SCAN_BATCH
     for si, (L, d) in enumerate(STAGES):
+        lc, grid = picked_chunk(b, L, d)
         for dtype in (torch.float32, torch.bfloat16):
             u, delta, A, B, C, D, _, bias = scan_inputs(b, L, d, dtype, gen)
             dout = torch.randn(b, L, d, generator=gen, device="cuda").to(
                 dtype)
+            fwd_err, bwd_err, cs, fwd_plain, bwd_plain = check_train_pair(
+                u, delta, A, B, C, D, bias, None, dout, None, dtype, None,
+                f"stage {si} {dtype_name(dtype)}")
             fwd = lambda: ss.selective_scan_fwd_states_cuda(
                 u, delta, A, B, C, D, bias, True)
-            got = fwd()
-            torch.cuda.synchronize()
-            want, fwd_plain = once_ms(
-                lambda: refs.selective_scan_fwd_states_ref(
-                    u, delta, A, B, C, D, bias, True, chunk=ss.CHUNK))
-            rtol, atol = TOL[dtype]
-            for g, w in zip(got, want):
-                torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
-                                           atol=atol)
-            fwd_err = max((g.float() - w.float()).abs().max().item()
-                          for g, w in zip(got, want))
-            cs = got[1]
             bwd = lambda: ss.selective_scan_bwd_cuda(
                 u, delta, A, B, C, D, bias, cs, dout, None, True)
-            got_b = bwd()
-            torch.cuda.synchronize()
-            want_b, bwd_plain = once_ms(lambda: refs.selective_scan_bwd_ref(
-                u, delta, A, B, C, D, bias, cs, dout, None, True,
-                chunk=ss.CHUNK))
-            rtol, atol = GRAD_TOL[dtype]
-            for name, g, w in zip(GRADS, got_b, want_b):
-                torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
-                                           atol=atol, msg=f"K2 {name}")
-            bwd_err = max((g.float() - w.float()).abs().max().item()
-                          for g, w in zip(got_b, want_b))
             reps = 5 if L > 10000 else 20
-            fwd_ms, bwd_ms = cuda_ms(fwd, reps), cuda_ms(bwd, reps)
             elem = u.element_size()
-            for rows, kind, err, ms, plain, work in (
-                    (fwd_rows, "K1-train", fwd_err, fwd_ms, fwd_plain,
-                     train_fwd_work(b, L, d, elem, ss.CHUNK)),
-                    (bwd_rows, "K2", bwd_err, bwd_ms, bwd_plain,
-                     bwd_work(b, L, d, elem, ss.CHUNK))):
-                bound_ms, bound_by = bound(*work, peaks)
+            for rows, kind, err, run, plain, work, extra in (
+                    (fwd_rows, "K1-train", fwd_err, fwd, fwd_plain,
+                     train_fwd_work(b, L, d, elem, ss.CHUNK),
+                     dict(l_chunk=lc, grid=grid, split_us=kernel_split(fwd))),
+                    (bwd_rows, "K2", bwd_err, bwd, bwd_plain,
+                     bwd_work(b, L, d, elem, ss.CHUNK), {})):
+                call_ms, ms = cuda_ms(run, reps), device_ms(run, calls=5)
+                bound_ms, bound_by, term = bound(work, peaks)
                 rows.append(dict(stage=si, L=L, d=d, dtype=dtype_name(dtype),
-                                 max_abs_err=err, ms=ms, plain_ms=plain,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 mbytes=work[0] / 1e6))
+                                 max_abs_err=err, ms=ms, call_ms=call_ms,
+                                 plain_ms=plain, bound_ms=bound_ms,
+                                 bound_by=bound_by, bound_term=term,
+                                 mbytes=work[0] / 1e6, **extra))
                 print(f"{kind:8s} stage {si} {dtype_name(dtype):8s} "
-                      f"b={b} L={L:5d} d={d:4d}: max_abs_err={err:.3e} "
-                      f"ms={ms:.4f} plain_ms={plain:.1f} "
-                      f"bound_ms={bound_ms:.4f} ({bound_by}, "
-                      f"{work[0] / 1e6:.1f} MB)", flush=True)
-            del got, want, got_b, want_b, cs
+                      f"b={b} L={L:5d} d={d:4d}"
+                      + (f" {grid_text(lc, grid)}" if extra else "")
+                      + f": max_abs_err={err:.3e} ms={ms:.4f} (one call "
+                      f"with its launch {call_ms:.4f}"
+                      + (f"; {split_text(extra['split_us'])}" if extra
+                         else "")
+                      + f") plain_ms={plain:.1f} bound_ms={bound_ms:.4f} "
+                      f"({term}; {work[0] / 1e6:.1f} MB, "
+                      f"{work[2] / 1e6:.0f} M exps)", flush=True)
+            del u, delta, B, C, dout, cs
+    # chunk edges: ragged L and d, per-batch parameters, an initial state,
+    # a non-zero dlast; K1-training, then K2 on its chunk states
+    for L, forced in chunk_edge_cases(b):
+        lc = forced or picked_chunk(b, L, RAGGED_D)[0]
+        for dtype, shift in EDGE_CASES:
+            u, delta, A, B, C, D, _, bias = scan_inputs(b, L, RAGGED_D,
+                                                        dtype, gen)
+            delta = delta + shift
+            h0 = torch.randn(b, RAGGED_D, N, generator=gen, device="cuda")
+            dout = torch.randn(b, L, RAGGED_D, generator=gen,
+                               device="cuda").to(dtype)
+            dlast = torch.randn(b, RAGGED_D, N, generator=gen, device="cuda")
+            fwd_err, bwd_err = check_train_pair(
+                u, delta, A, B, C, D, bias, h0, dout, dlast, dtype, forced,
+                f"chunk edge L={L} Lc={lc} delta {shift:+.0f} "
+                f"{dtype_name(dtype)}")[:2]
+            for rows, err in ((fwd_rows, fwd_err), (bwd_rows, bwd_err)):
+                rows.append(dict(stage="chunk edge", L=L, d=RAGGED_D,
+                                 dtype=dtype_name(dtype), l_chunk=lc,
+                                 delta_shift=shift, max_abs_err=err))
+            print(f"K1-train+K2 chunk edge {dtype_name(dtype):8s} b={b} "
+                  f"L={L:3d} d={RAGGED_D} Lc={lc:3d} h0, dlast, delta "
+                  f"{shift:+.0f}: K1 max_abs_err={fwd_err:.3e}, K2 on its "
+                  f"states {bwd_err:.3e}", flush=True)
     # ragged: L = 333, d = 160 (ten K2 blocks), shared A / D / bias (the
     # batch-sum path), an initial state and a non-zero dlast; the whole
     # Function against autograd through the sequential plain scan
@@ -702,6 +948,11 @@ def phase_train_vs_plain(dev="cuda", segformer="b3", size=256, clip_len=5):
 
 def _kernel_entry(name, source, replaces, launches, rows, per, **extra):
     fp32 = [r for r in rows if r["dtype"] == "float32" and "ms" in r]
+    by_term = {}  # bound ms by binding term, over the stage shapes
+    for r in fp32:
+        by_term[r["bound_term"]] = (by_term.get(r["bound_term"], 0.0)
+                                    + LAYERS_PER_STAGE * r["bound_ms"])
+    term = max(by_term, key=by_term.get)
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
@@ -709,14 +960,18 @@ def _kernel_entry(name, source, replaces, launches, rows, per, **extra):
                         if r["dtype"] == "float32"),
         per=per,
         ms=sum(LAYERS_PER_STAGE * r["ms"] for r in fp32),
+        call_ms=sum(LAYERS_PER_STAGE * r["call_ms"] for r in fp32),
         plain_ms=sum(LAYERS_PER_STAGE * r["plain_ms"] for r in fp32),
         bound_ms=sum(LAYERS_PER_STAGE * r["bound_ms"] for r in fp32),
-        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in fp32)
-                  else "operations"),
-        library_ms=None, ok=True, shapes=rows, **extra)
+        bound_by="bytes" if term == "bytes" else "operations",
+        bound_term=term, library_ms=None, ok=True, shapes=rows, **extra)
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 3b")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs only on a CUDA card")
@@ -741,10 +996,7 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
     t0 = done("1 build", t0)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+    card = nvidia_smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
     peaks = card_peaks(kind)
@@ -753,6 +1005,10 @@ def main():
     t0 = done("3 K1 inference", t0)
     fwd_rows, bwd_rows, ragged_err = phase_train_kernels(peaks)
     t0 = done("3b K1 training + K2", t0)
+    if args.kernels_only:
+        print(f"total: {time.perf_counter() - t_start:.1f} s; "
+              "--kernels-only: stopped after phase 3b", flush=True)
+        return
     serve_launched, _ = phase_serve()
     t0 = done("4 serve", t0)
     train_launched, train_perf = phase_train()
@@ -767,7 +1023,7 @@ def main():
         serve_launched["K1 inference"] + train_launched["K1 inference"]
         + train_launched["K1 training"], rows,
         f"serving forward: {LAYERS_PER_STAGE} inference launches at each "
-        "stage shape (scan batch 3), fp32, each timed alone",
+        f"stage shape (scan batch 3), fp32, {TIMING}",
         launches_by_path={"serve": serve_launched, "train": train_launched},
         training_variant=_kernel_entry(
             "selective_scan_fwd (training variant)",
@@ -775,14 +1031,14 @@ def main():
             f"{JAX_PACKAGE}/kernels/selective_scan.py:174",
             train_launched["K1 training"], fwd_rows,
             f"train step: {LAYERS_PER_STAGE} launches at each stage shape "
-            f"(scan batch {TRAIN_SCAN_BATCH}), fp32, each timed alone"))
+            f"(scan batch {TRAIN_SCAN_BATCH}), fp32, {TIMING}"))
     k2 = _kernel_entry(
         "selective_scan_bwd",
         "vivim_tpu_torch/kernels/csrc/selective_scan_bwd.cu",
         f"{JAX_PACKAGE}/kernels/selective_scan.py:227",
         train_launched["K2"], bwd_rows,
         f"train step: {LAYERS_PER_STAGE} launches at each stage shape "
-        f"(scan batch {TRAIN_SCAN_BATCH}), fp32, each timed alone",
+        f"(scan batch {TRAIN_SCAN_BATCH}), fp32, {TIMING}",
         ragged_max_abs_err=ragged_err)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2], "train": train_perf}))

@@ -141,6 +141,76 @@ def test_training_kernels_match_plain_versions(cuda, dtype):
                                    atol=atol, msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 17, 63, 65, 333])
+def test_forward_kernel_across_chunk_edges(cuda, L, dtype):
+    """K1's chunk-parallel passes at lengths that cross its chunk edges
+    (Lc - 1 and Lc + 1 for a forced Lc = 64; the Lc the wrapper picks at
+    these sizes is 16), d = 160 with an initial state: both variants, and
+    K2 on the training variant's chunk states.  dt near 0.05, so the state
+    carried from one chunk to the next still counts."""
+    t = _inputs(cuda, L=L, seed=L)
+    u, delta = t["u"].to(dtype), (t["delta"] - 3.0).to(dtype)
+    B, C, z = t["B"].to(dtype), t["C"].to(dtype), t["z"].to(dtype)
+    A, D, bias, h0 = t["A"], t["D"], t["delta_bias"], t["initial_state"]
+    rtol, atol = TOL[dtype]
+    want = refs.selective_scan_ref(u, delta, A, B, C, D, z, bias, True, True,
+                                   h0)
+    want_s = refs.selective_scan_fwd_states_ref(u, delta, A, B, C, D, bias,
+                                                True, h0, chunk=ss.CHUNK)
+    got = ss.selective_scan_fwd_cuda(u, delta, A, B, C, D, z, bias, True, h0)
+    got_s = ss.selective_scan_fwd_states_cuda(u, delta, A, B, C, D, bias,
+                                              True, h0)
+    # the same two variants with the parallel chunk forced to 64
+    y64, _, last64 = ss._fwd_launch(u, delta, A, B, C, D, z, bias, True, h0,
+                                    False, 64)
+    got_s64 = ss._fwd_launch(u, delta, A, B, C, D, None, bias, True, h0,
+                             True, 64)
+    torch.cuda.synchronize()
+    for l_chunk, outs in ((None, got + got_s), (64, (y64, last64) + got_s64)):
+        for g, w in zip(outs, want + want_s):
+            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                       atol=atol, msg=f"Lc {l_chunk}")
+    rng = np.random.default_rng(L)
+    dout = torch.from_numpy(rng.standard_normal(u.shape).astype(
+        np.float32)).to(cuda, dtype)
+    cs = got_s64[1]
+    got = ss.selective_scan_bwd_cuda(u, delta, A, B, C, D, bias, cs, dout,
+                                     None, True)
+    want = refs.selective_scan_bwd_ref(u, delta, A, B, C, D, bias, cs, dout,
+                                       None, True, chunk=ss.CHUNK)
+    torch.cuda.synchronize()
+    rtol, atol = GRAD_TOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("L", [65, 333, 2048])
+def test_forward_kernel_small_dt(cuda, L):
+    """dt near 1e-3, the floor of the dt init (delta shifted by -7), fp32:
+    K1's softplus must stay accurate where it is small.  Both variants,
+    with the wrapper's Lc and a forced Lc = 64, against the plain
+    versions; no initial state, so the output carries the states the
+    small dt builds."""
+    t = _inputs(cuda, L=L, seed=L + 1)
+    u, delta, A, B, C, D, z, bias = (
+        t["u"], t["delta"] - 7.0, t["A"], t["B"], t["C"], t["D"], t["z"],
+        t["delta_bias"])
+    rtol, atol = TOL[torch.float32]
+    want = refs.selective_scan_ref(u, delta, A, B, C, D, z, bias, True, True)
+    want_s = refs.selective_scan_fwd_states_ref(u, delta, A, B, C, D, bias,
+                                                True, chunk=ss.CHUNK)
+    for l_chunk in (None, 64):
+        y, _, last = ss._fwd_launch(u, delta, A, B, C, D, z, bias, True, None,
+                                    False, l_chunk)
+        got_s = ss._fwd_launch(u, delta, A, B, C, D, None, bias, True, None,
+                               True, l_chunk)
+        torch.cuda.synchronize()
+        for g, w in zip((y, last) + got_s, want + want_s):
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                                       msg=f"Lc {l_chunk}")
+
+
 def test_cuda_call_with_grad_launches_k2(cuda):
     """A CUDA call that needs a gradient runs K1's training variant and K2
     (z gated outside the kernels), and its nine gradients match autograd

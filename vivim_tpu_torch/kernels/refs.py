@@ -13,6 +13,8 @@ CUDA kernels; on the GPU they are what the kernels are held against.
   (the JAX package's ``_fwd_call(save_cs=True)`` without z and
   ``_bwd_call``): the pre-gate output with the chunk-start states, and the
   eight gradients recomputed chunk by chunk from those states.
+- ``selective_scan_chunked_ref``: the forward kernel's chunk-parallel
+  passes (local scans from zero, the carry, the re-walk), for the tests.
 - ``causal_conv1d_ref``: depthwise causal conv of width 2-4, optional SiLU.
 - ``mamba_inner_ref``: conv1d -> x_proj -> (dt, B, C) split -> dt_proj ->
   selective scan (z-gated), optionally + out_proj.
@@ -149,6 +151,79 @@ def selective_scan_fwd_states_ref(u, delta, A, B, C, D=None, delta_bias=None,
     if D is not None:
         y = y + uf * _param(D, batch, 1)[:, None, :]
     return y.to(u.dtype), torch.stack(states, dim=1), h
+
+
+def selective_scan_chunked_ref(u, delta, A, B, C, D=None, z=None,
+                               delta_bias=None, delta_softplus=False,
+                               initial_state=None, l_chunk=64, chunk=16,
+                               save_states=False):
+    """The chunk-parallel decomposition the forward kernel runs, in plain
+    PyTorch: a model of its three passes for the tests (no code path calls
+    it).  L is cut into chunks of ``l_chunk`` steps (a multiple of
+    ``chunk``; the last one shorter):
+
+    A. every chunk is scanned from a zero state: its local end state
+       ``hloc_k`` and ``S_k``, the sum of its dt;
+    B. the carry: ``H_0 = initial_state or 0``,
+       ``H_{k+1} = exp(A * S_k) * H_k + hloc_k``, the start of chunk k + 1;
+    C. every chunk is re-walked from ``H_k``: the output, the state before
+       every ``chunk``-th step, and the last state.
+
+    Returns ``(out, last)``, or with ``save_states`` (no z, the training
+    variant) ``(out, chunk_states, last)`` as
+    ``selective_scan_fwd_states_ref`` does.  B, C: (batch, L, dstate)."""
+    if l_chunk <= 0 or l_chunk % chunk:
+        raise ValueError(f"l_chunk {l_chunk} is not a multiple of {chunk}")
+    if save_states and z is not None:
+        raise ValueError("the training variant takes no z")
+    batch, L, dim = u.shape
+    _, dt = _dt(delta, delta_bias, delta_softplus)
+    A = _param(A, batch, 2)
+    uf = u.float()
+    nk = max(1, -(-L // l_chunk))
+    pad = nk * l_chunk - L
+
+    def chunks(x):  # (b, L, ...) -> (b, nk, l_chunk, ...); padding is masked
+        x = F.pad(x.float(), [0, 0] * (x.dim() - 2) + [0, pad])
+        return x.reshape((batch, nk, l_chunk) + tuple(x.shape[2:]))
+
+    dtc, uc, Bc, Cc = chunks(dt), chunks(uf), chunks(B), chunks(C)
+    valid = (torch.arange(nk * l_chunk, device=u.device) < L).reshape(
+        nk, l_chunk)
+
+    def step(h, j):  # step j of every chunk at once; h: (b, nk, d, n)
+        a = torch.exp(dtc[:, :, j, :, None] * A[:, None])
+        bu = (dtc[:, :, j] * uc[:, :, j])[..., None] * Bc[:, :, j, None, :]
+        return torch.where(valid[None, :, j, None, None], a * h + bu, h)
+
+    h = u.new_zeros((batch, nk, dim, A.shape[-1]), dtype=torch.float32)
+    for j in range(l_chunk):  # pass A
+        h = step(h, j)
+    S = (dtc * valid[None, :, :, None]).sum(2)
+    H = (torch.zeros_like(h[:, 0]) if initial_state is None
+         else initial_state.float())
+    starts = []
+    for k in range(nk):  # pass B
+        starts.append(H)
+        H = torch.exp(A * S[:, k, :, None]) * H + h[:, k]
+    h = torch.stack(starts, 1)
+    ys, states = [], []
+    for j in range(l_chunk):  # pass C
+        if j % chunk == 0:
+            states.append(h)
+        h = step(h, j)
+        ys.append((h * Cc[:, :, j, None, :]).sum(-1))
+    y = torch.stack(ys, 2).reshape(batch, nk * l_chunk, dim)[:, :L]
+    if D is not None:
+        y = y + uf * _param(D, batch, 1)[:, None, :]
+    if z is not None:
+        y = y * F.silu(z.float())
+    last = h[:, -1]
+    if not save_states:
+        return y.to(u.dtype), last
+    cs = torch.stack(states, 2).reshape(
+        batch, nk * (l_chunk // chunk), dim, -1)[:, :-(-L // chunk)]
+    return y.to(u.dtype), cs, last
 
 
 def selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, chunk_states,

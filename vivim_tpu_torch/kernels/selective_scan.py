@@ -11,8 +11,17 @@ kernels become CUDA kernels (see the notes at the top of each source):
 - K2, ``_bwd_kernel`` -> ``csrc/selective_scan_bwd.cu``
   (``selective_scan_bwd_cuda``).
 
-This module checks and lays out their arguments, launches them on PyTorch's
-current stream and counts the launches.
+This module checks and lays out their arguments, allocates their outputs and
+scratch, launches them on PyTorch's current stream and counts the launches
+(one count per wrapper call, whatever number of CUDA kernels the call runs).
+
+K1 is a chunk-parallel scan with one thread per channel: L is cut into
+chunks of ``l_chunk`` steps (``fwd_l_chunk`` picks it per shape, a multiple
+of ``CHUNK``), every chunk but the last is scanned from a zero state, a carry
+pass chains the chunks' end states, and every chunk is then re-walked from
+its true start state to write the output.  ``refs.selective_scan_chunked_ref``
+models those passes in plain PyTorch for the tests.  K2 walks ``CHUNK``-step
+chunks right to left from the states K1's training variant saves.
 
 Dispatch (``implementation=None``):
 - when no input needs a gradient (or under ``no_grad`` / ``inference_mode``):
@@ -46,10 +55,16 @@ LAUNCHES = 0
 TRAIN_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-DSTATE = 16  # the kernels' d_state: one half warp per channel
-CHUNK = 16   # steps per chunk-start state (kChunk of both sources)
+DSTATE = 16  # the kernels' d_state: K1 holds a channel's states in registers
+# Steps between two saved chunk-start states (kChunk of both sources): the
+# spacing of K1-training's saved states and K2's chunk.  K1's parallel chunk
+# ``l_chunk`` is a multiple of it.
+CHUNK = 16
+FWD_BLOCKS_PER_SM = 4  # K1's grid aims at this many blocks per SM
+MAX_CHUNKS = 65535  # K1's grid y dimension
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIBS = {}
+_SMS = {}
 
 
 def _lib(name):
@@ -59,8 +74,10 @@ def _lib(name):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         if name == "selective_scan_fwd":
             lib.vivim_selective_scan_fwd.argtypes = (
-                [ptr] * 12 + [i32] * 4 + [i64] * 16 + [i32, i32, ptr])
+                [ptr] * 14 + [i32] * 5 + [i64] * 16 + [i32, i32, ptr])
             lib.vivim_selective_scan_fwd.restype = i32
+            lib.vivim_selective_scan_fwd_threads.argtypes = []
+            lib.vivim_selective_scan_fwd_threads.restype = i32
         else:
             lib.vivim_selective_scan_bwd.argtypes = (
                 [ptr] * 19 + [i32] * 4 + [i64] * 13 + [i32, i32, ptr])
@@ -133,8 +150,42 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def fwd_threads():
+    """Channels per block of K1, as its library was built."""
+    return _lib("selective_scan_fwd").vivim_selective_scan_fwd_threads()
+
+
+def fwd_l_chunk(batch, L, dim, sms, threads):
+    """K1's parallel chunk for a shape, on ``sms`` SMs with ``threads``
+    channels per block: the longest multiple of ``CHUNK`` that still cuts L
+    into enough chunks for the grid (channel tiles x chunks x batch) to hold
+    about ``FWD_BLOCKS_PER_SM`` blocks per SM, and into at most
+    ``MAX_CHUNKS``."""
+    tiles = batch * -(-dim // threads)
+    chunks = max(1, -(-FWD_BLOCKS_PER_SM * sms // tiles))
+    steps = max(-(-L // chunks), -(-L // MAX_CHUNKS), 1)
+    return -(-steps // CHUNK) * CHUNK
+
+
+def fwd_grid(batch, L, dim, l_chunk, threads):
+    """(channel tiles, chunks, batch): the grid of K1's output pass."""
+    return (-(-dim // threads), max(1, -(-L // l_chunk)), batch)
+
+
+def _sm_count(dev):
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _fwd_launch(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
-                initial_state, save_states):
+                initial_state, save_states, l_chunk=None):
+    """K1 on CUDA tensors; returns (out, chunk states or None, last state).
+    ``l_chunk`` (a multiple of ``CHUNK``) overrides the parallel chunk
+    ``fwd_l_chunk`` picks; the card checks use it to cross chunk edges.
+    Counts nothing: the public wrappers count their calls."""
     _check(u, A, "selective_scan_fwd_cuda")
     batch, L, dim = u.shape
     dev = u.device
@@ -152,17 +203,25 @@ def _fwd_launch(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
         delta_bias = torch.zeros(dim, device=dev)
     bias, b_sb = _param(delta_bias, batch, dim, None, dev)
     h0 = _state(initial_state, batch, dim, DSTATE, dev, "initial_state")
-    y = torch.empty((batch, L, dim), dtype=u.dtype, device=dev)
-    last = torch.empty((batch, dim, DSTATE), dtype=torch.float32, device=dev)
-    cs = (torch.empty((batch, -(-L // CHUNK), dim, DSTATE),
-                      dtype=torch.float32, device=dev)
-          if save_states else None)
     lib = _lib("selective_scan_fwd")
+    if l_chunk is None:
+        l_chunk = fwd_l_chunk(batch, L, dim, _sm_count(dev), fwd_threads())
+    if l_chunk <= 0 or l_chunk % CHUNK or -(-L // l_chunk) > MAX_CHUNKS:
+        raise ValueError(f"l_chunk {l_chunk} must be a positive multiple of "
+                         f"{CHUNK} giving at most {MAX_CHUNKS} chunks")
+    n_chunks = max(1, -(-L // l_chunk))
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    y = torch.empty((batch, L, dim), dtype=u.dtype, device=dev)
+    last = f32(batch, dim, DSTATE)
+    cs = f32(batch, -(-L // CHUNK), dim, DSTATE) if save_states else None
+    # the carry's scratch: chunk end states, then chunk start states
+    hbuf = f32(batch, n_chunks - 1, dim, DSTATE) if n_chunks > 1 else None
+    sbuf = f32(batch, n_chunks - 1, dim) if n_chunks > 1 else None
     with torch.cuda.device(dev):
         err = lib.vivim_selective_scan_fwd(
             _ptr(u), _ptr(delta), _ptr(z), _ptr(B), _ptr(C), _ptr(A),
             _ptr(D), _ptr(bias), _ptr(h0), _ptr(y), _ptr(last), _ptr(cs),
-            CHUNK, batch, L, dim,
+            _ptr(hbuf), _ptr(sbuf), CHUNK, l_chunk, batch, L, dim,
             u.stride(0), u.stride(1), delta.stride(0), delta.stride(1),
             z.stride(0) if z is not None else 0,
             z.stride(1) if z is not None else 0,

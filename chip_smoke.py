@@ -18,15 +18,20 @@ Phases, each of which raises on failure (exit code != 0):
    333} at the picked Lc and at Lc = 64, an initial state, per-batch
    A / D / bias), with dt near 0.05 (so the carried state counts) in fp32
    and bf16 and near 1e-3 (softplus small) in fp32, output and last state;
-3b. hold K1's training variant and the selective-scan backward (K2)
-   against their plain versions at the four stage shapes of a training step
-   (scan batch 9), fp32 and bf16, K2 on the chunk-start states K1 saved;
-   the same ragged chunk-edge cases for K1-training (output, chunk
-   states, last state) and K2 on its states; and a ragged case (L = 333,
-   d = 160) with an initial state, a non-zero last-state cotangent and
-   shared A / D / bias, through the autograd Function against autograd
-   through the sequential plain scan; print error, kernel / plain / bound
-   ms and the bound's binding term (bytes, fp32 operations or exps);
+3b. hold K1's training variant and the segment-parallel selective-scan
+   backward (K2) against their plain versions at the four stage shapes of
+   a training step (scan batch 9), fp32 and bf16, K2 on the chunk-start
+   states K1 saved, printing each shape's K2 segment Ls, grid and us per
+   pass (local, carry, main, sum); the same ragged chunk-edge cases for
+   K1-training (output, chunk states, last state) and K2 on its states;
+   segment-edge cases for K2 (d = 160, L in {1, 17, 333, 1000} at a forced
+   Ls of 16 and 64, per-batch A / D / bias, h0, a non-zero dlast, dt near
+   0.05 in fp32 and bf16 and near 1e-3 in fp32) on K1-training's states;
+   and a ragged case (L = 333, d = 160) with an initial state, a non-zero
+   last-state cotangent and shared A / D / bias, through the autograd
+   Function against autograd through the sequential plain scan; print
+   error, kernel / plain / bound ms and the bound's binding term (bytes,
+   fp32 operations or exps);
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
    ``run_inference``; K1 must launch 8 times per forward and nothing else,
@@ -91,6 +96,8 @@ RAGGED_D = 160
 # of the dt init), where softplus must stay accurate while small
 EDGE_CASES = ((torch.float32, -3.0), (torch.bfloat16, -3.0),
               (torch.float32, -7.0))
+# K2's segment-edge cases: lengths at a forced segment length Ls
+SEGMENT_EDGES = tuple((L, ls) for L in (1, 17, 333, 1000) for ls in (16, 64))
 
 
 def nvidia_smi(query):
@@ -196,8 +203,11 @@ def device_ms(fn, calls=10, repeats=5):
 
 
 def kernel_split(fn, calls=3):
-    """Device us per call of ``fn`` by CUDA kernel (torch.profiler),
-    keyed by a short name: K1's passes "local", "carry" and "out"."""
+    """Device us per launch of each CUDA kernel of ``fn`` (torch.profiler
+    over ``calls`` calls), keyed by a short name: K1's passes "local",
+    "carry" and "out", K2's "local", "carry", "main", "sum" (dB / dC) and
+    "sum_params".  Each is the mean over the events recorded for its key,
+    since the profiler may record fewer launches than were made."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -206,7 +216,7 @@ def kernel_split(fn, calls=3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    total, count = {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -216,10 +226,21 @@ def kernel_split(fn, calls=3):
         elif "selective_scan_fwd_chunk" in name:
             key = ("local" if re.search(r"chunk_kernel<[^,]+, 0,", name)
                    else "out")
+        elif "selective_scan_bwd_local" in name:
+            key = "local"
+        elif "selective_scan_bwd_carry" in name:
+            key = "carry"
+        elif "selective_scan_bwd_kernel" in name:
+            key = "main"
+        elif "selective_scan_bwd_sum_params" in name:
+            key = "sum_params"
+        elif "sum_partials" in name:
+            key = "sum"
         else:
             key = name.split("(")[0][-40:]
-        split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / calls
-    return split
+        total[key] = total.get(key, 0.0) + e.time_range.elapsed_us()
+        count[key] = count.get(key, 0) + 1
+    return {k: total[k] / count[k] for k in total}
 
 
 def split_text(split):
@@ -276,8 +297,17 @@ def picked_chunk(batch, L, d):
     return lc, ss.fwd_grid(batch, L, d, lc, threads)
 
 
-def grid_text(lc, grid):
-    return (f"Lc={lc} grid={grid[0]}x{grid[1]}x{grid[2]} "
+def picked_segment(batch, L, d):
+    """(Ls, grid) K2's wrapper picks for a shape on this card."""
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    channels = ss.bwd_channels()
+    ls = ss.bwd_l_seg(batch, L, d, sm_count(), channels)
+    return ls, ss.bwd_grid(batch, L, d, ls, channels)
+
+
+def grid_text(lc, grid, what="Lc"):
+    return (f"{what}={lc} grid={grid[0]}x{grid[1]}x{grid[2]} "
             f"({grid[0] * grid[1] * grid[2]} blocks)")
 
 
@@ -423,12 +453,12 @@ def phase_kernels(peaks):
 
 
 def check_train_pair(u, delta, A, B, C, D, bias, h0, dout, dlast, dtype,
-                     l_chunk, what):
+                     l_chunk, what, l_seg=None):
     """K1-training against its plain version (output, chunk states, last
     state), then K2 on the chunk states K1 saved against its plain version
     on the same states; returns (K1 error, K2 error, K1's chunk states,
     the two plain versions' ms).  ``l_chunk`` forces K1's parallel chunk
-    (None: the one the wrapper picks)."""
+    and ``l_seg`` K2's segment (None: the ones the wrappers pick)."""
     from vivim_tpu_torch.kernels import refs
     from vivim_tpu_torch.kernels import selective_scan as ss
 
@@ -444,8 +474,8 @@ def check_train_pair(u, delta, A, B, C, D, bias, h0, dout, dlast, dtype,
     fwd_err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
     cs = got[1]
-    got_b = ss.selective_scan_bwd_cuda(u, delta, A, B, C, D, bias, cs, dout,
-                                       dlast, True)
+    got_b = ss._bwd_launch(u, delta, A, B, C, D, bias, cs, dout, dlast, True,
+                           l_seg)
     torch.cuda.synchronize()
     want_b, bwd_plain = once_ms(lambda: refs.selective_scan_bwd_ref(
         u, delta, A, B, C, D, bias, cs, dout, dlast, True, chunk=ss.CHUNK))
@@ -471,6 +501,7 @@ def phase_train_kernels(peaks):
     b = TRAIN_SCAN_BATCH
     for si, (L, d) in enumerate(STAGES):
         lc, grid = picked_chunk(b, L, d)
+        ls, bgrid = picked_segment(b, L, d)
         for dtype in (torch.float32, torch.bfloat16):
             u, delta, A, B, C, D, _, bias = scan_inputs(b, L, d, dtype, gen)
             dout = torch.randn(b, L, d, generator=gen, device="cuda").to(
@@ -484,12 +515,15 @@ def phase_train_kernels(peaks):
                 u, delta, A, B, C, D, bias, cs, dout, None, True)
             reps = 5 if L > 10000 else 20
             elem = u.element_size()
-            for rows, kind, err, run, plain, work, extra in (
+            for rows, kind, err, run, plain, work, extra, text in (
                     (fwd_rows, "K1-train", fwd_err, fwd, fwd_plain,
                      train_fwd_work(b, L, d, elem, ss.CHUNK),
-                     dict(l_chunk=lc, grid=grid, split_us=kernel_split(fwd))),
+                     dict(l_chunk=lc, grid=grid, split_us=kernel_split(fwd)),
+                     grid_text(lc, grid)),
                     (bwd_rows, "K2", bwd_err, bwd, bwd_plain,
-                     bwd_work(b, L, d, elem, ss.CHUNK), {})):
+                     bwd_work(b, L, d, elem, ss.CHUNK),
+                     dict(l_seg=ls, grid=bgrid, split_us=kernel_split(bwd)),
+                     grid_text(ls, bgrid, "Ls"))):
                 call_ms, ms = cuda_ms(run, reps), device_ms(run, calls=5)
                 bound_ms, bound_by, term = bound(work, peaks)
                 rows.append(dict(stage=si, L=L, d=d, dtype=dtype_name(dtype),
@@ -498,13 +532,10 @@ def phase_train_kernels(peaks):
                                  bound_by=bound_by, bound_term=term,
                                  mbytes=work[0] / 1e6, **extra))
                 print(f"{kind:8s} stage {si} {dtype_name(dtype):8s} "
-                      f"b={b} L={L:5d} d={d:4d}"
-                      + (f" {grid_text(lc, grid)}" if extra else "")
-                      + f": max_abs_err={err:.3e} ms={ms:.4f} (one call "
-                      f"with its launch {call_ms:.4f}"
-                      + (f"; {split_text(extra['split_us'])}" if extra
-                         else "")
-                      + f") plain_ms={plain:.1f} bound_ms={bound_ms:.4f} "
+                      f"b={b} L={L:5d} d={d:4d} {text}: max_abs_err="
+                      f"{err:.3e} ms={ms:.4f} (one call with its launch "
+                      f"{call_ms:.4f}; {split_text(extra['split_us'])}) "
+                      f"plain_ms={plain:.1f} bound_ms={bound_ms:.4f} "
                       f"({term}; {work[0] / 1e6:.1f} MB, "
                       f"{work[2] / 1e6:.0f} M exps)", flush=True)
             del u, delta, B, C, dout, cs
@@ -532,6 +563,28 @@ def phase_train_kernels(peaks):
                   f"L={L:3d} d={RAGGED_D} Lc={lc:3d} h0, dlast, delta "
                   f"{shift:+.0f}: K1 max_abs_err={fwd_err:.3e}, K2 on its "
                   f"states {bwd_err:.3e}", flush=True)
+    # segment edges: K2 with its segment forced, on K1-training's states;
+    # ragged L and d, per-batch parameters, an initial state, a non-zero
+    # dlast
+    for L, forced in SEGMENT_EDGES:
+        for dtype, shift in EDGE_CASES:
+            u, delta, A, B, C, D, _, bias = scan_inputs(b, L, RAGGED_D,
+                                                        dtype, gen)
+            delta = delta + shift
+            h0 = torch.randn(b, RAGGED_D, N, generator=gen, device="cuda")
+            dout = torch.randn(b, L, RAGGED_D, generator=gen,
+                               device="cuda").to(dtype)
+            dlast = torch.randn(b, RAGGED_D, N, generator=gen, device="cuda")
+            bwd_err = check_train_pair(
+                u, delta, A, B, C, D, bias, h0, dout, dlast, dtype, None,
+                f"segment edge L={L} Ls={forced} delta {shift:+.0f} "
+                f"{dtype_name(dtype)}", l_seg=forced)[1]
+            bwd_rows.append(dict(stage="segment edge", L=L, d=RAGGED_D,
+                                 dtype=dtype_name(dtype), l_seg=forced,
+                                 delta_shift=shift, max_abs_err=bwd_err))
+            print(f"K2 segment edge {dtype_name(dtype):8s} b={b} L={L:4d} "
+                  f"d={RAGGED_D} Ls={forced:2d} h0, dlast, delta "
+                  f"{shift:+.0f}: max_abs_err={bwd_err:.3e}", flush=True)
     # ragged: L = 333, d = 160 (ten K2 blocks), shared A / D / bias (the
     # batch-sum path), an initial state and a non-zero dlast; the whole
     # Function against autograd through the sequential plain scan

@@ -12,14 +12,15 @@ run a fresh process in its checkout's own directory that builds that
 checkout's kernels from its own sources.  Every output line is prefixed
 with the run's label (A1, B1, B2, A2), so the two can be compared within
 one call on one card.  ``--probe`` runs instead, per checkout, 12 fp32
-train steps (full-width MiT-b3, batch 3) timed on the host twice (until
-the step returns, and until the card is done), and 50 calls of K1's
-training wrapper at training stage 0 timed on the host alone:
+and 12 bf16 train steps (full-width MiT-b3, batch 3) timed on the host
+twice (until the step returns, and until the card is done), and 50 calls
+of K1's training wrapper at training stage 0 timed on the host alone:
 where the two checkouts' step times differ, this says whether the host or
 the card holds it.  ``--kernels`` runs instead, per checkout, both K1
-wrappers at the four stage shapes (serving scan batch 3, training scan
-batch 9; fp32 and bf16) on the same inputs, timed by the same code for
-both, this checkout's ``chip_smoke.device_ms`` (CUDA-graph replay) and
+wrappers and K2 at the four stage shapes (serving scan batch 3, training
+scan batch 9; fp32 and bf16; K2 on the chunk states of that checkout's own
+K1-training) on the same inputs, timed by the same code for both, this
+checkout's ``chip_smoke.device_ms`` (CUDA-graph replay) and
 ``chip_smoke.cuda_ms`` (one eager call), and prints the sums over a
 forward's or a step's 8 launches.
 """
@@ -56,22 +57,25 @@ _build.build_all()
 model, _ = build_model(c.model_args("b3"), device="cuda", seed=0)
 batch = {k: torch.from_numpy(v).cuda() for k, v in
          c.make_requests(1, 5, 256, 3, seed=1, batch=3)[0].items()}
-state = loop.create_train_state(model, 1e-4, 1e-2, 12, seed=1)
-step = loop.make_train_step(model, "recall_focused", 3)
-host, wall = [], []
-for _ in range(12):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(state, batch)
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    host.append((t1 - t0) * 1e3)
-    wall.append((time.perf_counter() - t0) * 1e3)
-med = lambda xs: statistics.median(xs[2:])
-print(f"probe fp32 step ms: host until return {med(host):.2f} median, "
-      f"until the card is done {med(wall):.2f} median (steps 3-12); all: "
-      + ", ".join(f"{h:.1f}/{w:.1f}" for h, w in zip(host, wall)),
-      flush=True)
+state = loop.create_train_state(model, 1e-4, 1e-2, 24, seed=1)
+for dtype in (torch.float32, torch.bfloat16):
+    step = loop.make_train_step(model, "recall_focused", 3,
+                                compute_dtype=dtype)
+    host, wall = [], []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    med = lambda xs: statistics.median(xs[2:])
+    print(f"probe {c.dtype_name(dtype)} step ms: host until return "
+          f"{med(host):.2f} median, until the card is done {med(wall):.2f} "
+          "median (steps 3-12); all: "
+          + ", ".join(f"{h:.1f}/{w:.1f}" for h, w in zip(host, wall)),
+          flush=True)
 gen = torch.Generator(device="cuda").manual_seed(0)
 a = c.scan_inputs(c.TRAIN_SCAN_BATCH, *c.STAGES[0], torch.float32, gen)
 call = lambda: ss.selective_scan_fwd_states_cuda(*a[:6], a[7], True)
@@ -95,20 +99,33 @@ t = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(t)
 _build.build_all()
 gen = torch.Generator(device="cuda").manual_seed(0)
-for label, batch, call in (
+
+
+def k2(a, L, d, dtype):
+    # K2 on this checkout's own K1-training chunk states
+    dout = torch.randn(t.TRAIN_SCAN_BATCH, L, d, generator=gen,
+                       device="cuda").to(dtype)
+    cs = ss.selective_scan_fwd_states_cuda(*a[:6], a[7], True)[1]
+    return lambda: ss.selective_scan_bwd_cuda(*a[:6], a[7], cs, dout, None,
+                                              True)
+
+
+for label, batch, make in (
         ("K1 per serving forward", t.SCAN_BATCH,
-         lambda a: ss.selective_scan_fwd_cuda(*a, True)),
+         lambda a, *_: lambda: ss.selective_scan_fwd_cuda(*a, True)),
         ("K1-train per train step", t.TRAIN_SCAN_BATCH,
-         lambda a: ss.selective_scan_fwd_states_cuda(*a[:6], a[7], True))):
+         lambda a, *_: lambda: ss.selective_scan_fwd_states_cuda(
+             *a[:6], a[7], True)),
+        ("K2 per train step", t.TRAIN_SCAN_BATCH, k2)):
     for dtype in (torch.float32, torch.bfloat16):
         dev, eager = [], []
         for L, d in t.STAGES:
             a = t.scan_inputs(batch, L, d, dtype, gen)
-            run = lambda: call(a)
+            run = make(a, L, d, dtype)
             run()
             eager.append(t.cuda_ms(run, 10))
             dev.append(t.device_ms(run))
-            del a
+            del a, run
         k = t.LAYERS_PER_STAGE
         print(f"kernels {label} {t.dtype_name(dtype)}: device ms (graph "
               f"replay) {k * sum(dev):.4f}, one eager call {k * sum(eager):.4f}"

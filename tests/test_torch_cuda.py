@@ -299,3 +299,76 @@ def test_tiny_vivim_train_step_kernel_vs_plain_scan(cuda):
     assert set(g_k) == set(g_r) and len(g_k) > 300
     for n, g in g_k.items():
         torch.testing.assert_close(g, g_r[n], rtol=1e-3, atol=2e-3, msg=n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l_seg", [16, 64])
+@pytest.mark.parametrize("L", [1, 17, 333, 1000])
+def test_backward_kernel_across_segment_edges(cuda, L, l_seg, dtype):
+    """K2 with its segment length forced through the private seam
+    ``_bwd_launch(l_seg=...)`` (which counts nothing), at lengths that
+    cross the segment edges: d = 160, per-batch A / D / bias, an initial
+    state, a non-zero dlast, dt near 0.05 so the carry from one segment to
+    the next still counts.  K2 runs on K1-training's own chunk states and
+    is held against the plain version on the same states."""
+    t = _inputs(cuda, L=L, seed=L + l_seg)
+    u, delta = t["u"].to(dtype), (t["delta"] - 3.0).to(dtype)
+    B, C = t["B"].to(dtype), t["C"].to(dtype)
+    A, D, bias, h0 = t["A"], t["D"], t["delta_bias"], t["initial_state"]
+    _, cs, _ = ss.selective_scan_fwd_states_cuda(u, delta, A, B, C, D, bias,
+                                                 True, h0)
+    rng = np.random.default_rng(L)
+    dout = torch.from_numpy(rng.standard_normal(u.shape).astype(
+        np.float32)).to(cuda, dtype)
+    dlast = torch.from_numpy(rng.standard_normal(h0.shape).astype(
+        np.float32)).to(cuda)
+    before = ss.BWD_LAUNCHES
+    got = ss._bwd_launch(u, delta, A, B, C, D, bias, cs, dout, dlast, True,
+                         l_seg)
+    assert ss.BWD_LAUNCHES == before
+    want = refs.selective_scan_bwd_ref(u, delta, A, B, C, D, bias, cs, dout,
+                                       dlast, True, chunk=ss.CHUNK)
+    torch.cuda.synchronize()
+    rtol, atol = GRAD_TOL[dtype]
+    names = ("ddelta", "du", "dB", "dC", "dA", "dD", "dbias", "dh0")
+    for name, g, w in zip(names, got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=f"l_seg {l_seg} {name}")
+
+
+def test_backward_kernel_in_a_cuda_graph(cuda):
+    """K2 as the wrapper picks it (L = 1000, d = 160, batch 3: several
+    segments, so all four passes and their scratch) captured in a CUDA
+    graph, then replayed on a new cotangent copied into the captured one:
+    the same gradients as the plain version on that cotangent."""
+    t = _inputs(cuda, L=1000, seed=5)
+    u, delta, B, C = t["u"], t["delta"] - 3.0, t["B"], t["C"]
+    A, D, bias = t["A"], t["D"], t["delta_bias"]
+    _, cs, _ = ss.selective_scan_fwd_states_cuda(u, delta, A, B, C, D, bias,
+                                                 True)
+    assert ss.bwd_grid(3, 1000, 160, ss.bwd_l_seg(
+        3, 1000, 160, torch.cuda.get_device_properties(
+            cuda).multi_processor_count, ss.bwd_channels()),
+        ss.bwd_channels())[1] > 1
+    rng = np.random.default_rng(6)
+    dout = torch.from_numpy(rng.standard_normal(u.shape).astype(
+        np.float32)).to(cuda)
+    run = lambda: ss.selective_scan_bwd_cuda(u, delta, A, B, C, D, bias, cs,
+                                             dout, None, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    dout.copy_(torch.from_numpy(rng.standard_normal(u.shape).astype(
+        np.float32)).to(cuda))
+    graph.replay()
+    want = refs.selective_scan_bwd_ref(u, delta, A, B, C, D, bias, cs, dout,
+                                       None, True, chunk=ss.CHUNK)
+    torch.cuda.synchronize()
+    names = ("ddelta", "du", "dB", "dC", "dA", "dD", "dbias", "dh0")
+    for name, g, w in zip(names, got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=2e-3, msg=name)

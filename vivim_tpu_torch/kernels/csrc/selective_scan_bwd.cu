@@ -1,4 +1,5 @@
-// Selective-scan (Mamba S6) backward for Hopper (sm_90a).
+// Selective-scan (Mamba S6) backward for Hopper (sm_90a): a segment-parallel
+// reverse scan.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of the JAX package's
 // kernels/selective_scan.py:227-302 (launched by `_bwd_call`, :415-498,
@@ -19,22 +20,45 @@
 // parameter grads (dA, dD, dbias, dh0) per batch row in fp32; the caller sums
 // them over the batch where a parameter was shared.  State and sums are fp32.
 //
-// Design (right first, not fast).  As in the forward, one thread owns one
-// (b, d, n) state and a channel's N = 16 states are a half warp that reduces
-// over n with __shfl_xor_sync.  A block holds kCh = 16 channels (256
-// threads); the grid is (ceil(D / kCh), batch).  The block walks the chunks
-// of kChunk steps from right to left.  For each chunk it stages the chunk's
-// u, dt, sigmoid, dy (per channel) and B, C (per n) in shared memory with
-// coalesced loads, recomputes h forward from the saved chunk-start state into
-// kChunk registers (the recurrence is never inverted: a underflows), then
-// walks the chunk backward carrying a_{t+1} g_{t+1} in a register.
-// dB and dC sum over all of d, across blocks (the sum the Pallas version
-// loses when d > 128, ROADMAP F1): a block reduces its channels (one shuffle
-// across the two channels of a warp, then shared memory across its warps)
-// and writes one fp32 partial per (block, b, t, n); a second kernel in this
-// file sums the partials over the blocks in a fixed order and casts them.
-// Nothing uses atomics, so the result is deterministic.  Ragged L and d are
-// masked; nothing is padded.
+// Design.  One thread owns one (b, d, n) state and a channel's N = 16 states
+// are a half warp that reduces over n with __shfl_xor_sync.  A block holds
+// kCh = 16 channels (256 threads).  The main kernel walks chunks of kChunk
+// steps from right to left.  For each chunk it stages the chunk's u, dt,
+// sigmoid, dy (per channel) and B, C (per n) in shared memory with coalesced
+// loads, recomputes h forward from the saved chunk-start state into kChunk
+// registers (the recurrence is never inverted: a underflows), then walks the
+// chunk backward carrying ga = a_{t+1} g_{t+1} in a register.
+//
+// The carry is linear: the ga that leaves a stretch of steps at its left edge
+// is the ga that stretch produces from zero plus exp(A * sum dt) times the ga
+// that entered it at the right.  So L is cut into segments of `l_seg` steps
+// (a multiple of kChunk chosen by the wrapper per shape, so that the grid
+// fills the SMs once; every segment starts on a saved chunk state, the last
+// one is shorter), and the grid is (ceil(D / kCh), segments, batch).  Four
+// passes, GA_k being the carry that enters segment k from the right:
+//   A (local kernel): every segment but the first walks its steps right to
+//     left from ga = 0, reading only delta, C and dy (one exp and two FMAs
+//     per state and step), and writes gloc_k, the ga leaving its left edge,
+//     and S_k = sum of its dt to the scratch `gbuf` / `sbuf`;
+//   B (carry kernel): one thread per (b, d, n) walks the segments right to
+//     left, GA_{last} = dlast or 0, GA_{k-1} = gloc_k + exp(A * S_k) * GA_k,
+//     and writes GA_{k-1} over gloc_k (the product may underflow to 0: the
+//     carry has vanished; nothing divides by it);
+//   C (main kernel): every segment walks its chunks from GA_k and writes du,
+//     ddelta, its dB / dC partials and per-segment partials of dA, dD and
+//     dbias; the first segment writes dh0;
+//   D (summing kernels): the dB / dC partials summed over the channel
+//     blocks, the parameter partials over the segments, each in a fixed
+//     order.
+// With one segment, passes A and B are skipped and pass C writes the
+// parameter grads itself.  dB and dC sum over all of d, across blocks (the
+// sum the Pallas version loses when d > 128, ROADMAP F1): a block reduces its
+// channels (one shuffle across the two channels of a warp, then shared memory
+// across its warps) and writes one fp32 partial per (block, b, t, n);
+// segments split t, so each partial is written once.  Nothing uses atomics,
+// so the result is deterministic.  Ragged L and d are masked; nothing is
+// padded.  The wrapper allocates one fp32 scratch buffer, which
+// vivim_selective_scan_bwd_scratch() sizes and `layout` cuts.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes.  The function must read u, delta,
 // dy (3 * L * D), B and C (2 * L * N) and the chunk states, and write ddelta
@@ -46,10 +70,11 @@
 // channel and step) is about 8.4 GFLOP, 0.13 ms at the 67 TFLOP/s of fp32
 // outside the tensor cores: the two bounds are close.
 //
-// Expected weakness: as in the forward, each thread walks L in sequence, so
-// the kernel is latency-bound and far from the bytes bound; the partials add
-// 2 * N * 4 bytes per (block, b, t) of traffic.  A chunk-parallel reverse
-// scan is the cure, and is later work.
+// Expected weakness: each block still walks its segment in sequence, one
+// chunk at a time, with three __syncthreads and two half-warp shuffle
+// reductions per step, so the kernel is latency-bound; the segments only put
+// more blocks in flight.  Pass A reads delta, C and dy a second time, and the
+// partials add 2 * N * 4 bytes per (block, b, t) of traffic.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,10 +83,15 @@
 namespace {
 
 constexpr int kN = 16;                  // d_state: lanes per channel
-constexpr int kCh = 16;                 // channels per block
+// channels per block; the wrapper reads it through
+// vivim_selective_scan_bwd_channels() to size the grid and pick l_seg
+constexpr int kCh = 16;
 constexpr int kThreads = kN * kCh;      // 256
 constexpr int kWarps = kThreads / 32;
+// blocks per SM the wrapper's l_seg aims at: caps registers at 64
+constexpr int kMinBlocks = 4;
 constexpr int kChunk = 16;              // = selective_scan_fwd.cu's kChunk
+constexpr int kCarryThreads = 64;
 static_assert(kChunk * kCh == kThreads, "one staged (t, channel) per thread");
 static_assert(kChunk * kN == kThreads, "one staged (t, n) per thread");
 
@@ -83,11 +113,42 @@ struct Params {
   float* dbias;         // (batch, D)
   float* dh0;           // (batch, D, N)
   float* part;          // (n_blocks, 2, batch, L, N): dB, dC partials
-  int batch, L, D;
+  float* gbuf;          // (batch, n_seg - 1, D, N): gloc_k, then GA_{k-1}
+  float* sbuf;          // (batch, n_seg - 1, D): S_k
+  // (n_seg, batch, D[, N]) parameter-grad partials; dA, dD, dbias when
+  // there is one segment
+  float* pdA;
+  float* pdD;
+  float* pdbias;
+  int batch, L, D, l_seg, n_seg;
   int64_t u_sb, u_sl, dl_sb, dl_sl, B_sb, B_sl, C_sb, C_sl, dy_sb, dy_sl;
   int64_t A_sb, D_sb, bias_sb;
   int softplus;
 };
+
+// Offsets (fp32 elements) of the pieces of the scratch buffer.
+struct Layout {
+  int64_t part, gbuf, sbuf, pdA, pdD, pdbias, total;
+};
+
+Layout layout(int batch, int L, int D, int n_seg) {
+  const int64_t bd = (int64_t)batch * D;
+  const int64_t carries = n_seg > 1 ? n_seg - 1 : 0;
+  const int64_t partials = n_seg > 1 ? n_seg : 0;
+  Layout s;
+  s.part = 0;
+  s.gbuf = s.part + (int64_t)((D + kCh - 1) / kCh) * 2 * batch * L * kN;
+  s.sbuf = s.gbuf + carries * bd * kN;
+  s.pdA = s.sbuf + carries * bd;
+  s.pdD = s.pdA + partials * bd * kN;
+  s.pdbias = s.pdD + partials * bd;
+  s.total = s.pdbias + partials * bd;
+  return s;
+}
+
+int64_t segments(int L, int l_seg) {
+  return L == 0 ? 1 : ((int64_t)L + l_seg - 1) / l_seg;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -102,6 +163,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
+// dt from delta + bias: passes A and C share this expression, so S_k sums
+// the very dt that pass C walks
+__device__ __forceinline__ float step_dt(float raw, int softplus) {
+  return softplus ? (raw > 20.f ? raw : log1pf(expf(raw))) : raw;
+}
+
 __device__ __forceinline__ float half_warp_sum(float v) {
 #pragma unroll
   for (int off = kN / 2; off > 0; off >>= 1)
@@ -109,8 +176,90 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// Pass A: segment blockIdx.y + 1 walked from a zero carry.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+selective_scan_bwd_local_kernel(Params p) {
+  __shared__ float s_dt[kChunk][kCh], s_dy[kChunk][kCh], s_C[kChunk][kN];
+
+  const int tid = threadIdx.x;
+  const int n = tid % kN;
+  const int c = tid / kN;
+  const int blk = blockIdx.x;
+  const int seg = blockIdx.y + 1;
+  const int64_t b = blockIdx.z;
+  const int d = blk * kCh + c;
+  const bool live = d < p.D;
+  const float a_n =
+      live ? p.A[b * p.A_sb + (int64_t)d * kN + n] : 0.f;
+
+  const int st_i = tid / kCh, st_c = tid % kCh, st_d = blk * kCh + st_c;
+  const bool st_live = st_d < p.D;
+  const float st_bias = st_live ? p.bias[b * p.bias_sb + st_d] : 0.f;
+  const int sn_i = tid / kN, sn_n = tid % kN;
+  const T* dl_p = static_cast<const T*>(p.delta) + b * p.dl_sb + st_d;
+  const T* dy_p = static_cast<const T*>(p.dy) + b * p.dy_sb + st_d;
+  const T* C_p = static_cast<const T*>(p.C) + b * p.C_sb + sn_n;
+
+  const int64_t seg_chunks = p.l_seg / kChunk;
+  const int64_t k_lo = seg * seg_chunks;
+  const int64_t n_chunks = (p.L + kChunk - 1) / kChunk;
+  const int64_t k_hi =
+      k_lo + seg_chunks < n_chunks ? k_lo + seg_chunks : n_chunks;
+  float ga = 0.f, S = 0.f;
+  for (int64_t k = k_hi - 1; k >= k_lo; --k) {
+    const int t0 = (int)k * kChunk;
+    __syncthreads();
+    {
+      const int t = t0 + st_i;
+      const bool ok = st_live && t < p.L;
+      const float raw = ok ? to_f(dl_p[t * p.dl_sl]) + st_bias : 0.f;
+      s_dt[st_i][st_c] = ok ? step_dt(raw, p.softplus) : 0.f;
+      s_dy[st_i][st_c] = ok ? to_f(dy_p[t * p.dy_sl]) : 0.f;
+      const int tn = t0 + sn_i;
+      s_C[sn_i][sn_n] = tn < p.L ? to_f(C_p[tn * p.C_sl]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = kChunk - 1; i >= 0; --i) {
+      if (t0 + i >= p.L) continue;  // uniform over the block
+      const float dt = s_dt[i][c];
+      const float g = ga + s_C[i][n] * s_dy[i][c];
+      ga = expf(dt * a_n) * g;
+      S += dt;
+    }
+  }
+  if (live) {
+    const int64_t slot = (b * (p.n_seg - 1) + seg - 1) * p.D + d;
+    p.gbuf[slot * kN + n] = ga;
+    if (n == 0) p.sbuf[slot] = S;
+  }
+}
+
+// Pass B: one thread per (b, d, n) carries ga over the segments, right to
+// left.  Slot k - 1 of gbuf / sbuf holds segment k's gloc_k / S_k and takes
+// GA_{k-1}, the carry that enters segment k - 1.
+__global__ void __launch_bounds__(kCarryThreads)
+selective_scan_bwd_carry_kernel(Params p) {
+  const int64_t i = (int64_t)blockIdx.x * kCarryThreads + threadIdx.x;
+  if (i >= (int64_t)p.batch * p.D * kN) return;
+  const int n = (int)(i % kN);
+  const int64_t d = (i / kN) % p.D;
+  const int64_t b = i / ((int64_t)kN * p.D);
+  const int64_t n_carry = p.n_seg - 1;
+  const float a_n = p.A[b * p.A_sb + d * kN + n];
+  float GA = p.dlast != nullptr ? p.dlast[(b * p.D + d) * kN + n] : 0.f;
+  float* g_p = p.gbuf + (b * n_carry * p.D + d) * kN + n;
+  const float* s_p = p.sbuf + b * n_carry * p.D + d;
+  for (int64_t k = n_carry - 1; k >= 0; --k) {
+    GA = fmaf(expf(a_n * s_p[k * p.D]), GA, g_p[k * p.D * kN]);
+    g_p[k * p.D * kN] = GA;
+  }
+}
+
+// Pass C: segment blockIdx.y walked from the carry that enters it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 selective_scan_bwd_kernel(Params p) {
   __shared__ float s_u[kChunk][kCh], s_dt[kChunk][kCh], s_sig[kChunk][kCh];
   __shared__ float s_dy[kChunk][kCh], s_du[kChunk][kCh], s_dd[kChunk][kCh];
@@ -122,17 +271,28 @@ selective_scan_bwd_kernel(Params p) {
   const int c = tid / kN;                     // channel within the block
   const int warp = tid / 32;
   const int blk = blockIdx.x;
+  const int seg = blockIdx.y;
   const int d = blk * kCh + c;
-  const int64_t b = blockIdx.y;
+  const int64_t b = blockIdx.z;
   const bool live = d < p.D;
   const int dc = live ? d : 0;  // dead lanes address channel 0, store nothing
   const int64_t n_chunks = (p.L + kChunk - 1) / kChunk;
+  const int64_t seg_chunks = p.l_seg / kChunk;
+  const int64_t k_lo = seg * seg_chunks;
+  const int64_t k_hi =
+      k_lo + seg_chunks < n_chunks ? k_lo + seg_chunks : n_chunks;
 
   const float a_n = live ? p.A[b * p.A_sb + (int64_t)dc * kN + n] : 0.f;
   const float dsk = live ? p.Dskip[b * p.D_sb + dc] : 0.f;
-  // carry: a_{t+1} g_{t+1}, seeded with the cotangent of the last state
-  float ga = (p.dlast != nullptr && live)
-                 ? p.dlast[(b * p.D + dc) * kN + n] : 0.f;
+  // carry: a_{t+1} g_{t+1}, seeded with the cotangent of the last state in
+  // the last segment and with pass B's GA_k in the others
+  float ga = 0.f;
+  if (live) {
+    if (seg < p.n_seg - 1)
+      ga = p.gbuf[((b * (p.n_seg - 1) + seg) * p.D + dc) * kN + n];
+    else if (p.dlast != nullptr)
+      ga = p.dlast[(b * p.D + dc) * kN + n];
+  }
   float dA = 0.f, dD = 0.f, dbias = 0.f;
 
   // the (t, channel) and (t, n) that this thread stages
@@ -148,17 +308,16 @@ selective_scan_bwd_kernel(Params p) {
   T* du_p = static_cast<T*>(p.du) + b * p.L * p.D + st_d;
   T* dd_p = static_cast<T*>(p.ddelta) + b * p.L * p.D + st_d;
 
-  for (int64_t k = n_chunks - 1; k >= 0; --k) {
+  for (int64_t k = k_hi - 1; k >= k_lo; --k) {
     const int t0 = (int)k * kChunk;
     __syncthreads();  // the previous chunk's staged values are consumed
     {
       const int t = t0 + st_i;
       const bool ok = st_live && t < p.L;
       const float raw = ok ? to_f(dl_p[t * p.dl_sl]) + st_bias : 0.f;
-      float dt = raw;
-      if (p.softplus) dt = raw > 20.f ? raw : log1pf(expf(raw));
       s_u[st_i][st_c] = ok ? to_f(u_p[t * p.u_sl]) : 0.f;
-      s_dt[st_i][st_c] = ok ? dt : 0.f;  // dt = 0 past L: a = 1, no input
+      // dt = 0 past L: a = 1, no input
+      s_dt[st_i][st_c] = ok ? step_dt(raw, p.softplus) : 0.f;
       s_sig[st_i][st_c] = p.softplus ? 1.f / (1.f + expf(-raw)) : 1.f;
       s_dy[st_i][st_c] = ok ? to_f(dy_p[t * p.dy_sl]) : 0.f;
       const int tn = t0 + sn_i;
@@ -236,16 +395,19 @@ selective_scan_bwd_kernel(Params p) {
   }
 
   if (live) {
-    p.dA[(b * p.D + d) * kN + n] = dA;
-    p.dh0[(b * p.D + d) * kN + n] = ga;  // = a_0 g_0 after the leftmost chunk
+    const int64_t at = ((int64_t)seg * p.batch + b) * p.D + d;
+    p.pdA[at * kN + n] = dA;
+    // = a_0 g_0 after the leftmost chunk
+    if (seg == 0) p.dh0[(b * p.D + d) * kN + n] = ga;
     if (n == 0) {
-      p.dD[b * p.D + d] = dD;
-      p.dbias[b * p.D + d] = dbias;
+      p.pdD[at] = dD;
+      p.pdbias[at] = dbias;
     }
   }
 }
 
-// dB, dC (batch, L, N) in T: the blocks' partials summed in block order.
+// Pass D: dB, dC (batch, L, N) in T, the blocks' partials summed in block
+// order.
 template <typename T>
 __global__ void sum_partials_kernel(const float* part, T* dB, T* dC,
                                     int n_blocks, int64_t row) {
@@ -259,19 +421,62 @@ __global__ void sum_partials_kernel(const float* part, T* dB, T* dC,
   (which == 0 ? dB : dC)[at] = from_f<T>(s);
 }
 
+// Pass D: dA, then dD, then dbias, the segments' partials summed in segment
+// order.
+__global__ void selective_scan_bwd_sum_params_kernel(Params p) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t nA = (int64_t)p.batch * p.D * kN, nD = (int64_t)p.batch * p.D;
+  const float* src;
+  float* dst;
+  int64_t j, size;
+  if (i < nA) {
+    src = p.pdA, dst = p.dA, j = i, size = nA;
+  } else if (i < nA + nD) {
+    src = p.pdD, dst = p.dD, j = i - nA, size = nD;
+  } else if (i < nA + 2 * nD) {
+    src = p.pdbias, dst = p.dbias, j = i - nA - nD, size = nD;
+  } else {
+    return;
+  }
+  float s = 0.f;
+  for (int seg = 0; seg < p.n_seg; ++seg) s += src[seg * size + j];
+  dst[j] = s;
+}
+
 template <typename T>
 cudaError_t launch(const Params& p, void* dB, void* dC, cudaStream_t stream) {
   const int n_blocks = (p.D + kCh - 1) / kCh;
-  selective_scan_bwd_kernel<T><<<dim3(n_blocks, p.batch), kThreads, 0,
-                                 stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (p.n_seg > 1) {
+    selective_scan_bwd_local_kernel<T><<<dim3(n_blocks, p.n_seg - 1, p.batch),
+                                         kThreads, 0, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int64_t states = (int64_t)p.batch * p.D * kN;
+    selective_scan_bwd_carry_kernel<<<
+        (unsigned)((states + kCarryThreads - 1) / kCarryThreads),
+        kCarryThreads, 0, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  selective_scan_bwd_kernel<T><<<dim3(n_blocks, p.n_seg, p.batch), kThreads,
+                                 0, stream>>>(p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t row = (int64_t)p.batch * p.L * kN;
   const int threads = 256;
+  const int64_t row = (int64_t)p.batch * p.L * kN;
   const int64_t grid = (2 * row + threads - 1) / threads;
-  if (grid == 0) return cudaSuccess;
-  sum_partials_kernel<T><<<(unsigned)grid, threads, 0, stream>>>(
-      p.part, static_cast<T*>(dB), static_cast<T*>(dC), n_blocks, row);
+  if (grid > 0) {
+    sum_partials_kernel<T><<<(unsigned)grid, threads, 0, stream>>>(
+        p.part, static_cast<T*>(dB), static_cast<T*>(dC), n_blocks, row);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (p.n_seg > 1) {
+    const int64_t params = (int64_t)p.batch * p.D * (kN + 2);
+    selective_scan_bwd_sum_params_kernel<<<
+        (unsigned)((params + threads - 1) / threads), threads, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -279,26 +484,42 @@ cudaError_t launch(const Params& p, void* dB, void* dC, cudaStream_t stream) {
 
 extern "C" {
 
-// Partial-sum scratch (fp32 elements) that vivim_selective_scan_bwd needs.
-int64_t vivim_selective_scan_bwd_scratch(int batch, int L, int D) {
-  return (int64_t)((D + kCh - 1) / kCh) * 2 * batch * L * kN;
+// fp32 scratch elements that vivim_selective_scan_bwd needs for this shape
+// and segment length (the dB / dC partials, and with more than one segment
+// the carries, the segments' dt sums and the parameter-grad partials), or -1
+// when `l_seg` is not a positive multiple of kChunk.
+int64_t vivim_selective_scan_bwd_scratch(int batch, int L, int D, int l_seg) {
+  if (l_seg <= 0 || l_seg % kChunk != 0) return -1;
+  return layout(batch, L, D, (int)segments(L, l_seg)).total;
 }
+
+// Channels per block: the grid's first dimension is ceil(D / this), and the
+// wrapper picks l_seg from it.
+int vivim_selective_scan_bwd_channels(void) { return kCh; }
 
 // dtype: 0 = float32, 1 = bfloat16 (u, delta, B, C, dy and the sequence
 // grads share it).  A, Dskip, bias, cs, dlast and the parameter grads are
 // fp32; dlast may be null.  ddelta, du (batch, L, D) and dB, dC (batch, L, N)
-// are written contiguous.  `chunk` must equal kChunk.  Returns
-// cudaGetLastError() after the launches (0 = success).
+// are written contiguous.  `chunk` must equal kChunk; `l_seg`, a multiple of
+// it, is the segment length, and `scratch` holds
+// vivim_selective_scan_bwd_scratch(batch, L, D, l_seg) fp32 elements.
+// Returns cudaGetLastError() after the launches (0 = success).
 int vivim_selective_scan_bwd(
     const void* u, const void* delta, const void* B, const void* C,
     const void* dy, const void* A, const void* Dskip, const void* bias,
     const void* cs, const void* dlast, void* ddelta, void* du, void* dB,
-    void* dC, void* dA, void* dD, void* dbias, void* dh0, void* part,
-    int chunk, int batch, int L, int D, int64_t u_sb, int64_t u_sl,
+    void* dC, void* dA, void* dD, void* dbias, void* dh0, void* scratch,
+    int chunk, int l_seg, int batch, int L, int D, int64_t u_sb, int64_t u_sl,
     int64_t dl_sb, int64_t dl_sl, int64_t B_sb, int64_t B_sl, int64_t C_sb,
     int64_t C_sl, int64_t dy_sb, int64_t dy_sl, int64_t A_sb, int64_t D_sb,
     int64_t bias_sb, int softplus, int dtype, void* stream) {
-  if (chunk != kChunk) return (int)cudaErrorInvalidValue;
+  if (chunk != kChunk || l_seg <= 0 || l_seg % kChunk != 0 || L < 0 ||
+      D <= 0 || batch <= 0 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_seg = segments(L, l_seg);
+  if (n_seg > 65535) return (int)cudaErrorInvalidValue;
+  const Layout s = layout(batch, L, D, (int)n_seg);
+  float* base = static_cast<float*>(scratch);
   Params p;
   p.u = u;
   p.delta = delta;
@@ -316,10 +537,18 @@ int vivim_selective_scan_bwd(
   p.dD = static_cast<float*>(dD);
   p.dbias = static_cast<float*>(dbias);
   p.dh0 = static_cast<float*>(dh0);
-  p.part = static_cast<float*>(part);
+  p.part = base + s.part;
+  p.gbuf = base + s.gbuf;
+  p.sbuf = base + s.sbuf;
+  const bool one = n_seg == 1;
+  p.pdA = one ? p.dA : base + s.pdA;
+  p.pdD = one ? p.dD : base + s.pdD;
+  p.pdbias = one ? p.dbias : base + s.pdbias;
   p.batch = batch;
   p.L = L;
   p.D = D;
+  p.l_seg = l_seg;
+  p.n_seg = (int)n_seg;
   p.u_sb = u_sb;
   p.u_sl = u_sl;
   p.dl_sb = dl_sb;
@@ -334,9 +563,9 @@ int vivim_selective_scan_bwd(
   p.D_sb = D_sb;
   p.bias_sb = bias_sb;
   p.softplus = softplus;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(p, dB, dC, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, dB, dC, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float>(p, dB, dC, st);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, dB, dC, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,6 +15,9 @@ CUDA kernels; on the GPU they are what the kernels are held against.
   eight gradients recomputed chunk by chunk from those states.
 - ``selective_scan_chunked_ref``: the forward kernel's chunk-parallel
   passes (local scans from zero, the carry, the re-walk), for the tests.
+- ``selective_scan_bwd_segmented_ref``: the backward kernel's
+  segment-parallel passes (local reverse walks from zero, the reverse
+  carry, the per-segment walk, the sums over segments), for the tests.
 - ``causal_conv1d_ref``: depthwise causal conv of width 2-4, optional SiLU.
 - ``mamba_inner_ref``: conv1d -> x_proj -> (dt, B, C) split -> dt_proj ->
   selective scan (z-gated), optionally + out_proj.
@@ -274,6 +277,106 @@ def selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, chunk_states,
     act = u.dtype
     return (ddelta.to(act), du.to(act), dB.to(act), dC.to(act), dA, dD,
             dbias, g)
+
+
+def selective_scan_bwd_segmented_ref(u, delta, A, B, C, D, delta_bias,
+                                     chunk_states, dout, dlast=None,
+                                     delta_softplus=False, l_seg=64,
+                                     chunk=16):
+    """The segment-parallel decomposition the backward kernel runs, in
+    plain PyTorch: a model of its four passes for the tests (no code path
+    calls it).  L is cut into segments of ``l_seg`` steps (a multiple of
+    ``chunk``, so each starts on a chunk state; the last one shorter), and
+    ``GA_k`` is the adjoint carry ``a_{t+1} g_{t+1}`` that enters segment k
+    from its right edge:
+
+    A. every segment walks its steps right to left from a zero carry:
+       ``gloc_k``, the carry that leaves its left edge, and ``S_k``, the
+       sum of its dt (the kernel skips segment 0, whose result is unused);
+    B. the carry, right to left: ``GA_last = dlast or 0``,
+       ``GA_{k-1} = gloc_k + exp(A * S_k) * GA_k``;
+    C. every segment walks its chunks right to left from ``GA_k``,
+       recomputing the states from the chunk-start states: the sequence
+       grads, and per-segment partials of dA, dD and dbias; dh0 is the
+       carry that leaves segment 0;
+    D. the parameter partials summed over the segments in segment order.
+
+    Returns what ``selective_scan_bwd_ref`` returns.  dB and dC sum over d
+    directly (the kernel's per-block partials are a split of d, not of
+    L)."""
+    if l_seg <= 0 or l_seg % chunk:
+        raise ValueError(f"l_seg {l_seg} is not a multiple of {chunk}")
+    batch, L, dim = u.shape
+    raw, dt = _dt(delta, delta_bias, delta_softplus)
+    A = _param(A, batch, 2)
+    Dk = (torch.zeros(batch, dim, device=u.device) if D is None
+          else _param(D, batch, 1))
+    nk = max(1, -(-L // l_seg))
+    pad = nk * l_seg - L
+
+    def segs(x):  # (b, L, ...) -> (b, nk, l_seg, ...); padding has dt = 0
+        x = F.pad(x.float(), [0, 0] * (x.dim() - 2) + [0, pad])
+        return x.reshape((batch, nk, l_seg) + tuple(x.shape[2:]))
+
+    dtc, uc, Bc, Cc, dyc = segs(dt), segs(u), segs(B), segs(C), segs(dout)
+    valid = (torch.arange(nk * l_seg, device=u.device) < L).reshape(
+        nk, l_seg)
+    Ak = A[:, None]  # (b, 1, d, n)
+    decay = lambda j: torch.exp(dtc[:, :, j, :, None] * Ak)
+    inject = lambda j: Cc[:, :, j, None, :] * dyc[:, :, j, :, None]
+
+    ga = torch.zeros((batch, nk) + tuple(A.shape[1:]), device=u.device)
+    for j in reversed(range(l_seg)):  # pass A (padded steps: a = 1, no C dy)
+        ga = decay(j) * (ga + inject(j))
+    S = (dtc * valid[None, :, :, None]).sum(2)
+    GA = torch.zeros_like(A) if dlast is None else dlast.float()
+    seeds = [None] * nk
+    for k in reversed(range(nk)):  # pass B
+        seeds[k] = GA
+        GA = ga[:, k] + torch.exp(A * S[:, k, :, None]) * GA
+    g = torch.stack(seeds, 1)
+
+    per = l_seg // chunk  # pass C: chunk states per segment
+    cs = F.pad(chunk_states.float(),
+               [0, 0, 0, 0, 0, nk * per - chunk_states.shape[1]])
+    cs = cs.reshape((batch, nk, per) + tuple(cs.shape[2:]))
+    ddt, du = torch.zeros_like(dtc), torch.zeros_like(dtc)
+    dB, dC = torch.zeros_like(Bc), torch.zeros_like(Cc)
+    dA = torch.zeros_like(g)
+    for q in reversed(range(per)):
+        j0 = q * chunk
+        hs = [cs[:, :, q]]
+        for j in range(j0, j0 + chunk):
+            hs.append(decay(j) * hs[-1] + (dtc[:, :, j] * uc[:, :, j])[
+                ..., None] * Bc[:, :, j, None, :])
+        for j in reversed(range(j0, j0 + chunk)):
+            a = decay(j)
+            g = g + inject(j)
+            gB = (g * Bc[:, :, j, None, :]).sum(-1)
+            dla = g * hs[j - j0] * a
+            du[:, :, j] = dtc[:, :, j] * gB + Dk[:, None] * dyc[:, :, j]
+            ddt[:, :, j] = uc[:, :, j] * gB + (dla * Ak).sum(-1)
+            dB[:, :, j] = (g * (dtc[:, :, j] * uc[:, :, j])[..., None]).sum(2)
+            dC[:, :, j] = (hs[j - j0 + 1] * dyc[:, :, j, :, None]).sum(2)
+            dA = dA + dla * dtc[:, :, j, :, None]
+            g = a * g
+    ddt = ddt * valid[None, :, :, None]
+    if delta_softplus:
+        ddt = ddt * torch.sigmoid(segs(raw))
+
+    def in_order(part):  # pass D: segment 0, then 1, ...
+        total = part[:, 0]
+        for k in range(1, nk):
+            total = total + part[:, k]
+        return total
+
+    dA, dD, dbias = (in_order(p) for p in (dA, (dyc * uc).sum(2),
+                                           ddt.sum(2)))
+    unseg = lambda x: x.reshape((batch, nk * l_seg) + tuple(x.shape[3:]))[
+        :, :L]
+    act = u.dtype
+    return (unseg(ddt).to(act), unseg(du).to(act), unseg(dB).to(act),
+            unseg(dC).to(act), dA, dD, dbias, g[:, 0])
 
 
 def causal_conv1d_ref(x, weight, bias=None, activation=None):

@@ -21,7 +21,14 @@ of ``CHUNK``), every chunk but the last is scanned from a zero state, a carry
 pass chains the chunks' end states, and every chunk is then re-walked from
 its true start state to write the output.  ``refs.selective_scan_chunked_ref``
 models those passes in plain PyTorch for the tests.  K2 walks ``CHUNK``-step
-chunks right to left from the states K1's training variant saves.
+chunks right to left from the states K1's training variant saves, in
+segments of ``l_seg`` steps (``bwd_l_seg`` picks it per shape, a multiple of
+``CHUNK``) that run in parallel: every segment but the first walks its steps
+from a zero adjoint carry, a carry pass chains the segments right to left
+over exp(A·S_k), and every segment then walks its chunks from its true carry
+and writes the gradients, with parameter-grad partials summed over the
+segments at the end.  ``refs.selective_scan_bwd_segmented_ref`` models those
+passes in plain PyTorch for the tests.
 
 Dispatch (``implementation=None``):
 - when no input needs a gradient (or under ``no_grad`` / ``inference_mode``):
@@ -62,6 +69,10 @@ DSTATE = 16  # the kernels' d_state: K1 holds a channel's states in registers
 CHUNK = 16
 FWD_BLOCKS_PER_SM = 4  # K1's grid aims at this many blocks per SM
 MAX_CHUNKS = 65535  # K1's grid y dimension
+# K2's grid aims at the blocks that fit on an SM at once (its kMinBlocks: 256
+# threads at no more than 64 registers)
+BWD_BLOCKS_PER_SM = 4
+MAX_SEGMENTS = 65535  # K2's grid y dimension
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIBS = {}
 _SMS = {}
@@ -80,10 +91,12 @@ def _lib(name):
             lib.vivim_selective_scan_fwd_threads.restype = i32
         else:
             lib.vivim_selective_scan_bwd.argtypes = (
-                [ptr] * 19 + [i32] * 4 + [i64] * 13 + [i32, i32, ptr])
+                [ptr] * 19 + [i32] * 5 + [i64] * 13 + [i32, i32, ptr])
             lib.vivim_selective_scan_bwd.restype = i32
-            lib.vivim_selective_scan_bwd_scratch.argtypes = [i32] * 3
+            lib.vivim_selective_scan_bwd_scratch.argtypes = [i32] * 4
             lib.vivim_selective_scan_bwd_scratch.restype = i64
+            lib.vivim_selective_scan_bwd_channels.argtypes = []
+            lib.vivim_selective_scan_bwd_channels.restype = i32
         lib.vivim_cuda_error_string.argtypes = [i32]
         lib.vivim_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -170,6 +183,34 @@ def fwd_l_chunk(batch, L, dim, sms, threads):
 def fwd_grid(batch, L, dim, l_chunk, threads):
     """(channel tiles, chunks, batch): the grid of K1's output pass."""
     return (-(-dim // threads), max(1, -(-L // l_chunk)), batch)
+
+
+def bwd_channels():
+    """Channels per block of K2, as its library was built."""
+    return _lib("selective_scan_bwd").vivim_selective_scan_bwd_channels()
+
+
+def bwd_l_seg(batch, L, dim, sms, channels):
+    """K2's segment for a shape, on ``sms`` SMs with ``channels`` channels
+    per block: the longest multiple of ``CHUNK`` that cuts L into as many
+    segments as the grid (channel tiles x segments x batch) can hold while
+    it still fits on the card at once, ``BWD_BLOCKS_PER_SM`` blocks per SM
+    (one segment when the tiles alone fill it), and into at most
+    ``MAX_SEGMENTS``."""
+    tiles = batch * -(-dim // channels)
+    segs = max(1, BWD_BLOCKS_PER_SM * sms // tiles)
+    steps = max(-(-L // segs), -(-L // MAX_SEGMENTS), 1)
+    return -(-steps // CHUNK) * CHUNK
+
+
+def bwd_grid(batch, L, dim, l_seg, channels):
+    """(channel tiles, segments, batch): the grid of K2's main pass.
+    Raises for an ``l_seg`` the kernel refuses."""
+    segs = max(1, -(-L // l_seg)) if l_seg > 0 else 0
+    if l_seg <= 0 or l_seg % CHUNK or segs > MAX_SEGMENTS:
+        raise ValueError(f"l_seg {l_seg} must be a positive multiple of "
+                         f"{CHUNK} giving at most {MAX_SEGMENTS} segments")
+    return (-(-dim // channels), segs, batch)
 
 
 def _sm_count(dev):
@@ -265,14 +306,12 @@ def selective_scan_fwd_states_cuda(u, delta, A, B, C, D=None,
     return out
 
 
-def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, chunk_states,
-                            dout, dlast=None, delta_softplus=False):
-    """Launch K2; returns what ``refs.selective_scan_bwd_ref`` returns:
-    (ddelta, du, dB, dC) contiguous in the activation dtype and per batch
-    row in fp32 (dA, dD, dbias, dh0).  ``chunk_states`` come from
-    ``selective_scan_fwd_states_cuda`` on the same inputs; D, delta_bias
-    and dlast may be None."""
-    global BWD_LAUNCHES
+def _bwd_launch(u, delta, A, B, C, D, delta_bias, chunk_states, dout,
+                dlast, delta_softplus, l_seg=None):
+    """K2 on CUDA tensors; returns the eight gradients.  ``l_seg`` (a
+    multiple of ``CHUNK``) overrides the segment length ``bwd_l_seg``
+    picks; the card checks use it to cross segment edges.  Counts nothing:
+    the public wrapper counts its calls."""
     _check(u, A, "selective_scan_bwd_cuda")
     batch, L, dim = u.shape
     dev = u.device
@@ -293,28 +332,46 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, chunk_states,
                          f"{CHUNK}), dim, dstate)")
     cs = chunk_states.contiguous()
     dlast = _state(dlast, batch, dim, DSTATE, dev, "dlast")
+    lib = _lib("selective_scan_bwd")
+    channels = bwd_channels()
+    if l_seg is None:
+        l_seg = bwd_l_seg(batch, L, dim, _sm_count(dev), channels)
+    bwd_grid(batch, L, dim, l_seg, channels)  # raises for what K2 refuses
     seq = lambda *s: torch.empty(s, dtype=u.dtype, device=dev)
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     ddelta, du = seq(batch, L, dim), seq(batch, L, dim)
     dB, dC = seq(batch, L, DSTATE), seq(batch, L, DSTATE)
     dA, dh0 = f32(batch, dim, DSTATE), f32(batch, dim, DSTATE)
     dD, dbias = f32(batch, dim), f32(batch, dim)
-    lib = _lib("selective_scan_bwd")
-    part = f32(lib.vivim_selective_scan_bwd_scratch(batch, L, dim))
+    # dB / dC partials, segment carries and parameter-grad partials
+    scratch = f32(lib.vivim_selective_scan_bwd_scratch(batch, L, dim, l_seg))
     with torch.cuda.device(dev):
         err = lib.vivim_selective_scan_bwd(
             _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(dout), _ptr(A),
             _ptr(D), _ptr(bias), _ptr(cs), _ptr(dlast), _ptr(ddelta),
             _ptr(du), _ptr(dB), _ptr(dC), _ptr(dA), _ptr(dD), _ptr(dbias),
-            _ptr(dh0), _ptr(part), CHUNK, batch, L, dim,
+            _ptr(dh0), _ptr(scratch), CHUNK, l_seg, batch, L, dim,
             u.stride(0), u.stride(1), delta.stride(0), delta.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1),
             dout.stride(0), dout.stride(1), a_sb, d_sb, b_sb,
             int(bool(delta_softplus)), _DTYPES[u.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, lib, "selective_scan_bwd")
-    BWD_LAUNCHES += 1
     return ddelta, du, dB, dC, dA, dD, dbias, dh0
+
+
+def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, chunk_states,
+                            dout, dlast=None, delta_softplus=False):
+    """Launch K2; returns what ``refs.selective_scan_bwd_ref`` returns:
+    (ddelta, du, dB, dC) contiguous in the activation dtype and per batch
+    row in fp32 (dA, dD, dbias, dh0).  ``chunk_states`` come from
+    ``selective_scan_fwd_states_cuda`` on the same inputs; D, delta_bias
+    and dlast may be None."""
+    global BWD_LAUNCHES
+    out = _bwd_launch(u, delta, A, B, C, D, delta_bias, chunk_states, dout,
+                      dlast, delta_softplus)
+    BWD_LAUNCHES += 1
+    return out
 
 
 class SelectiveScanFn(torch.autograd.Function):

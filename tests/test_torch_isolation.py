@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
 
 
 def test_no_line_names_the_jax_package():
-    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cc")]
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     hits = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
@@ -70,6 +70,11 @@ def test_entry_points_need_cuda_by_default(tmp_path):
         infer.run_inference(args, model, [])
     assert infer.parse_args(["--ckpt", "x", "--data_dir", "y"]).device \
         == "cuda"
+    from vivim_tpu_torch.cli import train_final, train_folds
+
+    for cli in (train_folds, train_final):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["-data_path", str(tmp_path), "-segformer", "tiny"])
 
 
 def test_trainer_needs_cuda_by_default(tmp_path):

@@ -101,8 +101,16 @@ def test_validate_has_the_jax_trainers_metric_keys(tmp_path):
     assert set(metrics) == set(jmetrics)
 
 
-def test_trainer_refuses_what_it_has_not_got(tmp_path):
+def test_trainer_refuses_what_it_has_not_got(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="M12"):
         _trainer(tmp_path, "z", zero=True)
-    with pytest.raises(ValueError, match="wandb"):
-        MetricLogger(str(tmp_path / "w"), use_wandb=True)
+    # no wandb here: the logger says so and writes JSONL only, as the JAX
+    # package's does
+    logger = MetricLogger(str(tmp_path / "w"), use_wandb=True,
+                          config={"a": 1})
+    logger.log({"train/loss": 0.5}, step=1)
+    logger.finish()
+    assert logger.wandb is None
+    assert "wandb unavailable" in capsys.readouterr().out
+    with open(logger.path) as f:
+        assert len(f.readlines()) == 2

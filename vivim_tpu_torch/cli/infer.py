@@ -74,8 +74,10 @@ def prepare_test_data(args):
     from vivim_tpu_torch.data.loader import DataLoader
 
     ds = ClipDataset(args.data_dir, size=args.image_size,
-                     clip_len=args.clip_length)
-    dl = DataLoader(ds, args.batch_size, num_workers=2, drop_last=False)
+                     clip_len=args.clip_length, augment="none",
+                     with_edges=False)
+    dl = DataLoader(ds, args.batch_size, shuffle=False, num_workers=2,
+                    drop_last=False)
     return ds, dl
 
 

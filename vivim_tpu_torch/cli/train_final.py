@@ -1,0 +1,64 @@
+"""Final full-data retrain CLI.
+
+Port of the JAX package's ``cli/train_final.py`` (the reference's
+final_multiclass_training.py, and final_multi_train_dyn.py via ``-dynamic
+true``): trains on the FULL training tree (no folds); the validation loader
+is the training set without augmentation; checkpoints monitor
+``train/loss`` (min, top-3); validation runs once at the end
+(check_val_every_n_epoch = epochs-1, final_multiclass_training.py:781-782).
+Logs and checkpoints go under ``{save_path}/{exp_name}/final``.  Runs on
+``-device`` (CUDA unless ``-device cpu``).
+
+Usage:
+  python -m vivim_tpu_torch.cli.train_final -data_path Multiclass_TrainData \\
+      -clip_length 5 -image_size 256 -train_bs 3 -epochs 50
+"""
+
+from __future__ import annotations
+
+import os
+
+from vivim_tpu_torch.cli.args import build_train_parser
+from vivim_tpu_torch.cli.common import (
+    build_loaders,
+    build_model,
+    refuse_unported,
+)
+from vivim_tpu_torch.train.logging import MetricLogger
+from vivim_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+
+def main(argv=None):
+    parser = build_train_parser(__doc__)
+    args = parser.parse_args(argv)
+    if not args.data_path:
+        parser.error("-data_path is required (gathered train tree)")
+    refuse_unported(args)
+
+    model, _ = build_model(args, device=args.device, seed=args.seed)
+    # val loader = train set, no augmentation (final_multiclass_training.py:462)
+    train_dl, val_dl = build_loaders(args, args.data_path, args.data_path,
+                                     dynamic=args.dynamic)
+    run_dir = os.path.join(args.save_path, args.exp_name, "final")
+    logger = MetricLogger(run_dir, run_name=f"{args.exp_name}_final",
+                          use_wandb=args.wandb, config=vars(args))
+    tcfg = TrainerConfig(
+        epochs=args.epochs,
+        val_freq=max(args.epochs - 1, 1),  # validate once at the end
+        lr=args.initlr, weight_decay=args.weight_decay,
+        num_classes=args.num_classes, loss=args.loss,
+        monitor="train/loss", monitor_mode="min", top_k=3, seed=args.seed,
+        bf16=args.bf16, grad_accum=args.grad_accum,
+        decay_mask=args.decay_mask, profile_dir=args.profile_dir,
+        zero=args.zero, device=args.device)
+    trainer = Trainer(model, tcfg, train_dl, val_dl,
+                      os.path.join(run_dir, "ckpt"), logger,
+                      with_edge=args.with_edge)
+    best = trainer.fit(resume_path=args.resume_path)
+    logger.finish()
+    print(f"[final] best {tcfg.monitor}: {best}")
+    return best
+
+
+if __name__ == "__main__":
+    main()

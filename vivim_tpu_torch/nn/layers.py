@@ -114,7 +114,12 @@ class FastDropout(Stochastic):
 
 class DWConv3d(nn.Module):
     """Depthwise 3x3x3 conv over (T, H, W) on frame-major tokens
-    (reference vivim.py DWConv; key ``dwconv.dwconv``)."""
+    (reference vivim.py DWConv; key ``dwconv.dwconv``).
+
+    The conv runs in fp32 whatever the input dtype (input, weight and bias
+    cast up, the output cast back), as the JAX package sums this conv's taps
+    in fp32; cuDNN's bf16 3-D depthwise weight gradient was also far slower
+    than its fp32 one (PERF.md)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -125,7 +130,9 @@ class DWConv3d(nn.Module):
         if N != nframes * H * W:
             raise ValueError(f"{N} tokens != {nframes}x{H}x{W}")
         xv = x.reshape(B, nframes, H, W, C).permute(0, 4, 1, 2, 3)
-        y = self.dwconv(xv)
+        conv = self.dwconv
+        y = F.conv3d(xv.float(), conv.weight.float(), conv.bias.float(),
+                     padding=1, groups=C).to(x.dtype)
         return y.permute(0, 2, 3, 4, 1).reshape(B, N, C)
 
 

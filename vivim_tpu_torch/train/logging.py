@@ -1,9 +1,10 @@
-"""Metric logging: console-free JSONL, and the confusion-matrix heatmap.
+"""Metric logging: JSONL always; wandb when it is installed and asked for.
 
 Port of the JAX package's ``train/logging.py``.  Every run writes
-``metrics.jsonl`` beside its checkpoints.  The JAX package can also log to
-wandb; the port cannot (neither machine it runs on has a network), so
-``use_wandb=True`` raises.
+``metrics.jsonl`` beside its checkpoints.  ``use_wandb=True`` also logs
+scalars and the confusion-matrix heatmaps to wandb; when wandb cannot be
+imported or initialised (no package, no network), the logger says so and
+writes JSONL only, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -16,14 +17,21 @@ import numpy as np
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str, use_wandb: bool = False,
+    def __init__(self, log_dir: str, project: str = "vivim-tpu",
+                 run_name: str | None = None, use_wandb: bool = False,
                  config: dict | None = None):
-        if use_wandb:
-            raise ValueError("wandb logging is not available in the port; "
-                             "metrics go to metrics.jsonl")
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
         self._fh = open(self.path, "a")
+        self.wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(project=project, name=run_name, config=config or {})
+                self.wandb = wandb
+            except Exception as e:  # wandb absent or offline: JSONL only
+                print(f"[logging] wandb unavailable ({e}); JSONL only")
         if config:
             self.log({"config": config}, step=-1)
 
@@ -33,21 +41,38 @@ class MetricLogger:
             v, (int, float)) else v) for k, v in metrics.items()})
         self._fh.write(json.dumps(rec, default=str) + "\n")
         self._fh.flush()
+        if self.wandb is not None:
+            scalars = {k: v for k, v in metrics.items()
+                       if isinstance(v, (int, float))}
+            self.wandb.log(scalars, step=max(step, 0))
 
     def log_confusion_matrix(self, cm, class_names, step, prefix="val"):
-        """Raw, row- and column-normalised confusion matrices."""
+        """Raw, row- and column-normalised confusion matrices: arrays in
+        JSONL; rendered heatmaps as wandb Images when wandb is on."""
         cm = np.asarray(cm, np.float64)
+        row = cm / np.maximum(cm.sum(1, keepdims=True), 1)
+        col = cm / np.maximum(cm.sum(0, keepdims=True), 1)
         self.log({
             f"{prefix}/confusion_matrix": cm.tolist(),
-            f"{prefix}/confusion_matrix_row_norm":
-                (cm / np.maximum(cm.sum(1, keepdims=True), 1)).tolist(),
-            f"{prefix}/confusion_matrix_col_norm":
-                (cm / np.maximum(cm.sum(0, keepdims=True), 1)).tolist(),
+            f"{prefix}/confusion_matrix_row_norm": row.tolist(),
+            f"{prefix}/confusion_matrix_col_norm": col.tolist(),
             f"{prefix}/class_names": list(class_names),
         }, step)
+        if self.wandb is not None:
+            import matplotlib.pyplot as plt
+
+            for name, mat in ((f"{prefix}/confusion_matrix_img", cm),
+                              (f"{prefix}/confusion_matrix_row_norm_img", row),
+                              (f"{prefix}/confusion_matrix_col_norm_img", col)):
+                fig = confusion_heatmap(mat, class_names)
+                self.wandb.log({name: self.wandb.Image(fig)},
+                               step=max(step, 0))
+                plt.close(fig)
 
     def finish(self):
         self._fh.close()
+        if self.wandb is not None:
+            self.wandb.finish()
 
 
 def confusion_heatmap(mat, class_names):

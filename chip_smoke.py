@@ -61,7 +61,25 @@ Phases, each of which raises on failure (exit code != 0):
    ``metrics.jsonl`` (with val/dice) where the JAX package's CLIs put
    them; print the step ms, the loader's wait per batch and its share of
    the step, clips/s, peak memory, and the bf16 step beside the fp32 one;
-7. print the kernels line, the card line and, last, the device line.
+7. binary and edge training, the reference's binary-pretrain then
+   multiclass fine-tune recipe: write a raw tree of ``BIN_CASES`` cases x
+   ``BIN_FRAMES`` 512 px PNG frames, its 2 folds, fold 0's training cases
+   gathered, and a polyp tree (``POLYP_VIDEOS`` x ``POLYP_FRAMES``,
+   ``Train/<video>/{Frame,GT}``); run (a) ``cli.train_binary.main
+   -with_edge true`` on the gathered tree, (b) ``cli.train_polyp.main``,
+   (c) ``cli.train_folds.main -with_edge true -pretrain`` (a)'s best
+   checkpoint, fp32, batch 3, clip 5, 256 px, one epoch each.  The script
+   wraps ``train.binary``'s step and eval-step factories and
+   ``BinaryValidator`` (and phase 6's recording Trainer for (c)) to time
+   them; every step must launch K1-training and K2 8 times and every
+   validation forward the inference K1 8 times, losses finite, the
+   checkpoints and ``metrics.jsonl`` where the JAX CLIs put them (with
+   val/dice, and for (a) and (b) the S / E / MAE / weighted-F measures),
+   and after each fold's ``-pretrain`` every tensor it took equal to the
+   checkpoint's, the whole equal-shape overlap taken and ``out.*`` (1 vs 3
+   channels) at its init; print the step ms, clips/s, peak memory, the
+   validation forward ms and ``BinaryValidator``'s host ms per batch;
+8. print the kernels line, the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3b (a
@@ -111,13 +129,19 @@ EDGE_CASES = ((torch.float32, -3.0), (torch.bfloat16, -3.0),
               (torch.float32, -7.0))
 # K2's segment-edge cases: lengths at a forced segment length Ls
 SEGMENT_EDGES = tuple((L, ls) for L in (1, 17, 333, 1000) for ls in (16, 64))
-# phase 6: cases of the synthetic PNG tree, annotated frames per case (30
-# clips of 5: a fold trains on 3 cases, 90 clips, 30 steps of batch 3, so
-# an epoch runs well past what the loader can decode ahead) and the source
-# frame size
+# phase 6: cases of the synthetic PNG tree, annotated frames per case (24
+# clips of 5: a fold trains on 3 cases, 72 clips, 24 steps of batch 3, so
+# an epoch runs past what the loader can decode ahead, 10 batches, by the
+# 10 that the wait summary needs) and the source frame size
 CLI_CASES = 4
-CLI_FRAMES = 150
+CLI_FRAMES = 120
 CLI_SOURCE = 512
+# phase 7: raw cases of annotated frames (2 folds, each training on 2
+# cases; the binary run on fold 0's 2), and the polyp tree's videos x frames
+BIN_CASES = 3
+BIN_FRAMES = 30
+POLYP_VIDEOS = 2
+POLYP_FRAMES = 12
 
 
 def nvidia_smi(query):
@@ -849,8 +873,9 @@ def _step_summary(label, log, batch):
           f"{log[0][0]:.1f} first, {min(ms):.3f} min, {med:.3f} median "
           f"over the rest; {batch / med * 1e3:.3f} clips/s; losses "
           + ", ".join(f"{float(o[1]['loss']):.4f}" for _, _, o in log)
-          + "; grad norms "
-          + ", ".join(f"{float(o[1]['grad_norm']):.4f}" for _, _, o in log),
+          + ("; grad norms " + ", ".join(
+              f"{float(o[1]['grad_norm']):.4f}" for _, _, o in log)
+             if "grad_norm" in log[0][2][1] else ""),  # the binary step's
           flush=True)
     return {"steps": len(log), "first_ms": log[0][0], "min_ms": min(ms),
             "median_ms": med, "clips_per_s": batch / med * 1e3}
@@ -1322,6 +1347,221 @@ def phase_train_cli(dev="cuda", segformer="b3", size=256, clip_len=5,
                                       / fp32_rate))
 
 
+def write_polyp_tree(raw, root, n_videos=POLYP_VIDEOS,
+                     n_frames=POLYP_FRAMES):
+    """``root/Train/case_<c>/{Frame,GT}/<n>.png`` from the first
+    ``n_videos`` cases and ``n_frames`` frames of the raw tree ``raw``: the
+    frame as it is (a hard link) and the GT as the inverted background mask
+    (foreground = solid | non-solid)."""
+    from PIL import Image, ImageOps
+
+    for c in range(n_videos):
+        vid = os.path.join(root, "Train", f"case_{c}")
+        for sub in ("Frame", "GT"):
+            os.makedirs(os.path.join(vid, sub))
+        for n in range(n_frames):
+            src = os.path.join(raw, f"case_{c}", f"{n}_x")
+            os.link(os.path.join(src, "frame.png"),
+                    os.path.join(vid, "Frame", f"{n}.png"))
+            ImageOps.invert(Image.open(os.path.join(
+                src, "background.png")).convert("L")).save(
+                os.path.join(vid, "GT", f"{n}.png"), compress_level=1)
+
+
+def _metrics_summary(label, run, log_path, batch, keys):
+    """Print and return one binary / polyp / fold run's step ms, clips/s,
+    validation forward ms, the validator's host ms per batch and peak
+    memory; the run's ``metrics.jsonl`` must carry ``keys``."""
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    logged = {k for r in records for k in r}
+    if not set(keys) <= logged:
+        raise AssertionError(f"{log_path} lacks {sorted(set(keys) - logged)}")
+    out = dict(_step_summary(label, run["steps"], batch),
+               eval_ms=[m for m, _, _ in run["evals"]],
+               validator_ms=run.get("validator_ms", []),
+               peak_gib=run["peak_gib"])
+    ev, va = out["eval_ms"], out["validator_ms"]
+    print(f"binary {label}: {len(ev)} validation forwards, ms "
+          f"{ev[0]:.3f} first, {statistics.median(ev[1:] or ev):.3f} median "
+          "over the rest"
+          + (f"; BinaryValidator host ms per batch of {batch} center frames "
+             f"{statistics.median(va):.3f} median, {min(va):.3f} min"
+             if va else "")
+          + f"; peak memory {run['peak_gib']:.2f} GiB", flush=True)
+    return out
+
+
+def phase_binary(dev="cuda", segformer="b3", size=256, clip_len=5,
+                 batch=TRAIN_BATCH, source=CLI_SOURCE):
+    """The binary and edge recipe through the port's CLIs: (a)
+    ``train_binary -with_edge true`` on a gathered tree, (b)
+    ``train_polyp``, (c) ``train_folds -with_edge true -pretrain`` (a)'s
+    best checkpoint, fp32, one epoch each."""
+    from vivim_tpu_torch.cli import train_binary, train_folds, train_polyp
+    from vivim_tpu_torch.data.gather import gather_multiclass_frames
+    from vivim_tpu_torch.train import binary
+    from vivim_tpu_torch.train.checkpoints import load_params
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    per_pass = LAYERS_PER_STAGE * len(STAGES)
+    clips_per_case = BIN_FRAMES // clip_len
+    want_steps = {"binary edge": 2 * clips_per_case // batch,
+                  "polyp": POLYP_VIDEOS * POLYP_FRAMES // batch}
+    common = ["-segformer", segformer, "-image_size", str(size),
+              "-clip_length", str(clip_len), "-train_bs", str(batch),
+              "-val_bs", str(batch), "-epochs", "1", "-val_freq", "1",
+              "-augment_intensity", "medium", "-num_workers", "4",
+              "-device", str(dev), "-exp_name", "smoke"]
+    runs, fold_runs, took = {}, [], []
+    live = []  # the binary CLI run being recorded: live[-1]
+
+    def record(label):
+        runs[label] = dict(steps=[], evals=[], validator_ms=[], peak_gib=0.0)
+        live.append(runs[label])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def finish():
+        run = live[-1]
+        if on_card:
+            run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # keep each step's metrics, drop the train state it returned: the
+        # next run's peak must not hold this model
+        run["steps"][:] = [(ms, n, (None, m))
+                           for ms, n, (_, m) in run["steps"]]
+        run["evals"][:] = [(ms, n, None) for ms, n, _ in run["evals"]]
+
+    make_train, make_eval = (binary.make_binary_train_step,
+                             binary.make_binary_eval_step)
+    validator_cls, load_pretrained = (binary.BinaryValidator,
+                                      train_folds.maybe_load_pretrained)
+    fold_trainer = train_folds.Trainer
+
+    class TimedValidator(validator_cls):
+        def update(self, *args):
+            t0 = time.perf_counter()
+            super().update(*args)
+            live[-1]["validator_ms"].append(
+                (time.perf_counter() - t0) * 1e3)
+
+    def checked_pretrain(args, model):
+        """-pretrain, then: the tensors it took equal the checkpoint's and
+        are every one of equal key and shape; ``out.*`` kept its init."""
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        keys = load_pretrained(args, model)
+        ckpt = load_params(args.pretrain)
+        after = model.state_dict()
+        overlap = sorted(k for k in ckpt if k in before
+                         and ckpt[k].shape == before[k].shape)
+        if keys != overlap:
+            raise AssertionError(f"-pretrain took {len(keys)} tensors, the "
+                                 f"overlap is {len(overlap)}")
+        for k in keys:
+            if not torch.equal(after[k].cpu(), ckpt[k]):
+                raise AssertionError(f"-pretrain: {k} differs from the "
+                                     "checkpoint's")
+        for k in ("out.weight", "out.bias"):
+            if k in keys or not torch.equal(after[k], before[k]):
+                raise AssertionError(f"-pretrain changed {k}")
+        if "edgeocr_cls_head.weight" not in keys:
+            raise AssertionError("-pretrain did not take the edge head")
+        took.append((len(keys), len(after)))
+        return keys
+
+    binary.make_binary_train_step = lambda *a, **k: _recorded(
+        make_train(*a, **k), live[-1]["steps"], dev)
+    binary.make_binary_eval_step = lambda *a, **k: _recorded(
+        make_eval(*a, **k), live[-1]["evals"], dev)
+    binary.BinaryValidator = TimedValidator
+    train_folds.maybe_load_pretrained = checked_pretrain
+    train_folds.Trainer = recording_trainer(fold_runs, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            t0 = time.perf_counter()
+            raw, folds = os.path.join(tmp, "raw"), os.path.join(tmp, "folds")
+            write_png_tree(raw, n_cases=BIN_CASES, n_frames=BIN_FRAMES,
+                           size=source)
+            write_fold_tree(raw, folds)
+            gathered = os.path.join(tmp, "gathered")
+            gather_multiclass_frames(os.path.join(folds, "fold_0", "train"),
+                                     gathered, copy=True)
+            polyp = os.path.join(tmp, "polyp")
+            write_polyp_tree(raw, polyp)
+            print(f"binary: wrote {BIN_CASES} cases x {BIN_FRAMES} annotated "
+                  f"{source} x {source} PNG frames, 2 folds, the gathered "
+                  f"tree of fold 0's 2 training cases and a polyp tree of "
+                  f"{POLYP_VIDEOS} videos x {POLYP_FRAMES} frames in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            save = os.path.join(tmp, "runs")
+            reset_counts()
+            record("binary edge")
+            train_binary.main(["-data_path", gathered, "-with_edge", "true",
+                               "-save_path", save] + common)
+            finish()
+            record("polyp")
+            train_polyp.main(["-data_path", polyp, "-save_path", save]
+                             + common)
+            finish()
+            ckpt_dir = os.path.join(save, "smoke", "binary", "ckpt")
+            best = [f for f in os.listdir(ckpt_dir) if f.startswith("best_")]
+            train_folds.main(["-data_path", folds, "-num_folds", "2",
+                              "-with_edge", "true", "-pretrain",
+                              os.path.join(ckpt_dir, best[0]),
+                              "-save_path", save] + common)
+            launched = counts()
+        finally:
+            binary.make_binary_train_step = make_train
+            binary.make_binary_eval_step = make_eval
+            binary.BinaryValidator = validator_cls
+            train_folds.maybe_load_pretrained = load_pretrained
+            train_folds.Trainer = fold_trainer
+        if len(took) != 2:
+            raise AssertionError(f"-pretrain checked {len(took)} times")
+        run_dirs = {"binary edge": "binary", "polyp": "polyp"}
+        for i, run in enumerate(fold_runs):
+            runs[f"fold {i} edge+pretrain"] = run
+            run_dirs[f"fold {i} edge+pretrain"] = f"fold_{i}"
+            want_steps[f"fold {i} edge+pretrain"] = (2 * clips_per_case
+                                                     // batch)
+        if sorted(runs) != sorted(want_steps):
+            raise AssertionError(f"runs {sorted(runs)}")
+        binary_keys = ("val/dice", "val/Smeasure", "val/Emeasure", "val/MAE",
+                       "val/wFmeasure")
+        out = {}
+        for label, run in runs.items():
+            n = want_steps[label]
+            if len(run["steps"]) != n:
+                raise AssertionError(f"{label}: {len(run['steps'])} steps, "
+                                     f"expected {n}")
+            if on_card:
+                _check_launches(run["steps"], {
+                    "K1 inference": 0, "K1 training": per_pass,
+                    "K2": per_pass}, f"{label} train step")
+                _check_launches(run["evals"], {
+                    "K1 inference": per_pass, "K1 training": 0, "K2": 0},
+                    f"{label} validation forward")
+            for _, _, (_, m) in run["steps"]:
+                for k, v in m.items():
+                    if not math.isfinite(float(v)):
+                        raise AssertionError(f"{label} {k} {float(v)}")
+            run_dir = os.path.join(save, "smoke", run_dirs[label])
+            ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+            if ckpts != [f"best_{n}.pt", f"last_{n}.pt", "manager.json"]:
+                raise AssertionError(f"{label} checkpoints {ckpts}")
+            out[label] = _metrics_summary(
+                label, run, os.path.join(run_dir, "metrics.jsonl"), batch,
+                binary_keys if label in ("binary edge", "polyp")
+                else ("val/dice",))
+    print(f"binary: launches {launched} ({per_pass} K1-training and "
+          f"{per_pass} K2 per step, {per_pass} inference K1 per validation "
+          f"forward); -pretrain took {took[0][0]} of {took[0][1]} tensors "
+          "per fold, each equal to the binary checkpoint's, out.* at its "
+          "init", flush=True)
+    return launched, dict(out, pretrain_took=took[0][0])
+
+
 def _kernel_entry(name, source, replaces, launches, rows, per, **extra):
     fp32 = [r for r in rows if r["dtype"] == "float32" and "ms" in r]
     by_term = {}  # bound ms by binding term, over the stage shapes
@@ -1394,9 +1634,11 @@ def main():
     cli_launched, cli_perf = phase_train_cli(
         fp32_ref_ms=train_perf["fp32"]["median_ms"])
     t0 = done("6 train CLI", t0)
+    binary_launched, binary_perf = phase_binary()
+    t0 = done("7 binary and edge training", t0)
 
     paths = {"serve": serve_launched, "train": train_launched,
-             "train_cli": cli_launched}
+             "train_cli": cli_launched, "binary_edge": binary_launched}
     total = {k: sum(p[k] for p in paths.values())
              for k in ("K1 inference", "K1 training", "K2")}
     k1 = _kernel_entry(
@@ -1424,7 +1666,7 @@ def main():
         ragged_max_abs_err=ragged_err, launches_by_path=paths)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2], "train": train_perf,
-                      "train_cli": cli_perf}))
+                      "train_cli": cli_perf, "binary_edge": binary_perf}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

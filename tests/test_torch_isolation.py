@@ -70,9 +70,14 @@ def test_entry_points_need_cuda_by_default(tmp_path):
         infer.run_inference(args, model, [])
     assert infer.parse_args(["--ckpt", "x", "--data_dir", "y"]).device \
         == "cuda"
-    from vivim_tpu_torch.cli import train_final, train_folds
+    from vivim_tpu_torch.cli import (
+        train_binary,
+        train_final,
+        train_folds,
+        train_polyp,
+    )
 
-    for cli in (train_folds, train_final):
+    for cli in (train_folds, train_final, train_binary, train_polyp):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["-data_path", str(tmp_path), "-segformer", "tiny"])
 

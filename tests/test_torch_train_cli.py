@@ -1,7 +1,8 @@
 """The port's training CLIs against the JAX package's: the same flags and
 defaults, the same model at the training defaults (tanh GELU), ``main`` of
 train_folds / train_final end to end on the CPU with the JAX run layout,
-the refusal of every flag whose path is not ported, and ``DWConv3d`` in
+with ``-pretrain``, ``-hf_dir`` and ``-with_edge``, the refusal of every
+flag whose path is not ported (in the binary CLIs too), and ``DWConv3d`` in
 bf16 against the JAX module (its taps summed in fp32)."""
 
 import argparse
@@ -22,9 +23,11 @@ from vivim_tpu.cli import common as jcommon
 from vivim_tpu.nn.layers import DWConv3d as JDWConv3d
 from vivim_tpu.nn.vivim import Vivim as JVivim
 from vivim_tpu_torch.cli import args as pargs
-from vivim_tpu_torch.cli import train_final, train_folds
+from vivim_tpu_torch.cli import train_binary, train_final, train_folds
+from vivim_tpu_torch.cli import train_polyp
 from vivim_tpu_torch.cli.common import build_model
 from vivim_tpu_torch.convert.from_jax import vivim_state_dict_from_jax
+from vivim_tpu_torch.train.checkpoints import save_params
 from vivim_tpu_torch.data.gather import gather_multiclass_frames
 from vivim_tpu_torch.nn.layers import DWConv3d
 
@@ -183,12 +186,64 @@ def test_train_final_main_on_cpu(tmp_path, gathered_tree, capsys, wandb):
         assert "wandb unavailable" in capsys.readouterr().out
 
 
+@pytest.fixture(scope="module")
+def weight_files(tmp_path_factory):
+    """A binary checkpoint with the edge head (``save_params``) and a
+    SegFormer snapshot in HF's key layout (``pytorch_model.bin``, with its
+    per-stage LayerNorms and classifier), both of the tiny config."""
+    root = tmp_path_factory.mktemp("weights")
+    args = pargs.build_train_parser().parse_args(
+        ["-segformer", "tiny", "-with_edge", "true"])
+    binary, _ = build_model(args, device="cpu", seed=5, out_chans=1)
+    save_params(str(root / "binary.pt"), binary.state_dict())
+    hf = {}
+    for k, v in binary.state_dict().items():
+        if k.startswith("encoder.downsample_layers."):
+            hf["segformer.encoder." + k[len("encoder.downsample_layers."):]] = v
+        elif k.startswith("decoder."):
+            hf["decode_head." + k[len("decoder."):]] = v
+    hf["decode_head.classifier.weight"] = torch.zeros(150, 32, 1, 1)
+    hf["decode_head.classifier.bias"] = torch.zeros(150)
+    os.makedirs(root / "hf")
+    torch.save(hf, root / "hf" / "pytorch_model.bin")
+    return root
+
+
 @pytest.mark.parametrize("cli", [train_folds, train_final])
+@pytest.mark.parametrize("flag", ["pretrain", "hf_dir", "with_edge"])
+def test_weight_and_edge_flags_run(tmp_path, fold_tree, gathered_tree,
+                                   weight_files, capsys, cli, flag):
+    """Each flag through the multiclass CLIs: ``-pretrain`` takes the
+    binary checkpoint's overlap (all but ``out``), ``-hf_dir`` grafts the
+    snapshot, ``-with_edge`` trains the edge head with the center-frame
+    edge criterion."""
+    argv = {"pretrain": ["-pretrain", str(weight_files / "binary.pt")],
+            "hf_dir": ["-hf_dir", str(weight_files / "hf")],
+            "with_edge": ["-with_edge", "true"]}[flag]
+    data = ["-data_path", str(fold_tree), "-num_folds", "1", "-val_freq",
+            "1"]
+    if cli is train_final:
+        data = ["-data_path", str(gathered_tree)]
+    cli.main(data + ["-save_path", str(tmp_path), "-exp_name", "w"] + TINY
+             + argv)
+    out = capsys.readouterr().out
+    if flag == "pretrain":
+        assert "kept the init of ['out.bias', 'out.weight']" in out
+    if flag == "hf_dir":
+        assert f"from {weight_files / 'hf'}" in out
+    run = tmp_path / "w" / ("final" if cli is train_final else "fold_0")
+    records = _records(run / "metrics.jsonl")
+    assert set(TRAIN_KEYS + VAL_KEYS) <= _logged_keys(records)
+    assert all(np.isfinite(r["train/loss"]) for r in records
+               if "train/loss" in r)
+
+
+@pytest.mark.parametrize("cli", [train_folds, train_final, train_binary,
+                                 train_polyp])
 @pytest.mark.parametrize("flag,item", [
     (["-remat", "pre_scan"], "M2c"), (["-remat", "blocks"], "M2c"),
     (["-seq_shards", "2"], "M12"), (["-n_devices", "2"], "M12"),
-    (["-zero", "true"], "M12"), (["-pretrain", "w.pt"], "M8b"),
-    (["-hf_dir", "hf"], "M8b"), (["-with_edge", "true"], "M9")])
+    (["-zero", "true"], "M12")])
 def test_unported_flags_raise_with_their_roadmap_item(tmp_path, cli, flag,
                                                       item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

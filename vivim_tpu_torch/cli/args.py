@@ -26,10 +26,11 @@ def build_train_parser(description="vivim_tpu_torch training"):
     _add(p, "net", type=str, default="Vivim")
     _add(p, "exp_name", type=str, default="vivim_train")
     _add(p, "pretrain", type=str, default=None,
-         help="path of pretrained weights (ROADMAP M8b: refused)")
+         help="a port checkpoint (save_params, or a best / last file): "
+              "every tensor of equal key and shape initialises the model")
     _add(p, "hf_dir", type=str, default=None,
          help="local HF snapshot dir of nvidia/segformer-b3-finetuned-ade-"
-              "512-512 (ROADMAP M8b: refused)")
+              "512-512: its encoder and decode head initialise the model")
     _add(p, "val_freq", type=int, default=5)
     _add(p, "image_size", type=int, default=256)
     _add(p, "train_bs", type=int, default=1)
@@ -46,7 +47,7 @@ def build_train_parser(description="vivim_tpu_torch training"):
     _add(p, "num_workers", type=int, default=2)
     _add(p, "val_aug", type=str2bool, default=False)
     _add(p, "with_edge", type=str2bool, default=False,
-         help="edge head and edge loss (ROADMAP M9: refused)")
+         help="edge head and edge loss")
     _add(p, "num_classes", type=int, default=3)
     _add(p, "num_folds", type=int, default=5)
     _add(p, "seed", type=int, default=42)

@@ -22,6 +22,9 @@ from vivim_tpu_torch.cli.args import build_train_parser
 from vivim_tpu_torch.cli.common import (
     build_loaders,
     build_model,
+    edge_criterion,
+    maybe_load_hf_segformer,
+    maybe_load_pretrained,
     refuse_unported,
 )
 from vivim_tpu_torch.train.logging import MetricLogger
@@ -53,7 +56,10 @@ def main(argv=None):
         zero=args.zero, device=args.device)
     trainer = Trainer(model, tcfg, train_dl, val_dl,
                       os.path.join(run_dir, "ckpt"), logger,
-                      with_edge=args.with_edge)
+                      with_edge=args.with_edge,
+                      edge_loss_fn=edge_criterion(args))
+    maybe_load_hf_segformer(args, model)
+    maybe_load_pretrained(args, model)
     best = trainer.fit(resume_path=args.resume_path)
     logger.finish()
     print(f"[final] best {tcfg.monitor}: {best}")

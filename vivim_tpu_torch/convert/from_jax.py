@@ -147,6 +147,84 @@ def vivim_state_dict_from_hf_segformer(sd):
     return out
 
 
+# the HF keys Vivim does not take: the per-stage encoder LayerNorms (the
+# reference Vivim does not call them, vivim.py:211-212) and the classifier
+_HF_DROPPED = ("segformer.encoder.layer_norm.", "decode_head.classifier.")
+# the port's keys that keep their init under the graft: the Mamba layers,
+# the output conv, the edge head, and the per-stage LayerNorms it never calls
+_HF_KEPT_INIT = ("encoder.stages.", "out.", "edgeocr_cls_head.",
+                 "encoder.downsample_layers.layer_norm.")
+
+
+def load_torch_state_dict(path):
+    """A torch state_dict from a file or an HF snapshot directory, where
+    ``model.safetensors`` is taken before ``pytorch_model.bin``.  A
+    ``.safetensors`` file needs the ``safetensors`` package: without it this
+    raises, and never falls back to another file."""
+    import os
+
+    if os.path.isdir(path):
+        st = os.path.join(path, "model.safetensors")
+        bin_ = os.path.join(path, "pytorch_model.bin")
+        if not os.path.exists(st) and not os.path.exists(bin_):
+            raise FileNotFoundError(
+                f"{path} holds neither model.safetensors nor "
+                "pytorch_model.bin")
+        path = st if os.path.exists(st) else bin_
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise ImportError(
+                f"{path} needs the safetensors package, which is not "
+                "installed: install it, or give a pytorch_model.bin") from e
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd.get("state_dict", sd)
+
+
+def graft_hf_segformer(model, hf_sd):
+    """Load an HF ``SegformerForSemanticSegmentation`` state_dict into the
+    port's Vivim ``model`` in place, as the reference does at construction
+    (vivim.py:264-267): the encoder stages and the decode head's linear_c /
+    linear_fuse / batch_norm.  Raises unless the HF keys left over are
+    exactly the per-stage encoder LayerNorms and the classifier, and the
+    model keys left at their init exactly the Mamba layers, ``out``, the
+    edge head and the per-stage LayerNorms (a snapshot of another model must
+    not load as nothing).  Returns the number of tensors taken."""
+    mapped = {k: v for k, v in vivim_state_dict_from_hf_segformer(hf_sd).items()
+              if not k.startswith(_HF_KEPT_INIT)}
+    own = model.state_dict()
+    unexpected = sorted(k for k in mapped if k not in own)
+    left = sorted(k for k in hf_sd if k.startswith(_HF_DROPPED))
+    n_stages = model.cfg.segformer.num_stages
+    want_left = sorted(
+        [f"segformer.encoder.layer_norm.{i}.{w}" for i in range(n_stages)
+         for w in ("weight", "bias")]
+        + [f"decode_head.classifier.{w}" for w in ("weight", "bias")])
+    missing = sorted(k for k in own if k not in mapped)
+    want_missing = sorted(k for k in own if k.startswith(_HF_KEPT_INIT))
+    if (unexpected or left != want_left or missing != want_missing
+            or len(mapped) + len(left) != len(hf_sd)):
+        raise ValueError(
+            "not an HF SegFormer snapshot of this Vivim's encoder: keys the "
+            f"model lacks {unexpected[:8]}, HF keys not taken {left[:8]} "
+            f"(want {want_left[:8]}), model keys left at init "
+            f"{sorted(set(missing) - set(want_missing))[:8]} beyond the "
+            "Mamba layers, out and the edge head")
+    model.load_state_dict(mapped, strict=False)
+    return len(mapped)
+
+
+def inverse_net_state_dict_from_jax(params):
+    """JAX ``InverseNet`` params ({"fc0", "fc1", "fc2"}) -> the port's
+    ``InverseNet`` keys (``fc.0``, ``fc.2``, ``fc.4``)."""
+    sd = {}
+    for i in range(3):
+        _linear(sd, f"fc.{2 * i}", params[f"fc{i}"])
+    return sd
+
+
 def strip_lightning_prefix(sd, prefix="model."):
     """Strip the Lightning wrapper prefix from state_dict keys."""
     return {k[len(prefix):] if k.startswith(prefix) else k: v

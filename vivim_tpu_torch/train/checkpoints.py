@@ -11,6 +11,9 @@ Port of the JAX package's ``train/checkpoints.py`` (orbax there):
 
 A checkpoint is one file, ``best_<step>.pt`` or ``last_<step>.pt``, written
 to a temporary name and renamed, so a crash never leaves a partial file.
+``save_params`` / ``load_params`` export and read a model's state_dict alone
+(the ``-pretrain`` weights), and ``load_params`` also reads the model out of
+a manager's checkpoint.
 """
 
 from __future__ import annotations
@@ -19,6 +22,27 @@ import json
 import os
 
 import torch
+
+
+def _save_atomic(obj, path):
+    path = os.path.abspath(path)
+    tmp = os.path.join(os.path.dirname(path), f".{os.path.basename(path)}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_params(path: str, state_dict):
+    """Write a model's state_dict to ``path``."""
+    _save_atomic(dict(state_dict), path)
+
+
+def load_params(path: str):
+    """The model state_dict of a ``save_params`` file or of a
+    ``CheckpointManager`` checkpoint, on the CPU."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and {"step", "model", "opt"} <= set(obj):
+        return obj["model"]
+    return obj
 
 
 def _state_dict(state):
@@ -55,9 +79,7 @@ class CheckpointManager:
         return sorted(out)
 
     def _write(self, name, state):
-        tmp = self._path(f".{name}.tmp")
-        torch.save(_state_dict(state), tmp)
-        os.replace(tmp, self._path(name))
+        _save_atomic(_state_dict(state), self._path(name))
 
     def save(self, state, step: int, metrics: dict) -> bool:
         """Save ``last_<step>`` (and drop older ones), and ``best_<step>``

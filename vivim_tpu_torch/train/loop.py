@@ -66,9 +66,11 @@ def cosine_lr(lr: float, total_steps: int, eta_min_ratio: float, step: int):
 class AdamW:
     """``optax.chain(clip_by_global_norm(clip_norm), adamw(cosine, b1=0.9,
     b2=0.999, eps=1e-8, weight_decay, mask, mu_dtype))`` over a model's
-    parameters, with torch's multi-tensor ops.  ``mu_dtype`` (e.g.
-    ``torch.bfloat16``) stores the first moment in that dtype; the second
-    stays fp32.  Parameters without a gradient are skipped."""
+    parameters, with torch's multi-tensor ops.  ``clip_norm=None`` clips
+    nothing and, at weight decay 0, is ``optax.adam`` (the binary
+    pipeline's).  ``mu_dtype`` (e.g. ``torch.bfloat16``) stores the first
+    moment in that dtype; the second stays fp32.  Parameters without a
+    gradient are skipped."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -97,15 +99,18 @@ class AdamW:
     @torch.no_grad()
     def step(self):
         """Clip, update every parameter that has a gradient; returns the
-        global gradient norm before clipping (a 0-dim tensor)."""
+        global gradient norm before clipping (a 0-dim tensor), or None
+        without clipping."""
         live = [i for i, p in enumerate(self.params) if p.grad is not None]
         params = [self.params[i] for i in live]
         grads = [p.grad for p in params]
-        norm = torch.linalg.vector_norm(torch.stack(
-            [g.float() for g in torch._foreach_norm(grads)]))
-        # optax scales by max/norm only when norm > max: the factor is 1
-        torch._foreach_mul_(grads, self.clip_norm
-                            / torch.clamp(norm, min=self.clip_norm))
+        norm = None
+        if self.clip_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [g.float() for g in torch._foreach_norm(grads)]))
+            # optax scales by max/norm only when norm > max: the factor is 1
+            torch._foreach_mul_(grads, self.clip_norm
+                                / torch.clamp(norm, min=self.clip_norm))
         lr = self.schedule(self.count)
         self.count += 1
         mu = [self.mu[i].float() for i in live]  # the fp32 ones themselves
@@ -218,13 +223,29 @@ def _forward(model, clip, compute_dtype):
     return torch.func.functional_call(model, params, (clip.to(compute_dtype),))
 
 
+def _split_edge(model, out, edge_loss_fn):
+    """(logits, edge logits or None) of a forward's output; an edge head
+    trains only with an edge loss, and an edge loss needs the head."""
+    with_edge = getattr(model.cfg, "with_edge", False)
+    if with_edge != (edge_loss_fn is not None):
+        raise ValueError(
+            "the model's edge head and the edge loss come together: "
+            f"with_edge={with_edge}, edge_loss_fn="
+            f"{'set' if edge_loss_fn is not None else 'None'}")
+    return out if with_edge else (out, None)
+
+
 def make_train_step(model, loss_fn: Callable | str = "recall_focused",
                     num_classes: int = 3, compute_dtype=None,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, edge_loss_fn=None):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
-    ``batch``: clip (B, T, H, W, 3) and one-hot masks (B, T, H, W, C),
-    tensors on the model's device.  ``compute_dtype``: e.g. torch.bfloat16
+    ``batch``: clip (B, T, H, W, 3) and one-hot masks (B, T, H, W, C)
+    [, edges (B, T, H, W, 1)], tensors on the model's device.
+    ``edge_loss_fn``: fn(seg_logits, seg_masks, edge_logits, edge_masks) on
+    the (B, T, ...) tensors (e.g. ``edge_loss.make_multiclass_edge_
+    criterion()``), added to the all-frames loss; the model must have the
+    edge head then, and only then.  ``compute_dtype``: e.g. torch.bfloat16
     for cast-parameter mixed precision (fp32 masters, losses and scan
     state).  ``grad_accum``: the batch splits into that many contiguous
     micro-batches; their gradients and losses are averaged, their Jaccard
@@ -236,10 +257,6 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
         loss_fn = losses_lib.LOSSES[loss_fn]
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if getattr(model.cfg, "with_edge", False):
-        raise NotImplementedError(
-            "training the edge head needs the edge loss (ROADMAP M9)")
-
     def step(state: TrainState, batch):
         clip, masks = batch["clip"], batch["masks"]
         B = clip.shape[0]
@@ -255,9 +272,15 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
         counts = 0.0
         for i in range(grad_accum):
             part = slice(i * mb, (i + 1) * mb)
-            logits, targets = flatten_frames(
-                _forward(model, clip[part], compute_dtype), masks[part])
+            logits5, edge5 = _split_edge(
+                model, _forward(model, clip[part], compute_dtype),
+                edge_loss_fn)
+            logits, targets = flatten_frames(logits5, masks[part])
             loss = loss_fn(logits, targets, num_classes)
+            if edge5 is not None:
+                # the losses cast to fp32 themselves, as in the JAX step
+                loss = loss + edge_loss_fn(logits5, masks[part], edge5,
+                                           batch["edges"][part])
             (loss / grad_accum).backward()
             loss_sum = loss_sum + loss.detach()
             counts = counts + jaccard_counts(logits.detach(), targets,
@@ -274,10 +297,14 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
 
 def make_eval_step(model, loss_fn: Callable | str = "recall_focused",
                    num_classes: int = 3, with_edge: bool = False,
-                   compute_dtype=None, return_preds: bool = False):
+                   compute_dtype=None, edge_loss_fn=None,
+                   return_preds: bool = False):
     """Returns ``step(state, batch) -> (loss, confusion (B*T, C, 4), cm
     (C, C)[, preds (B*T, H, W)])``, all computed on the device: only the
-    counters need to reach the host."""
+    counters need to reach the host.  With ``edge_loss_fn`` and
+    ``"edges"`` in the batch, the loss includes the edge term, as the
+    reference's validation criterion does
+    (multiclass_training_folds.py:749-762)."""
     if isinstance(loss_fn, str):
         loss_fn = losses_lib.LOSSES[loss_fn]
 
@@ -285,9 +312,12 @@ def make_eval_step(model, loss_fn: Callable | str = "recall_focused",
         model.eval()
         with torch.inference_mode():
             out = _forward(model, batch["clip"], compute_dtype)
-            logits, targets = flatten_frames(out[0] if with_edge else out,
-                                             batch["masks"])
+            logits5 = out[0] if with_edge else out
+            logits, targets = flatten_frames(logits5, batch["masks"])
             loss = loss_fn(logits, targets, num_classes)
+            if with_edge and edge_loss_fn is not None and "edges" in batch:
+                loss = loss + edge_loss_fn(logits5, batch["masks"], out[1],
+                                           batch["edges"])
             preds = logits.argmax(-1)
             res = (loss, per_class_confusion(preds, targets, num_classes),
                    confusion_matrix(preds, targets, num_classes))

@@ -19,7 +19,9 @@ the reference training scripts' semantics
 - ``multiclass_structure_loss``: per-class weighted BCE + weighted IoU with
   a 31x31 mean-pool boundary-emphasis weight map.
 
-All take ``logits (N, H, W, C)`` and integer ``targets (N, H, W)``.
+All take ``logits (N, H, W, C)`` and integer ``targets (N, H, W)``.  Beside
+the table, ``structure_loss`` is the binary pipeline's loss on one logit
+channel and a float mask (modeling/utils.py:89-102).
 """
 
 from __future__ import annotations
@@ -139,6 +141,33 @@ def multiclass_structure_loss(logits, targets, num_classes=None, eps=_EPS):
     t = _onehot(targets, C)
     return sum(_weighted_structure(logits[..., c:c + 1], t[..., c:c + 1], eps)
                for c in range(C)) / C
+
+
+def structure_loss(pred, mask, iou=True, legacy_wbce=False):
+    """Binary weighted BCE (+ weighted IoU) of ``pred`` logits and ``mask``,
+    both (N, H, W, 1), eps 1 (modeling/utils.py:89-102).
+
+    ``legacy_wbce=True`` is the reference's actual torch behaviour: its
+    ``reduce='none'`` string is truthy for torch's legacy shim, so the BCE
+    term is an unweighted mean and the boundary weight applies to the IoU
+    term only.  The default keeps the intended weighted BCE."""
+    if legacy_wbce:
+        pred, mask = pred.float(), mask.float()
+        weit = 1.0 + 5.0 * (_mean_pool_31(mask) - mask).abs()
+        bce = F.binary_cross_entropy_with_logits(pred, mask)
+        if not iou:
+            return bce
+        prob = torch.sigmoid(pred)
+        inter = (prob * mask * weit).sum((1, 2, 3))
+        union = ((prob + mask) * weit).sum((1, 2, 3))
+        wiou = 1.0 - (inter + 1.0) / (union - inter + 1.0)
+        return (bce + wiou).mean()
+    if iou:
+        return _weighted_structure(pred, mask, eps=1.0)
+    pred, mask = pred.float(), mask.float()
+    weit = 1.0 + 5.0 * (_mean_pool_31(mask) - mask).abs()
+    wbce = F.binary_cross_entropy_with_logits(pred, mask, reduction="none")
+    return ((weit * wbce).sum((1, 2, 3)) / weit.sum((1, 2, 3))).mean()
 
 
 LOSSES = {

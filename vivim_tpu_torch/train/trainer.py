@@ -62,7 +62,7 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model, cfg: TrainerConfig, train_loader, val_loader,
                  ckpt_dir: str, logger: MetricLogger, mesh=None,
-                 with_edge: bool = False):
+                 with_edge: bool = False, edge_loss_fn=None):
         if cfg.zero or mesh is not None:
             raise NotImplementedError(
                 "the parallel training paths (zero, a mesh) are ROADMAP M12")
@@ -81,12 +81,14 @@ class Trainer:
             decay_mask=cfg.decay_mask)
         self.lr_schedule = self.state.opt.schedule
         compute_dtype = torch.bfloat16 if cfg.bf16 else None
+        edge_loss_fn = edge_loss_fn if with_edge else None
         self.train_step = loop_lib.make_train_step(
             self.model, cfg.loss, cfg.num_classes,
-            compute_dtype=compute_dtype, grad_accum=cfg.grad_accum)
+            compute_dtype=compute_dtype, grad_accum=cfg.grad_accum,
+            edge_loss_fn=edge_loss_fn)
         self.eval_step = loop_lib.make_eval_step(
             self.model, cfg.loss, cfg.num_classes, with_edge=with_edge,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, edge_loss_fn=edge_loss_fn)
         self.epoch = 0
         self.preempted = False
         self._skip_batches = 0  # mid-epoch resume: batches already consumed

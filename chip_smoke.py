@@ -79,7 +79,23 @@ Phases, each of which raises on failure (exit code != 0):
    checkpoint's, the whole equal-shape overlap taken and ``out.*`` (1 vs 3
    channels) at its init; print the step ms, clips/s, peak memory, the
    validation forward ms and ``BinaryValidator``'s host ms per batch;
-8. print the kernels line, the card line and, last, the device line.
+8. LM serving: write a snapshot directory with the ``config.json`` of
+   state-spaces/mamba-130m (24 layers, d_model 768, vocab 50277 padded to
+   50280, RMSNorm, fp32 residual) and a ``pytorch_model.bin`` of the
+   port's seeded random init in the reference key layout; (a) load it
+   through ``cli.lm_eval_harness.load_lm(hf_dir=...)`` on the card; (b) run
+   ``cli.bench_generation.main --hf_dir`` at its defaults (prompt 128, 128
+   new tokens, batch 1, top-k 1; ``LM_REPEATS`` timed calls) in float32,
+   bfloat16 and int8, printing each JSON line; (c) K1 must launch 24 times
+   per generate (the prefill), 0 times in the decode steps, and 24 times per
+   fp32 and int8 ``MambaEvalCore`` scoring forward; (d) hold K1 against its
+   plain version at (1, 128, 1536) and (1, 37, 1536), fp32 and bf16, output
+   and last state, with device ms and bound; (e) the prefill's last logits
+   and 32 teacher-forced scores (teacher: the plain-scan model's greedy
+   tokens) within 1e-3 of the same model on the plain scan; (f) prefill
+   ms, decode ms per token (CUDA events), kernels per token and the
+   device's busy share of a decode step (torch.profiler), peak memory;
+9. print the kernels line, the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3b (a
@@ -89,7 +105,9 @@ quick check of the kernels on the card).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -142,6 +160,22 @@ BIN_CASES = 3
 BIN_FRAMES = 30
 POLYP_VIDEOS = 2
 POLYP_FRAMES = 12
+# phase 8: the config.json of state-spaces/mamba-130m, the generation
+# bench's defaults (prompt 128, 128 new tokens, batch 1, top-k 1), a ragged
+# prompt for K1, and the tokens of the end-to-end check against the plain
+# scan and of the decode timing
+LM_CONFIG = {"d_model": 768, "n_layer": 24, "vocab_size": 50277,
+             "ssm_cfg": {}, "rms_norm": True, "residual_in_fp32": True,
+             "fused_add_norm": True, "pad_vocab_size_multiple": 8}
+LM_PROMPT = 128
+LM_GEN = 128
+# bench_generation's timed repeats after its warm-up call: 1, not its
+# default 3, to keep the script near 400 s (3 took phase 8 to 64 s)
+LM_REPEATS = 1
+LM_RAGGED = 37
+LM_DTYPES = ("float32", "bfloat16", "int8")
+LM_E2E_GEN = 32
+LM_DECODE_STEPS = 16
 
 
 def nvidia_smi(query):
@@ -808,7 +842,8 @@ PROFILE_GROUPS = {
 def phase_profile(label, run, n_runs=3):
     """Device time of ``n_runs`` calls of ``run`` by kernel group
     (torch.profiler), and the device's busy share of the window's wall
-    time."""
+    time.  Returns {wall_ms, busy_ms, busy_share, kernels} per call, or
+    None when the profiler recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -825,7 +860,7 @@ def phase_profile(label, run, n_runs=3):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print(f"profile {label}: no device events recorded", flush=True)
-        return
+        return None
     busy_ms = sum(ms for _, ms in kernels)
     by_group, by_name = {}, {}
     for name, ms in kernels:
@@ -842,6 +877,9 @@ def phase_profile(label, run, n_runs=3):
               f"({100 * ms / busy_ms:.1f} % of busy)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile {label}: kernel {ms:9.3f} ms {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "kernels": len(kernels) // n_runs}
 
 
 def _recorded(fn, log, dev):
@@ -1562,12 +1600,265 @@ def phase_binary(dev="cuda", segformer="b3", size=256, clip_len=5,
     return launched, dict(out, pretrain_took=took[0][0])
 
 
-def _kernel_entry(name, source, replaces, launches, rows, per, **extra):
-    fp32 = [r for r in rows if r["dtype"] == "float32" and "ms" in r]
-    by_term = {}  # bound ms by binding term, over the stage shapes
+class CharTokenizer:
+    """ids of characters (mod the vocabulary), for the eval core's string
+    requests; eos 0."""
+
+    eos_token_id = 0
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def encode(self, s):
+        return [1 + ord(c) % (self.vocab - 1) for c in s]
+
+    def decode(self, ids):
+        return "".join(chr(32 + i % 95) for i in ids)
+
+
+def write_lm_snapshot(root, config, seed=0):
+    """``config.json`` and a ``pytorch_model.bin`` of the port's seeded
+    random init in the reference key layout; returns the parameter
+    count."""
+    from vivim_tpu_torch.nn import lm
+    from vivim_tpu_torch.nn.layers import init_weights
+
+    model = init_weights(lm.MambaLM(lm.config_from_mamba_json(config)),
+                         torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), os.path.join(root, "pytorch_model.bin"))
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(config, f)
+    return sum(p.numel() for p in model.parameters())
+
+
+def lm_scan_rows(peaks, d_inner):
+    """K1 (inference variant, z and last state) against its plain version
+    at the LM prefill's shapes: batch 1, the bench's prompt and a ragged
+    one, fp32 and bf16, output and last state."""
+    from vivim_tpu_torch.kernels import refs
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for L in (LM_PROMPT, LM_RAGGED):
+        lc, grid = picked_chunk(1, L, d_inner)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(1, L, d_inner, dtype, gen)
+            run = lambda: ss.selective_scan_fwd_cuda(
+                *args[:5], D=args[5], z=args[6], delta_bias=args[7],
+                delta_softplus=True)
+            got = run()
+            torch.cuda.synchronize()
+            want, plain_ms = once_ms(lambda: refs.selective_scan_ref(
+                *args[:5], D=args[5], z=args[6], delta_bias=args[7],
+                delta_softplus=True, return_last_state=True))
+            rtol, atol = TOL[dtype]
+            for what, g, w in zip(("y", "last"), got, want):
+                torch.testing.assert_close(
+                    g.float(), w.float(), rtol=rtol, atol=atol,
+                    msg=f"K1 LM shape L={L} {dtype_name(dtype)} {what}")
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            call_ms = cuda_ms(run, 30)
+            ms = device_ms(run)
+            work = scan_work(1, L, d_inner, got[0].element_size())
+            bound_ms, bound_by, term = bound(work, peaks)
+            rows.append(dict(stage=f"lm L={L}", L=L, d=d_inner,
+                             dtype=dtype_name(dtype), l_chunk=lc, grid=grid,
+                             max_abs_err=err, ms=ms, call_ms=call_ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bound_term=term,
+                             mbytes=work[0] / 1e6))
+            print(f"K1 LM prefill {dtype_name(dtype):8s} (1, {L:3d}, "
+                  f"{d_inner}) {grid_text(lc, grid)}: y, last "
+                  f"max_abs_err={err:.3e} device_ms={ms:.4f} (one call "
+                  f"with its launch {call_ms:.4f}) plain_ms={plain_ms:.1f} "
+                  f"bound_ms={bound_ms:.5f} ({term}; {work[0] / 1e6:.2f} MB,"
+                  f" {work[2] / 1e6:.2f} M exps)", flush=True)
+    return rows
+
+
+def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
+             gen_len=LM_GEN, repeats=LM_REPEATS):
+    """The Mamba LM's serving path (phase 8): load a mamba-130m snapshot of
+    seeded random weights through ``load_lm``, run ``bench_generation``'s
+    CLI in fp32, bf16 and int8, count K1 per generate, per decode token and
+    per scoring forward, hold K1 at the LM shapes and the whole LM against
+    the plain scan, and time prefill and decode.  ``dev="cpu"`` rehearses
+    the host side at a small ``config`` (no kernel, no timing)."""
+    from vivim_tpu_torch.cli import bench_generation
+    from vivim_tpu_torch.cli.lm_eval_harness import MambaEvalCore, load_lm
+    from vivim_tpu_torch.kernels import selective_scan as ss
+    from vivim_tpu_torch.nn import lm, streaming
+    from vivim_tpu_torch.nn.quant import quantize_lm_params
+
+    on_card = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as snap:
+        n_params = write_lm_snapshot(snap, config)
+        # (a) load through the entry point, on the card
+        model, params = load_lm(None, 0, 0, 0, hf_dir=snap, device=dev)
+        cfg = model.cfg
+        want_cfg = lm.config_from_mamba_json(config)
+        if cfg != want_cfg or model.backbone.layers[0].norm.rms is not True:
+            raise AssertionError(f"loaded config {cfg}, want {want_cfg}")
+        d_inner = cfg.expand * cfg.d_model
+        print(f"lm: mamba-130m config ({cfg.n_layer} layers, d_model "
+              f"{cfg.d_model}, d_inner {d_inner}, vocab {cfg.vocab_size} -> "
+              f"{cfg.padded_vocab}, RMSNorm, fp32 residual), "
+              f"{n_params / 1e6:.2f} M parameters of seeded random weights, "
+              f"snapshot written and loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (b) the CLI at its defaults, each dtype; the main path's count
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        bench = {}
+        reset_counts()
+        for dtype in LM_DTYPES:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                bench_generation.main([
+                    "--hf_dir", snap, "--dtype", dtype, "--device", dev,
+                    "--promptlen", str(prompt), "--genlen", str(gen_len),
+                    "--repeats", str(repeats)])
+            line = buf.getvalue().strip().splitlines()[-1]
+            bench[dtype] = json.loads(line)
+            print(f"lm bench_generation --dtype {dtype}: {line}", flush=True)
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+    per_gen = cfg.n_layer
+    want = {"K1 inference": len(LM_DTYPES) * (repeats + 1) * per_gen,
+            "K1 training": 0, "K2": 0}
+    if on_card and launched != want:
+        raise AssertionError(f"bench_generation launched {launched}, "
+                             f"expected {want}")
+    for dtype, r in bench.items():
+        if r["gen_len"] != gen_len or r["prompt_len"] != prompt \
+                or not r["tokens_per_sec"] > 0:
+            raise AssertionError(f"bench line {dtype}: {r}")
+    print(f"lm: bench launches {launched} ({per_gen} K1 per generate), "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+
+    # (c) K1 per generate, per decode token and per scoring forward
+    dev_ = next(model.parameters()).device
+    g = torch.Generator(device=dev_).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                         device=dev_)
+    q8 = quantize_lm_params(params, activation_dtype=torch.bfloat16)
+    step_launches = []
+
+    def counting_step(mp, x, cs, ssm):
+        c0 = ss.LAUNCHES
+        out = streaming.mamba_step(mp, x, cs, ssm)
+        step_launches.append(ss.LAUNCHES - c0)
+        return out
+
+    reset_counts()
+    lm.generate(model, params, toks, 16, top_k=1, mixer_step=counting_step,
+                generator=torch.Generator(device=dev_).manual_seed(1))
+    per = {"generate": counts()["K1 inference"]}
+    if len(step_launches) != 16 * cfg.n_layer or any(step_launches):
+        raise AssertionError(f"decode steps launched {sum(step_launches)} "
+                             f"K1 over {len(step_launches)} mixer steps")
+    text = "".join(chr(97 + i % 26) for i in range(prompt))
+    for name, p in (("score fp32", params), ("score int8", q8)):
+        core = MambaEvalCore(model, p, CharTokenizer(cfg.vocab_size))
+        reset_counts()
+        ll, _ = core.loglikelihood_pair(text[:prompt - 28], text[-28:])
+        per[name] = counts()["K1 inference"]
+        if not math.isfinite(ll):
+            raise AssertionError(f"{name}: loglikelihood {ll}")
+    if on_card and any(v != per_gen for v in per.values()):
+        raise AssertionError(f"K1 launches {per}; expected {per_gen} per "
+                             "generate and per scoring forward")
+    print(f"lm: K1 launches per generate / fp32 / int8 scoring forward "
+          f"{per}, 0 in {len(step_launches)} decode mixer steps", flush=True)
+
+    # (d) K1 against its plain version at the LM shapes
+    rows = lm_scan_rows(peaks, d_inner) if on_card else []
+
+    # (e) end to end against the same model on the plain scan (fp32)
+    ref_model = lm.MambaLM(cfg, scan_implementation="ref")
+    ref_model.load_state_dict(model.state_dict())
+    ref_model = ref_model.to(dev_).eval()
+    ref_params = lm.lm_params(ref_model)
+    with torch.no_grad():
+        got = lm.prefill(lm.split_params(model, params), toks)[0]
+        want_l = lm.prefill(lm.split_params(ref_model, ref_params), toks)[0]
+    logit_err = (got - want_l).abs().max().item()
+    torch.testing.assert_close(got, want_l, rtol=0, atol=1e-3)
+    plain_toks, plain_scores = lm.generate(
+        ref_model, ref_params, toks, LM_E2E_GEN, temperature=0.0,
+        output_scores=True)
+    tf_toks, tf_scores = lm.generate(
+        model, params, toks, LM_E2E_GEN, temperature=0.0,
+        teacher_outputs=plain_toks, output_scores=True)
+    if not torch.equal(tf_toks, plain_toks):
+        raise AssertionError("teacher-forced tokens differ from the teacher")
+    score_err = (tf_scores - plain_scores).abs().max().item()
+    torch.testing.assert_close(tf_scores, plain_scores, rtol=0, atol=1e-3)
+    agree = (tf_scores.argmax(-1) == plain_toks[:, prompt:]).float().mean()
+    print(f"lm: prefill last logits vs the plain scan max_abs_err="
+          f"{logit_err:.3e} (atol 1e-3; |logits| max "
+          f"{want_l.abs().max().item():.3f}); {LM_E2E_GEN} teacher-forced "
+          f"tokens: scores max_abs_err={score_err:.3e} (atol 1e-3), argmax "
+          f"equal to the plain run's greedy token at "
+          f"{100 * agree.item():.1f} %", flush=True)
+    del ref_model, ref_params
+
+    # (f) prefill ms, decode ms per token, kernels per token, busy share
+    timing = {}
+    variants = {"float32": params,
+                "bfloat16": {k: v.to(torch.bfloat16) for k, v in
+                             params.items()},
+                "int8": q8}
+    for dtype, p in variants.items():
+        parts = lm.split_params(model, p)
+        with torch.no_grad():
+            _, cs, ssm = lm.prefill(parts, toks)
+            tok = toks[:, -1]
+
+            def step():
+                lm.decode_step(parts, tok, cs, ssm)
+
+            if on_card:
+                prefill_ms = cuda_ms(lambda: lm.prefill(parts, toks), 5)
+                decode_ms = cuda_ms(
+                    lambda: [step() for _ in range(LM_DECODE_STEPS)],
+                    3) / LM_DECODE_STEPS
+                prof = phase_profile(f"lm decode step {dtype}", step,
+                                     n_runs=5)
+            else:
+                step()
+                prefill_ms = decode_ms = prof = None
+        timing[dtype] = dict(prefill_ms=prefill_ms,
+                             decode_ms_per_token=decode_ms, profile=prof)
+        if on_card:
+            print(f"lm {dtype}: prefill {prefill_ms:.3f} ms (1, {prompt}); "
+                  f"decode {decode_ms:.3f} ms per token ("
+                  f"{1e3 / decode_ms:.1f} tokens/s, CUDA events over "
+                  f"{LM_DECODE_STEPS} steps); "
+                  + (f"{prof['kernels']} kernels per token, device busy "
+                     f"{100 * prof['busy_share']:.1f} % of a step"
+                     if prof else "no profile"), flush=True)
+    print(f"lm: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched, dict(bench=bench, per_call_launches=per,
+                          prefill_logits_err=logit_err,
+                          teacher_scores_err=score_err, timing=timing,
+                          peak_gib=peak / 2**30, scan_rows=rows)
+
+
+def _kernel_entry(name, source, replaces, launches, rows, per,
+                  weight=LAYERS_PER_STAGE, timed=None, **extra):
+    """The kernels line's entry: times summed over the fp32 rows of
+    ``timed`` (default: every timed row), ``weight`` launches each."""
+    fp32 = [r for r in (rows if timed is None else timed)
+            if r["dtype"] == "float32" and "ms" in r]
+    by_term = {}  # bound ms by binding term, over the shapes
     for r in fp32:
         by_term[r["bound_term"]] = (by_term.get(r["bound_term"], 0.0)
-                                    + LAYERS_PER_STAGE * r["bound_ms"])
+                                    + weight * r["bound_ms"])
     term = max(by_term, key=by_term.get)
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -1575,10 +1866,10 @@ def _kernel_entry(name, source, replaces, launches, rows, per, **extra):
         max_abs_err=max(r["max_abs_err"] for r in rows
                         if r["dtype"] == "float32"),
         per=per,
-        ms=sum(LAYERS_PER_STAGE * r["ms"] for r in fp32),
-        call_ms=sum(LAYERS_PER_STAGE * r["call_ms"] for r in fp32),
-        plain_ms=sum(LAYERS_PER_STAGE * r["plain_ms"] for r in fp32),
-        bound_ms=sum(LAYERS_PER_STAGE * r["bound_ms"] for r in fp32),
+        ms=sum(weight * r["ms"] for r in fp32),
+        call_ms=sum(weight * r["call_ms"] for r in fp32),
+        plain_ms=sum(weight * r["plain_ms"] for r in fp32),
+        bound_ms=sum(weight * r["bound_ms"] for r in fp32),
         bound_by="bytes" if term == "bytes" else "operations",
         bound_term=term, library_ms=None, ok=True, shapes=rows, **extra)
 
@@ -1636,9 +1927,12 @@ def main():
     t0 = done("6 train CLI", t0)
     binary_launched, binary_perf = phase_binary()
     t0 = done("7 binary and edge training", t0)
+    lm_launched, lm_perf = phase_lm(peaks)
+    t0 = done("8 LM serving", t0)
 
     paths = {"serve": serve_launched, "train": train_launched,
-             "train_cli": cli_launched, "binary_edge": binary_launched}
+             "train_cli": cli_launched, "binary_edge": binary_launched,
+             "lm": lm_launched}
     total = {k: sum(p[k] for p in paths.values())
              for k in ("K1 inference", "K1 training", "K2")}
     k1 = _kernel_entry(
@@ -1649,6 +1943,16 @@ def main():
         f"serving forward: {LAYERS_PER_STAGE} inference launches at each "
         f"stage shape (scan batch 3), fp32, {TIMING}",
         launches_by_path=paths,
+        lm_prefill=_kernel_entry(
+            "selective_scan_fwd (LM prefill)",
+            "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
+            f"{JAX_PACKAGE}/kernels/selective_scan.py:174",
+            lm_launched["K1 inference"], lm_perf["scan_rows"],
+            f"LM prefill: one inference launch per layer at (1, "
+            f"{LM_PROMPT}, {2 * LM_CONFIG['d_model']}), "
+            f"{LM_CONFIG['n_layer']} per generate, fp32, {TIMING}",
+            weight=LM_CONFIG["n_layer"],
+            timed=[r for r in lm_perf["scan_rows"] if r["L"] == LM_PROMPT]),
         training_variant=_kernel_entry(
             "selective_scan_fwd (training variant)",
             "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
@@ -1665,8 +1969,10 @@ def main():
         f"(scan batch {TRAIN_SCAN_BATCH}), fp32, {TIMING}",
         ragged_max_abs_err=ragged_err, launches_by_path=paths)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    lm_summary = {k: v for k, v in lm_perf.items() if k != "scan_rows"}
     print(json.dumps({"kernels": [k1, k2], "train": train_perf,
-                      "train_cli": cli_perf, "binary_edge": binary_perf}))
+                      "train_cli": cli_perf, "binary_edge": binary_perf,
+                      "lm": lm_summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

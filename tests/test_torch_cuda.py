@@ -372,3 +372,51 @@ def test_backward_kernel_in_a_cuda_graph(cuda):
     names = ("ddelta", "du", "dB", "dC", "dA", "dD", "dbias", "dh0")
     for name, g, w in zip(names, got, want):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=2e-3, msg=name)
+
+
+@pytest.mark.parametrize("m", [1, 5, 17, 37])
+def test_int8_product_is_exact_on_the_card(cuda, m):
+    """``quant.int_mm`` pads the rows for cuBLASLt's int8 route and gives
+    the exact int32 product at every row count the LM uses."""
+    from vivim_tpu_torch.nn import quant
+
+    g = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randint(-127, 128, (m, 64), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (48, 64), generator=g, device=cuda,
+                      dtype=torch.int8)
+    want = (a.cpu().long() @ b.cpu().long().t())
+    assert torch.equal(quant.int_mm(a, b).cpu().long(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_tiny_lm_generate_on_the_card_vs_the_cpu(cuda, dtype):
+    """A 2-layer LM: K1 once per layer in the prefill and never in the
+    decode steps; teacher-forced scores equal the CPU's (plain versions) at
+    the model-logits tolerance (int8: the bf16 tolerance)."""
+    from vivim_tpu_torch.nn import lm, quant
+    from vivim_tpu_torch.nn.layers import init_weights
+
+    model = init_weights(lm.MambaLM(lm.MambaLMConfig(
+        vocab_size=50, d_model=32, n_layer=2, rms_norm=True,
+        residual_in_fp32=True)), torch.Generator().manual_seed(0)).eval()
+    params = lm.lm_params(model)
+    if dtype == "int8":
+        params = quant.quantize_lm_params(params,
+                                          activation_dtype=torch.bfloat16)
+    toks = torch.randint(0, 50, (1, 37), generator=torch.Generator()
+                         .manual_seed(1))
+    want_toks, want = lm.generate(model, params, toks, 8, temperature=0.0,
+                                  output_scores=True)
+    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                   if quant.is_qtensor(v) else v.to(cuda))
+               for k, v in params.items()}
+    ss.LAUNCHES = 0
+    got_toks, got = lm.generate(model.to(cuda), on_card, toks.to(cuda), 8,
+                                temperature=0.0,
+                                teacher_outputs=want_toks.to(cuda),
+                                output_scores=True)
+    assert ss.LAUNCHES == 2
+    rtol, atol = (0, 1e-3) if dtype == "float32" else TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=rtol,
+                               atol=atol)

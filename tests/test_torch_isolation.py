@@ -80,6 +80,17 @@ def test_entry_points_need_cuda_by_default(tmp_path):
     for cli in (train_folds, train_final, train_binary, train_polyp):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["-data_path", str(tmp_path), "-segformer", "tiny"])
+    from vivim_tpu_torch.cli import bench_generation, lm_eval_harness
+
+    tiny = ["--vocab", "50", "--d_model", "16", "--n_layer", "1",
+            "--promptlen", "3", "--genlen", "2", "--repeats", "1"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_generation.main(tiny)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_eval_harness.load_lm(None, 50, 16, 1)
+    bench_generation.main(tiny + ["--device", "cpu"])
+    model, _ = lm_eval_harness.load_lm(None, 50, 16, 1, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def test_trainer_needs_cuda_by_default(tmp_path):

@@ -1,0 +1,133 @@
+"""LM generation latency benchmark.
+
+Port of the JAX package's ``cli/bench_generation.py`` (the reference's
+benchmarks/benchmark_generation_mamba_simple.py:17-90): times the prompt's
+prefill and the token decode of a MambaLM and prints one JSON line with
+tokens/s.  It runs a real checkpoint (``--hf_dir`` local snapshot,
+``--ckpt``) or random weights from a seed, and a real ``--prompt`` through a
+tokenizer, printing the decoded continuation.
+
+Usage (on the card unless ``--device cpu``):
+  python -m vivim_tpu_torch.cli.bench_generation --d_model 768 --n_layer 24 \\
+      --promptlen 128 --genlen 128
+  python -m vivim_tpu_torch.cli.bench_generation --hf_dir /path/snapshot \\
+      --prompt "My cat wrote all this CUDA code for a new language model" \\
+      --tokenizer EleutherAI/gpt-neox-20b
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--vocab", type=int, default=50277)
+    p.add_argument("--d_model", type=int, default=768)
+    p.add_argument("--n_layer", type=int, default=24)
+    p.add_argument("--hf_dir", type=str, default=None,
+                   help="local HF mamba snapshot dir (config.json + "
+                        "pytorch_model.bin); overrides the dim flags")
+    p.add_argument("--hf_repo", type=str, default=None,
+                   help="HF hub repo id (e.g. state-spaces/mamba-130m); "
+                        "downloads the snapshot (needs network)")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="torch state-dict checkpoint (HF mamba layout)")
+    p.add_argument("--prompt", type=str, default=None,
+                   help="text prompt; needs --tokenizer, prints the decoded "
+                        "continuation")
+    p.add_argument("--tokenizer", type=str, default=None,
+                   help="HF tokenizer name/path for --prompt")
+    p.add_argument("--promptlen", type=int, default=128)
+    p.add_argument("--genlen", type=int, default=128)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--topk", type=int, default=1)
+    p.add_argument("--topp", type=float, default=1.0)
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--tp_shards", type=int, default=1,
+                   help="tensor-parallel decode: not ported (ROADMAP M12)")
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16", "int8"],
+                   help="weights and activations of the decode: bfloat16 "
+                        "casts every floating tensor; int8 quantizes the "
+                        "in / out projections and the tied embedding per "
+                        "output channel (nn/quant.py), with per-row int8 "
+                        "activations at those products and bf16 elsewhere. "
+                        "The SSM state and its recurrence stay fp32 in "
+                        "every mode")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (cuda by default; cpu runs the "
+                        "kernels' plain versions)")
+    args = p.parse_args(argv)
+    if args.tp_shards > 1:
+        raise SystemExit(f"not ported yet: --tp_shards {args.tp_shards} "
+                         "(ROADMAP M12)")
+
+    from vivim_tpu_torch.cli.lm_eval_harness import load_lm
+    from vivim_tpu_torch.nn.lm import generate
+
+    model, params = load_lm(args.ckpt, args.vocab, args.d_model,
+                            args.n_layer, hf_dir=args.hf_dir,
+                            hf_repo=args.hf_repo, device=args.device)
+    dev = next(model.parameters()).device
+    if args.dtype == "bfloat16":
+        params = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                  for k, v in params.items()}
+    elif args.dtype == "int8":
+        from vivim_tpu_torch.nn.quant import quantize_lm_params
+
+        # quantized from the fp32 weights (the scales stay fp32); the other
+        # tensors become bf16 in the same walk
+        params = quantize_lm_params(params, activation_dtype=torch.bfloat16)
+
+    tokenizer = None
+    if args.prompt is not None:
+        if args.tokenizer is None:
+            raise SystemExit("--prompt needs --tokenizer")
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+        ids = tokenizer.encode(args.prompt)
+        tokens = torch.tensor([ids] * args.batch, dtype=torch.long,
+                              device=dev)
+    else:
+        tokens = torch.ones(args.batch, args.promptlen, dtype=torch.long,
+                            device=dev)
+
+    def gen():
+        return generate(model, params, tokens, args.genlen,
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        temperature=args.temperature, top_k=args.topk,
+                        top_p=args.topp)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = gen()  # warm-up: the kernels' build and first launches
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(args.repeats):
+        out = gen()
+    sync()
+    dt = (time.perf_counter() - t0) / args.repeats
+    print(json.dumps({
+        "prompt_len": int(tokens.shape[1]),
+        "gen_len": args.genlen,
+        "batch": args.batch,
+        "total_sec": round(dt, 4),
+        "tokens_per_sec": round(args.batch * args.genlen / dt, 2),
+        "dtype": args.dtype,
+    }))
+    if tokenizer is not None:
+        print(tokenizer.batch_decode(out.tolist())[0])
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,8 @@ take the JAX package's variables (as numpy arrays) to that layout; they are
 the inverse of the JAX package's ``vivim_params_from_torch`` /
 ``mamba_params_from_torch`` (flax Dense kernels (in, out) -> torch (out,
 in); conv kernels HWIO -> OIHW, DHWIO -> OIDHW; LayerNorm scale -> weight).
+``mamba_lm_state_dict_from_jax`` does the same for the Mamba LM, the inverse
+of the JAX package's ``mamba_lm_params_from_torch``.
 """
 
 from __future__ import annotations
@@ -41,8 +43,11 @@ def _conv3d(sd, prefix, p):
 
 
 def _ln(sd, prefix, p):
+    """LayerNorm {scale, bias} -> {weight, bias}; an RMSNorm {scale} ->
+    {weight}."""
     sd[f"{prefix}.weight"] = _t(p["scale"])
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def mamba_state_dict_from_jax(params, prefix=""):
@@ -67,6 +72,22 @@ def mamba_state_dict_from_jax(params, prefix=""):
         sd[f"{pre}dt_proj{s}.bias"] = _t(params[f"dt_proj{s}_bias"])
         sd[f"{pre}A{s}_log"] = _t(params[f"A{s}_log"])
         sd[f"{pre}D{s}"] = _t(params[f"D{s}"])
+    return sd
+
+
+def mamba_lm_state_dict_from_jax(params, n_layer):
+    """JAX ``MambaLM`` params -> the reference ``MambaLMHeadModel`` keys
+    (``nn.lm.MambaLM``'s): the embedding, per layer the mixer and its norm
+    (LayerNorm or RMSNorm), ``norm_f``, and ``lm_head.weight`` tied to the
+    embedding (the same tensor)."""
+    p = params.get("params", params)
+    sd = {"backbone.embedding.weight": _t(p["embedding"])}
+    for i in range(n_layer):
+        sd.update(mamba_state_dict_from_jax(p[f"mixer_{i}"],
+                                            f"backbone.layers.{i}.mixer"))
+        _ln(sd, f"backbone.layers.{i}.norm", p[f"norm_{i}"])
+    _ln(sd, "backbone.norm_f", p["norm_f"])
+    sd["lm_head.weight"] = sd["backbone.embedding.weight"]
     return sd
 
 

@@ -18,7 +18,11 @@ CUDA kernels; on the GPU they are what the kernels are held against.
 - ``selective_scan_bwd_segmented_ref``: the backward kernel's
   segment-parallel passes (local reverse walks from zero, the reverse
   carry, the per-segment walk, the sums over segments), for the tests.
+- ``selective_scan_ref_cm``: the same scan, channel-major ``(batch, dim,
+  L)``, with the reference's signature.
 - ``causal_conv1d_ref``: depthwise causal conv of width 2-4, optional SiLU.
+- ``causal_conv1d_update_ref`` / ``selective_state_update_ref``: one decode
+  step of the conv window and of the SSM state (the streaming LM's step).
 - ``mamba_inner_ref``: conv1d -> x_proj -> (dt, B, C) split -> dt_proj ->
   selective scan (z-gated), optionally + out_proj.
 
@@ -110,6 +114,22 @@ def selective_scan_ref(
         out = out * F.silu(z.float())
     out = out.to(dtype_in)
     return (out, h) if return_last_state else out
+
+
+def selective_scan_ref_cm(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                          delta_softplus=False, return_last_state=False):
+    """Channel-major ``(batch, dim, L)`` wrapper of ``selective_scan_ref``
+    with the reference signature (selective_scan_interface.py:86-152):
+    B / C are (batch, dstate, L), or (dim, dstate) constant."""
+    tm = lambda x: x.transpose(1, 2) if x is not None else None
+    out = selective_scan_ref(
+        tm(u), tm(delta), A, tm(B) if B.dim() == 3 else B,
+        tm(C) if C.dim() == 3 else C, D, tm(z), delta_bias, delta_softplus,
+        return_last_state)
+    if return_last_state:
+        y, last = out
+        return tm(y), last
+    return tm(out)
 
 
 def _param(p, batch, shared_ndim):
@@ -402,6 +422,55 @@ def causal_conv1d_ref(x, weight, bias=None, activation=None):
     if activation is not None:
         out = F.silu(out)
     return out.to(dtype_in)
+
+
+def causal_conv1d_update_ref(x, conv_state, weight, bias=None,
+                             activation=None):
+    """One streaming step of the depthwise causal conv: roll the window,
+    append x, dot it with the weight (causal_conv1d_interface.py:83-105).
+    The sum runs in the weight's dtype, as ``causal_conv1d_ref`` does.
+
+    x: (batch, dim); conv_state: (batch, width, dim); weight: (width, dim).
+    Returns (out (batch, dim) in x.dtype, new_conv_state (batch, width,
+    dim)).
+    """
+    if activation not in (None, "silu", "swish"):
+        raise NotImplementedError("activation must be None, silu, or swish")
+    conv_state = torch.cat([conv_state[:, 1:], x[:, None]], dim=1)
+    out = (conv_state * weight).sum(1)
+    if bias is not None:
+        out = out + bias
+    if activation is not None:
+        out = F.silu(out)
+    return out.to(x.dtype), conv_state
+
+
+def selective_state_update_ref(state, x, dt, A, B, C, D=None, z=None,
+                               dt_bias=None, dt_softplus=False):
+    """One token of the SSM recurrence, in fp32
+    (ops/triton/selective_state_update.py:157-192):
+    ``state' = state * exp(dt*A) + dt*B*x``, ``out = C . state' + D*x``,
+    ``out * silu(z)``.
+
+    state: (batch, dim, dstate); x, dt, z: (batch, dim); A: (dim, dstate);
+    B, C: (batch, dstate); D, dt_bias: (dim,).  Returns (out (batch, dim)
+    in x.dtype, new_state in state.dtype).
+    """
+    dt = dt.float()
+    if dt_bias is not None:
+        dt = dt + dt_bias.float()
+    if dt_softplus:
+        dt = F.softplus(dt)
+    xf = x.float()
+    dA = torch.exp(dt[:, :, None] * A.float())
+    dB = dt[:, :, None] * B.float()[:, None, :]
+    new_state = state.float() * dA + dB * xf[:, :, None]
+    out = (new_state * C.float()[:, None, :]).sum(-1)
+    if D is not None:
+        out = out + D.float() * xf
+    if z is not None:
+        out = out * F.silu(z.float())
+    return out.to(x.dtype), new_state.to(state.dtype)
 
 
 def mamba_inner_ref(

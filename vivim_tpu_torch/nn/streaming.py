@@ -1,0 +1,106 @@
+"""Streaming (token by token) Mamba recurrence: the LM's decode path.
+
+Port of the JAX package's ``nn/streaming.py`` (the reference's
+``Mamba.step`` / ``allocate_inference_cache``, mamba_simple.py:356-414): a
+functional one-token step over a carried ``(conv_state, ssm_state)``, and a
+prefill that runs the prompt through the selective-scan kernel (K1 on the
+card) and hands its last state to the step.
+
+Every function takes one forward-direction mixer's parameters as a flat
+dict under the reference Mamba's names (``in_proj.weight``,
+``conv1d.weight`` (d_inner, 1, width), ``conv1d.bias``, ``x_proj.weight``,
+``dt_proj.weight``, ``dt_proj.bias``, ``A_log``, ``D``,
+``out_proj.weight``); ``in_proj.weight`` / ``out_proj.weight`` may be int8
+QTensors (``nn.quant``).  Activations are time-major.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vivim_tpu_torch.kernels.causal_conv1d import (
+    causal_conv1d,
+    causal_conv1d_update,
+)
+from vivim_tpu_torch.kernels.refs import selective_state_update_ref
+from vivim_tpu_torch.kernels.selective_scan import selective_scan
+from vivim_tpu_torch.nn.quant import matmul_t
+
+
+def allocate_cache(batch: int, d_model: int, d_state: int = 16,
+                   d_conv: int = 4, expand: int = 2, dtype=torch.float32,
+                   device=None):
+    """(conv_state (B, W, d_inner), ssm_state (B, d_inner, N) fp32) of
+    zeros."""
+    d_inner = expand * d_model
+    return (torch.zeros(batch, d_conv, d_inner, dtype=dtype, device=device),
+            torch.zeros(batch, d_inner, d_state, dtype=torch.float32,
+                        device=device))
+
+
+def _split_proj(params, x):
+    xz = matmul_t(x, params["in_proj.weight"])
+    if "in_proj.bias" in params:
+        xz = xz + params["in_proj.bias"]
+    d_inner = xz.shape[-1] // 2
+    return xz[..., :d_inner], xz[..., d_inner:]
+
+
+def _out_proj(params, y):
+    out = matmul_t(y, params["out_proj.weight"])
+    if "out_proj.bias" in params:
+        out = out + params["out_proj.bias"]
+    return out
+
+
+def _ssm_params(params):
+    """(conv weight (width, d_inner), dt_rank, d_state, A fp32)."""
+    conv_w = params["conv1d.weight"][:, 0, :].t()
+    dt_rank = params["dt_proj.weight"].shape[1]
+    n = params["A_log"].shape[1]
+    return conv_w, dt_rank, n, -torch.exp(params["A_log"].float())
+
+
+def mamba_step(params, x, conv_state, ssm_state):
+    """One decode step (mamba_simple.py:356-401).
+
+    x: (B, d_model) token activations; conv_state: (B, W, d_inner);
+    ssm_state: (B, d_inner, N).  Returns (out (B, d_model), new conv_state,
+    new ssm_state).
+    """
+    xw, z = _split_proj(params, x)
+    conv_w, dt_rank, n, A = _ssm_params(params)
+    xw, conv_state = causal_conv1d_update(
+        xw, conv_state, conv_w, params.get("conv1d.bias"), "silu")
+    x_dbl = xw @ params["x_proj.weight"].t().to(xw.dtype)
+    dt = x_dbl[..., :dt_rank] @ params["dt_proj.weight"].t().to(xw.dtype)
+    y, ssm_state = selective_state_update_ref(
+        ssm_state, xw, dt, A, x_dbl[..., dt_rank:dt_rank + n],
+        x_dbl[..., dt_rank + n:], D=params["D"].float(), z=z,
+        dt_bias=params["dt_proj.bias"].float(), dt_softplus=True)
+    return _out_proj(params, y), conv_state, ssm_state
+
+
+def mamba_prefill(params, x, implementation=None):
+    """The prompt's full forward, emitting the states for ``mamba_step``.
+
+    x: (B, L, d_model).  Returns (out (B, L, d_model), conv_state (the last
+    ``width`` pre-conv inputs, left-padded with zeros), ssm_state (fp32, the
+    scan's last state)), so that stepping on from them equals the full
+    forward over the longer sequence.  The scan is K1 on the card, with z
+    gated in the kernel.
+    """
+    xw, z = _split_proj(params, x)
+    conv_w, dt_rank, n, A = _ssm_params(params)
+    width = conv_w.shape[0]
+    pad = torch.nn.functional.pad(xw, (0, 0, max(width - x.shape[1], 0), 0))
+    conv_state = pad[:, -width:].contiguous()
+    xc = causal_conv1d(xw, conv_w, params.get("conv1d.bias"), "silu")
+    x_dbl = xc @ params["x_proj.weight"].t().to(xc.dtype)
+    delta = x_dbl[..., :dt_rank] @ params["dt_proj.weight"].t().to(xc.dtype)
+    y, ssm_state = selective_scan(
+        xc, delta, A, x_dbl[..., dt_rank:dt_rank + n],
+        x_dbl[..., dt_rank + n:], D=params["D"].float(), z=z,
+        delta_bias=params["dt_proj.bias"].float(), delta_softplus=True,
+        return_last_state=True, implementation=implementation)
+    return _out_proj(params, y), conv_state, ssm_state

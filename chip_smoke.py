@@ -95,7 +95,25 @@ Phases, each of which raises on failure (exit code != 0):
    tokens) within 1e-3 of the same model on the plain scan; (f) prefill
    ms, decode ms per token (CUDA events), kernels per token and the
    device's busy share of a decode step (torch.profiler), peak memory;
-9. print the kernels line, the card line and, last, the device line.
+9. remat, a trainer checkpoint into the infer CLI, and the host tools:
+   (a) MiT-b3 Vivim built by the training CLIs' ``build_model`` at each
+   ``-remat`` level (none, pre_scan, blocks; dropouts and drop-path on at
+   the CLIs' defaults, tanh GELU, fp32), ``REMAT_STEPS`` ``make_train_step``
+   steps of batch 3 from one state and generator seed: the first step's
+   loss within 1e-5 relative, every gradient within rtol 1e-3 / atol 2e-3
+   and the generator's state equal to ``none``'s; K1-training 8 / 8 / 16
+   and K2 8 / 8 / 8 launches per step (``blocks`` reruns K1-training in the
+   recompute); median step ms and peak memory per level; then ``none`` and
+   ``blocks`` at batch ``REMAT_BIG_BATCH``, where ``blocks`` must peak
+   lower; (b) ``cli.infer.main`` on phase 6's fold-0 checkpoint directory
+   (best before last) over fold 0's raw validation case with ``--gathered
+   false`` and ``-cv_group``: ``metrics.json`` holds the run's confusion
+   matrix, 8 inference K1 launches per forward, fps and per-batch ms; (c)
+   ``cli.bench_loader.main --per_stage`` over phase 6's gathered tree
+   (4 threads, one epoch after the warm-up), beside phase 6's loader rate,
+   and a ``Trainer.fit`` with ``profile_dir``, which must write one trace
+   holding the selective-scan kernels;
+10. print the kernels line, the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3b (a
@@ -176,6 +194,12 @@ LM_RAGGED = 37
 LM_DTYPES = ("float32", "bfloat16", "int8")
 LM_E2E_GEN = 32
 LM_DECODE_STEPS = 16
+# phase 9: make_train_step steps per remat level at the training batch (the
+# first checked against none's, the median over the rest), and at the
+# larger batch where the memory remat saves shows
+REMAT_STEPS = 4
+REMAT_BIG_BATCH = 12
+REMAT_BIG_STEPS = 3
 
 
 def nvidia_smi(query):
@@ -1281,9 +1305,13 @@ def time_loader(argv, root, threads, n_batches=None):
 
 
 def phase_train_cli(dev="cuda", segformer="b3", size=256, clip_len=5,
-                    batch=TRAIN_BATCH, source=CLI_SOURCE, fp32_ref_ms=None):
+                    batch=TRAIN_BATCH, source=CLI_SOURCE, fp32_ref_ms=None,
+                    workdir=None):
     """train_folds (fp32, 2 folds) and train_final (bf16) from a PNG tree,
-    through the port's CLI entry points."""
+    through the port's CLI entry points.  With ``workdir`` the trees and
+    runs stay there for phase 9: ``raw/`` (the raw tree), ``folds/``,
+    ``gathered/`` (fold 0's training cases) and ``runs/smoke/fold_<f>/``,
+    ``runs/smoke/final/``."""
     from vivim_tpu_torch import native
     from vivim_tpu_torch.cli import train_final, train_folds
     from vivim_tpu_torch.data.gather import gather_multiclass_frames
@@ -1300,7 +1328,8 @@ def phase_train_cli(dev="cuda", segformer="b3", size=256, clip_len=5,
               "-augment_intensity", "medium", "-num_workers", "4",
               "-device", str(dev), "-exp_name", "smoke"]
     runs = []
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(workdir) if workdir
+          else tempfile.TemporaryDirectory()) as tmp:
         t0 = time.perf_counter()
         raw, folds = os.path.join(tmp, "raw"), os.path.join(tmp, "folds")
         write_png_tree(raw, size=source)
@@ -1849,6 +1878,228 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
                           peak_gib=peak / 2**30, scan_rows=rows)
 
 
+def remat_run(level, batches, dev, segformer="b3", check=None):
+    """``make_train_step`` steps of the CLI-built model at ``-remat level``
+    (random weights from seed 0, the training CLIs' defaults: dropouts on,
+    tanh GELU; fp32) from one state and generator seed over ``batches``.
+    ``check(loss, grads, generator state)`` sees the first step.  Returns
+    the step log (ms, launches, (None, metrics)) and the peak GiB."""
+    from vivim_tpu_torch.cli.args import build_train_parser
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.train import loop
+
+    args = build_train_parser().parse_args(
+        ["-segformer", segformer, "-remat", level])
+    model, _ = build_model(args, device=dev, seed=0)
+    state = loop.create_train_state(model, 1e-4, 1e-2, len(batches), seed=1)
+    log = []
+    run = _recorded(loop.make_train_step(model, "recall_focused", 3), log,
+                    dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        _, m = run(state, {k: torch.from_numpy(v).to(dev)
+                           for k, v in b.items()})
+        if i == 0 and check is not None:
+            check(float(m["loss"]), {n: p.grad for n, p in
+                                     model.named_parameters()
+                                     if p.grad is not None},
+                  state.generator.get_state())
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    for _, _, (_, m) in log:
+        for k in ("loss", "grad_norm"):
+            if not math.isfinite(float(m[k])):
+                raise AssertionError(f"remat {level} {k} {float(m[k])}")
+    return [(ms, n, (None, m)) for ms, n, (_, m) in log], peak
+
+
+def phase_remat(dev="cuda", segformer="b3", size=256, clip_len=5,
+                batch=TRAIN_BATCH, n_steps=REMAT_STEPS,
+                big_batch=REMAT_BIG_BATCH, n_big=REMAT_BIG_STEPS):
+    """(a) of phase 9: one step at each remat level from one state and
+    generator seed, held against ``none``'s; the launches per step; median
+    step ms and peak memory per level; then ``none`` and ``blocks`` at
+    ``big_batch``."""
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    per_pass = LAYERS_PER_STAGE * len(STAGES)
+    batches = make_requests(n_steps, clip_len, size, 3, seed=4, batch=batch)
+    ref = {}
+
+    def check(level):
+        def run(loss, grads, gen):
+            if level == "none":  # the reference, kept on the host
+                ref.update(loss=loss, gen=gen,
+                           grads={n: g.cpu() for n, g in grads.items()})
+                return
+            if abs(loss - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+                raise AssertionError(f"remat {level}: loss {loss} vs "
+                                     f"{ref['loss']} without remat")
+            if not torch.equal(gen, ref["gen"]):
+                raise AssertionError(f"remat {level}: the generator's state "
+                                     "after the step differs from none's")
+            if set(grads) != set(ref["grads"]):
+                raise AssertionError(f"remat {level}: other parameters got "
+                                     "gradients")
+            worst = 0.0
+            for n, g in grads.items():
+                g = g.cpu()
+                torch.testing.assert_close(g, ref["grads"][n], rtol=1e-3,
+                                           atol=2e-3, msg=f"{level} {n}")
+                worst = max(worst, (g - ref["grads"][n]).abs().max().item())
+            out[level]["grad_max_abs_err"] = worst
+            print(f"remat {level}: loss {loss:.7f} vs {ref['loss']:.7f} "
+                  f"(none), generator state equal, {len(grads)} gradients "
+                  f"within rtol 1e-3 / atol 2e-3 of none's, max abs err "
+                  f"{worst:.3e}", flush=True)
+        return run
+
+    out = {}
+    for level in ("none", "pre_scan", "blocks"):
+        out[level] = {}
+        log, peak = remat_run(level, batches, dev, segformer, check(level))
+        if on_card:
+            _check_launches(log, {"K1 inference": 0,
+                                  "K1 training": per_pass * (
+                                      2 if level == "blocks" else 1),
+                                  "K2": per_pass}, f"remat {level} step")
+        out[level].update(_step_summary(f"remat {level}", log, batch),
+                          peak_gib=peak, launches=log[0][1])
+        print(f"remat {level}: batch {batch}, launches per step "
+              f"{log[0][1]}, peak memory {peak:.2f} GiB", flush=True)
+    big = make_requests(n_big, clip_len, size, 3, seed=5, batch=big_batch)
+    for level in ("none", "blocks"):
+        log, peak = remat_run(level, big, dev, segformer)
+        out[f"{level} batch {big_batch}"] = dict(
+            _step_summary(f"remat {level} batch {big_batch}", log,
+                          big_batch), peak_gib=peak)
+        print(f"remat {level}: batch {big_batch}, peak memory {peak:.2f} "
+              "GiB", flush=True)
+    saved = (out[f"none batch {big_batch}"]["peak_gib"]
+             - out[f"blocks batch {big_batch}"]["peak_gib"])
+    if on_card and saved <= 0:
+        raise AssertionError(f"remat blocks at batch {big_batch} peaks no "
+                             f"lower than none: {saved:.2f} GiB saved")
+    for b in (batch, big_batch):
+        none = out["none" if b == batch else f"none batch {b}"]
+        blocks = out["blocks" if b == batch else f"blocks batch {b}"]
+        print(f"remat: batch {b}: blocks / none step ms "
+              f"{blocks['median_ms'] / none['median_ms']:.3f}, peak "
+              f"{blocks['peak_gib']:.2f} / {none['peak_gib']:.2f} GiB",
+              flush=True)
+    return out
+
+
+def phase_infer_ckpt(workdir, dev="cuda", segformer="b3", size=256,
+                     clip_len=5):
+    """(b) of phase 9: ``cli.infer.main`` on phase 6's fold-0 checkpoint
+    directory over fold 0's raw validation tree (``--gathered false``)."""
+    from vivim_tpu_torch.cli import infer
+
+    dev = torch.device(dev)
+    ckpt = os.path.join(workdir, "runs", "smoke", "fold_0", "ckpt")
+    out_dir = os.path.join(workdir, "infer")
+    returned = []
+    run_inference = infer.run_inference
+
+    def recording(*a, **kw):
+        returned.append(run_inference(*a, **kw))
+        return returned[-1]
+
+    infer.run_inference = recording
+    try:
+        reset_counts()
+        infer.main(["--ckpt", ckpt, "--data_dir",
+                    os.path.join(workdir, "folds", "fold_0", "val"),
+                    "--gathered", "false", "-cv_group", "smoke",
+                    "--segformer", segformer, "--image_size", str(size),
+                    "--clip_length", str(clip_len), "--output_dir", out_dir,
+                    "--device", str(dev)])
+        launched = counts()
+    finally:
+        infer.run_inference = run_inference
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        summary = json.load(f)
+    (_, cm, _), = returned
+    perf = summary["performance"]
+    n_batches = perf["total_frames"] // clip_len
+    if summary["confusion_matrix"] != cm.tolist():
+        raise AssertionError("metrics.json's confusion matrix is not the "
+                             "run's")
+    if int(cm.sum()) != perf["total_frames"] * size * size:
+        raise AssertionError(f"the confusion matrix counts {int(cm.sum())} "
+                             "pixels")
+    per_pass = LAYERS_PER_STAGE * len(STAGES)
+    if dev.type == "cuda" and launched != {
+            "K1 inference": per_pass * n_batches, "K1 training": 0, "K2": 0}:
+        raise AssertionError(f"{n_batches} forwards launched {launched}")
+    print(f"infer from {os.path.relpath(ckpt, workdir)} (picked "
+          f"{os.path.basename(infer.checkpoint_file(ckpt))}), --gathered "
+          f"false on fold 0's validation case: {n_batches} batches of 1, "
+          f"launches {launched}, fps {perf['fps']:.2f}, per-batch ms "
+          f"{perf['avg_batch_time'] * 1e3:.3f} avg, "
+          f"{perf['min_batch_time'] * 1e3:.3f} min, "
+          f"{perf['max_batch_time'] * 1e3:.3f} max; metrics.json holds the "
+          f"run's confusion matrix ({int(cm.sum())} pixels), dice mean "
+          f"{summary['metrics']['dice']['mean']:.4f}", flush=True)
+    return launched, dict(perf, batches=n_batches)
+
+
+def phase_tools(workdir, dev="cuda", segformer="b3", size=256, clip_len=5,
+                batch=TRAIN_BATCH, loader_ref=None):
+    """(c) of phase 9: ``cli.bench_loader.main --per_stage`` over phase 6's
+    gathered tree, and a Trainer run with ``profile_dir``."""
+    import glob
+
+    from vivim_tpu_torch.cli import bench_loader
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.train.logging import MetricLogger
+    from vivim_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device(dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_loader.main(["--data_root", os.path.join(workdir, "gathered"),
+                           "--image_size", str(size), "--clip_length",
+                           str(clip_len), "--batch_size", str(batch),
+                           "--num_workers", "4", "--epochs", "1",
+                           "--per_stage"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    loader = json.loads(line)
+    print(f"bench_loader: {line}", flush=True)
+    print(f"bench_loader: {loader['value'] / clip_len:.3f} clips/s on 4 "
+          "threads" + (f" beside phase 6's loader alone, {loader_ref:.3f} "
+                       "clips/s" if loader_ref else ""), flush=True)
+
+    model, _ = build_model(model_args(segformer), device=dev, seed=0)
+    prof_dir = os.path.join(workdir, "profile")
+    reset_counts()
+    Trainer(model, TrainerConfig(epochs=1, seed=0, device=str(dev),
+                                 profile_dir=prof_dir, profile_steps=1),
+            Requests(make_requests(3, clip_len, size, 3, seed=6,
+                                   batch=batch)),
+            [], os.path.join(workdir, "profile_ckpt"),
+            MetricLogger(os.path.join(workdir, "profile_logs"))).fit()
+    launched = counts()
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile_dir holds {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    scans = sum("selective_scan" in e.get("name", "") for e in events
+                if e.get("cat") == "kernel")
+    if dev.type == "cuda" and not scans:
+        raise AssertionError("the trace holds no selective-scan kernel")
+    print(f"profile: Trainer.fit with profile_dir wrote "
+          f"{os.path.basename(traces[0])}, "
+          f"{os.path.getsize(traces[0]) / 2**20:.1f} MiB, {len(events)} "
+          f"events, {scans} selective-scan kernel events (step 1)",
+          flush=True)
+    return launched, dict(loader=loader, trace_events=len(events),
+                          trace_scan_kernels=scans)
+
+
 def _kernel_entry(name, source, replaces, launches, rows, per,
                   weight=LAYERS_PER_STAGE, timed=None, **extra):
     """The kernels line's entry: times summed over the fp32 rows of
@@ -1922,17 +2173,30 @@ def main():
     t0 = done("5 train", t0)
     phase_train_vs_plain()
     t0 = done("5b train vs plain scan", t0)
+    # phase 6's trees and runs stay here for phase 9
+    work = tempfile.TemporaryDirectory()
     cli_launched, cli_perf = phase_train_cli(
-        fp32_ref_ms=train_perf["fp32"]["median_ms"])
+        fp32_ref_ms=train_perf["fp32"]["median_ms"], workdir=work.name)
     t0 = done("6 train CLI", t0)
     binary_launched, binary_perf = phase_binary()
     t0 = done("7 binary and edge training", t0)
     lm_launched, lm_perf = phase_lm(peaks)
     t0 = done("8 LM serving", t0)
+    with work:
+        reset_counts()
+        remat_perf = phase_remat()
+        remat_launched = counts()
+        t0 = done("9a remat", t0)
+        infer_launched, infer_perf = phase_infer_ckpt(work.name)
+        t0 = done("9b infer from a trainer checkpoint", t0)
+        tools_launched, tools_perf = phase_tools(
+            work.name, loader_ref=cli_perf["loader"]["clips_per_s"])
+        t0 = done("9c host tools", t0)
 
     paths = {"serve": serve_launched, "train": train_launched,
              "train_cli": cli_launched, "binary_edge": binary_launched,
-             "lm": lm_launched}
+             "lm": lm_launched, "remat": remat_launched,
+             "infer_ckpt": infer_launched, "profile": tools_launched}
     total = {k: sum(p[k] for p in paths.values())
              for k in ("K1 inference", "K1 training", "K2")}
     k1 = _kernel_entry(
@@ -1972,7 +2236,8 @@ def main():
     lm_summary = {k: v for k, v in lm_perf.items() if k != "scan_rows"}
     print(json.dumps({"kernels": [k1, k2], "train": train_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
-                      "lm": lm_summary}))
+                      "lm": lm_summary, "remat": remat_perf,
+                      "infer_ckpt": infer_perf, "tools": tools_perf}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -420,3 +420,73 @@ def test_tiny_lm_generate_on_the_card_vs_the_cpu(cuda, dtype):
     rtol, atol = (0, 1e-3) if dtype == "float32" else TOL[torch.bfloat16]
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+def _remat_cfg(cfg, level):
+    if level == "pre_scan":
+        return dataclasses.replace(cfg, remat_pre_scan=True)
+    if level == "blocks":
+        return dataclasses.replace(
+            cfg, remat_blocks=True,
+            segformer=dataclasses.replace(cfg.segformer, remat_layers=True))
+    return cfg
+
+
+def _tiny_step(dev, level, dropout):
+    """One train step of a tiny Vivim at remat ``level`` on ``dev``
+    (dropouts at their defaults, or 0): (metrics, grads, launches as
+    (K1, K1-training, K2), the generator's state after the step)."""
+    from vivim_tpu_torch.nn.layers import init_weights
+    from vivim_tpu_torch.nn.vivim import Vivim, VivimConfig
+    from vivim_tpu_torch.train import loop
+
+    cfg = _remat_cfg(VivimConfig.tiny_test(scan_implementation=None), level)
+    if not dropout:
+        cfg = dataclasses.replace(
+            cfg, drop_path_rate=0.0, dropout_rate=0.0,
+            segformer=dataclasses.replace(cfg.segformer, drop_path_rate=0.0,
+                                          classifier_dropout=0.0))
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 3, (2, 3, 48, 48))
+    batch = {"clip": torch.from_numpy(rng.standard_normal(
+                 (2, 3, 48, 48, 3)).astype(np.float32)).to(dev),
+             "masks": torch.from_numpy(np.eye(3, dtype=np.float32)[
+                 labels]).to(dev)}
+    model = init_weights(Vivim(cfg), torch.Generator().manual_seed(0))
+    state = loop.create_train_state(model.to(dev), 1e-3, 1e-2, 1, seed=0)
+    c0 = (ss.LAUNCHES, ss.TRAIN_LAUNCHES, ss.BWD_LAUNCHES)
+    _, m = loop.make_train_step(model)(state, batch)
+    launched = (ss.LAUNCHES - c0[0], ss.TRAIN_LAUNCHES - c0[1],
+                ss.BWD_LAUNCHES - c0[2])
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return m, grads, launched, state.generator.get_state()
+
+
+@pytest.mark.parametrize("level,launches", [
+    ("none", (0, 8, 8)), ("pre_scan", (0, 8, 8)), ("blocks", (0, 16, 8))])
+def test_tiny_remat_step_on_the_card_vs_the_cpu(cuda, level, launches):
+    """A remat step through the kernels (``blocks`` reruns K1-training in
+    the recompute) against the same step on the CPU, dropouts at 0 (the
+    card's and the CPU's random streams differ): loss within 1e-5
+    relative, every gradient within rtol 1e-3 / atol 2e-3."""
+    m_k, g_k, launched, _ = _tiny_step(cuda, level, dropout=False)
+    assert launched == launches
+    m_c, g_c, _, _ = _tiny_step(torch.device("cpu"), level, dropout=False)
+    torch.testing.assert_close(m_k["loss"].cpu(), m_c["loss"], rtol=1e-5,
+                               atol=0)
+    assert set(g_k) == set(g_c) and len(g_k) > 300
+    for n, g in g_k.items():
+        torch.testing.assert_close(g, g_c[n], rtol=1e-3, atol=2e-3, msg=n)
+
+
+@pytest.mark.parametrize("level", ["pre_scan", "blocks"])
+def test_tiny_remat_step_keeps_the_card_generator(cuda, level):
+    """Dropouts on, one seed: a remat step on the card gives the loss, the
+    gradients and the generator state of the step without remat."""
+    m_r, g_r, _, gen_r = _tiny_step(cuda, level, dropout=True)
+    m_n, g_n, _, gen_n = _tiny_step(cuda, "none", dropout=True)
+    assert torch.equal(gen_r, gen_n)
+    torch.testing.assert_close(m_r["loss"], m_n["loss"], rtol=1e-5, atol=0)
+    for n, g in g_r.items():
+        torch.testing.assert_close(g, g_n[n], rtol=1e-3, atol=2e-3, msg=n)

@@ -1,9 +1,9 @@
 """The port's training CLIs against the JAX package's: the same flags and
 defaults, the same model at the training defaults (tanh GELU), ``main`` of
 train_folds / train_final end to end on the CPU with the JAX run layout,
-with ``-pretrain``, ``-hf_dir`` and ``-with_edge``, the refusal of every
-flag whose path is not ported (in the binary CLIs too), and ``DWConv3d`` in
-bf16 against the JAX module (its taps summed in fp32)."""
+with ``-pretrain``, ``-hf_dir``, ``-with_edge`` and ``-remat``, the refusal
+of every flag whose path is not ported (in the binary CLIs too), and
+``DWConv3d`` in bf16 against the JAX module (its taps summed in fp32)."""
 
 import argparse
 import dataclasses
@@ -241,13 +241,49 @@ def test_weight_and_edge_flags_run(tmp_path, fold_tree, gathered_tree,
 @pytest.mark.parametrize("cli", [train_folds, train_final, train_binary,
                                  train_polyp])
 @pytest.mark.parametrize("flag,item", [
-    (["-remat", "pre_scan"], "M2c"), (["-remat", "blocks"], "M2c"),
     (["-seq_shards", "2"], "M12"), (["-n_devices", "2"], "M12"),
     (["-zero", "true"], "M12")])
 def test_unported_flags_raise_with_their_roadmap_item(tmp_path, cli, flag,
                                                       item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.main(["-data_path", str(tmp_path)] + TINY + flag)
+
+
+@pytest.mark.parametrize("cli", [train_folds, train_final, train_binary,
+                                 train_polyp])
+@pytest.mark.parametrize("level", ["pre_scan", "blocks"])
+def test_remat_flag_runs(tmp_path, fold_tree, gathered_tree, monkeypatch,
+                         cli, level):
+    """``-remat`` in every training CLI: one tiny CPU epoch, and the model
+    it built carries the JAX CLIs' mapping of the level (``pre_scan``: the
+    Mamba pre-scan chain; ``blocks``: every MambaLayer and SegFormer
+    layer)."""
+    from tests.test_torch_polyp_otu import _polyp_tree
+
+    built = []
+
+    def recording_build_model(*args, **kw):
+        built.append(build_model(*args, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(cli, "build_model", recording_build_model)
+    data = {train_folds: ["-data_path", str(fold_tree), "-num_folds", "1"],
+            train_final: ["-data_path", str(gathered_tree)],
+            train_binary: ["-data_path", str(gathered_tree)],
+            train_polyp: ["-data_path", _polyp_tree(
+                str(tmp_path / "polyp"), n_frames=3, size=40)]}[cli]
+    cli.main(data + ["-save_path", str(tmp_path / "runs"), "-exp_name", "r",
+                     "-val_freq", "1", "-train_bs", "2", "-val_bs", "2",
+                     "-remat", level] + TINY)
+    (model, cfg), = built
+    assert cfg.remat_pre_scan is (level == "pre_scan")
+    assert cfg.remat_blocks is (level == "blocks")
+    assert cfg.segformer.remat_layers is (level == "blocks")
+    assert {m.remat_pre_scan for m in model.modules()
+            if hasattr(m, "remat_pre_scan")} == {level == "pre_scan"}
+    ckpts = [f for _, _, fs in os.walk(tmp_path / "runs") for f in fs
+             if f.startswith("last_")]
+    assert len(ckpts) == 1, ckpts
 
 
 def test_no_full_batch_raises(tmp_path, gathered_tree):

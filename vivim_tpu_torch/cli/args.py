@@ -88,8 +88,10 @@ def build_train_parser(description="vivim_tpu_torch training"):
               "otherwise, as the JAX training CLIs default to")
     _add(p, "remat", type=str, default="none",
          choices=["none", "pre_scan", "blocks"],
-         help="rematerialization level (ROADMAP M2c: anything but 'none' "
-              "is refused)")
+         help="rematerialization level: 'pre_scan' recomputes the Mamba "
+              "pre-scan chain in the backward; 'blocks' recomputes whole "
+              "MambaLayer / SegformerLayer blocks (torch.utils.checkpoint, "
+              "the random layers' draws kept)")
     _add(p, "profile_dir", type=str, default=None,
          help="write a torch.profiler trace of the first training steps")
     _add(p, "cache_decoded", type=str2bool, default=False,

@@ -36,8 +36,6 @@ def refuse_unported(args):
     yet, naming the ROADMAP item that takes it: a flag dropped silently
     reads as a working config."""
     refused = []
-    if args.remat != "none":
-        refused.append(f"-remat {args.remat} (ROADMAP M2c)")
     if args.seq_shards > 1:
         refused.append(f"-seq_shards {args.seq_shards} (ROADMAP M12)")
     if (args.n_devices or 1) > 1:
@@ -50,20 +48,28 @@ def refuse_unported(args):
 
 def build_model(args, device="cuda", seed: int = 0, out_chans=None):
     """Vivim from parsed CLI args (``segformer`` in b0 / b3 / tiny,
-    ``num_classes``, ``with_edge``, ``exact_gelu``), with random weights
-    from ``seed``, in eval mode on ``device``.  ``out_chans`` overrides
-    ``num_classes`` (1 for the binary CLIs).  Returns (model, cfg).
+    ``num_classes``, ``with_edge``, ``exact_gelu``, ``remat``), with random
+    weights from ``seed``, in eval mode on ``device``.  ``out_chans``
+    overrides ``num_classes`` (1 for the binary CLIs).  Returns (model,
+    cfg).
 
     GELU is the tanh form unless ``args.exact_gelu`` is true, as in the JAX
-    package; args without the flag (the infer CLI's) get the exact erf."""
+    package; args without the flag (the infer CLI's) get the exact erf.
+    ``-remat pre_scan`` recomputes the Mamba pre-scan chain, ``-remat
+    blocks`` every MambaLayer and SegFormer layer, as in the JAX package."""
     dev = resolve_device(device)
     seg = SEGFORMERS[args.segformer]()
     if not getattr(args, "exact_gelu", True):
         seg = dataclasses.replace(seg, gelu_approximate=True)
+    remat = getattr(args, "remat", "none")
+    if remat == "blocks":
+        seg = dataclasses.replace(seg, remat_layers=True)
     cfg = VivimConfig(out_chans=args.num_classes if out_chans is None
                       else out_chans, with_edge=args.with_edge,
                       feat_size=seg.hidden_sizes,
-                      hidden_size=seg.decoder_hidden_size, segformer=seg)
+                      hidden_size=seg.decoder_hidden_size, segformer=seg,
+                      remat_pre_scan=remat == "pre_scan",
+                      remat_blocks=remat == "blocks")
     model = Vivim(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval(), cfg

@@ -1,16 +1,23 @@
 """Inference CLI: timed sliding-clip evaluation with metrics and plots.
 
 Port of the JAX package's ``cli/infer.py``:
-- sliding-clip test dataset over a gathered video tree;
-- weights from a port ``.pt`` or a reference Lightning ``.ckpt``;
+- sliding-clip test dataset over a gathered video tree, or (``--gathered
+  false``) over a raw annotated tree indexed in place;
+- weights from a port ``.pt`` (a state_dict or a trainer checkpoint), a
+  trainer's checkpoint directory (its ``best_*`` file before its
+  ``last_*`` one), or a reference Lightning ``.ckpt``; an orbax directory
+  of the JAX package is converted first by ``scripts/orbax_to_torch.py``;
 - timed forward per batch (CUDA events, synchronised before each time is
   read; the first batch is excluded from the FPS as warm-up);
 - argmax predictions, per-sample per-class confusion counts and the
   aggregated confusion matrix computed on the device;
-- confusion-matrix heatmaps, prediction grids and ``metrics.json``.
+- ``metrics.json``, then the confusion-matrix heatmaps (where matplotlib
+  imports) and prediction grids; with ``--wandb``, the same to wandb when
+  it starts.
 
 Usage:
-  python -m vivim_tpu_torch.cli.infer --ckpt vivim.pt --data_dir test/
+  python -m vivim_tpu_torch.cli.infer --ckpt runs/exp/fold_0/ckpt \
+      --data_dir test/
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from vivim_tpu_torch.cli.common import build_model, resolve_device
 
 CLASS_COLORS = np.array([[0, 0, 0], [255, 0, 0], [255, 255, 0]], np.uint8)
 CLASS_NAMES = ["background", "solid", "non-solid"]
+# raw, row-normalized, column-normalized
+HEATMAPS = ("confusion_matrix", "confusion_matrix_row_norm",
+            "confusion_matrix_col_norm")
 
 
 def _flag(v):
@@ -36,11 +46,11 @@ def _flag(v):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Vivim inference (PyTorch/CUDA)")
     p.add_argument("--ckpt", type=str, required=True,
-                   help="port .pt state_dict or reference Lightning .ckpt")
+                   help="port .pt (state_dict or trainer checkpoint), a "
+                        "trainer's ckpt directory, or a reference .ckpt")
     p.add_argument("--with_edge", type=_flag, default=False)
     p.add_argument("--num_classes", type=int, default=3)
-    p.add_argument("--data_dir", type=str, required=True,
-                   help="gathered video tree")
+    p.add_argument("--data_dir", type=str, required=True)
     p.add_argument("--image_size", type=int, default=256)
     p.add_argument("--clip_length", type=int, default=5)
     p.add_argument("--output_dir", type=str, default="results_multiclass")
@@ -49,31 +59,62 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--segformer", type=str, default="b3",
                    choices=["b0", "b3", "tiny"])
+    p.add_argument("--wandb", type=_flag, default=False)
+    p.add_argument("--gathered", type=_flag, default=True,
+                   help="data_dir is already a gathered video tree")
+    p.add_argument("--wandb_project", type=str,
+                   default="vivim-tpu-inference")
+    p.add_argument("--wandb_name", type=str, default="vivim_inference")
+    p.add_argument("-cv_group", "--cv_group", type=str,
+                   default="Vivim_Inference",
+                   help="(reference compatibility; unused)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
+def checkpoint_file(path):
+    """The file ``--ckpt`` names: ``path`` itself, or in a trainer's
+    checkpoint directory its ``best_*.pt`` before its ``last_*.pt``, the
+    last name in sorted order (the JAX CLI's rule, by name: ``best_99``
+    sorts after ``best_100``)."""
+    if not os.path.isdir(path):
+        return path
+    subs = sorted(d for d in os.listdir(path)
+                  if d.startswith(("best_", "last_")) and d.endswith(".pt"))
+    if not subs:
+        raise ValueError(
+            f"{path} holds no best_*.pt or last_*.pt: an orbax checkpoint "
+            "of the JAX package is read by JAX only. Convert it with "
+            "scripts/orbax_to_torch.py and pass the .pt it writes")
+    best = [d for d in subs if d.startswith("best_")]
+    return os.path.join(path, (best or subs)[-1])
+
+
 def load_model(args, device="cuda"):
-    """Build the model and load ``args.ckpt`` (a port ``.pt`` or a
-    reference ``.ckpt``) with strict key matching."""
-    from vivim_tpu_torch.convert.from_jax import load_reference_state_dict
+    """Build the model and load ``args.ckpt`` (see ``checkpoint_file``)
+    with strict key matching."""
+    from vivim_tpu_torch.convert.from_jax import reference_state_dict
+    from vivim_tpu_torch.train.checkpoints import load_params
 
     model, cfg = build_model(args, device)
-    path = os.path.abspath(args.ckpt)
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory: orbax checkpoints are JAX-only. Convert "
-            "its variables with vivim_tpu_torch.convert.from_jax."
-            "vivim_state_dict_from_jax and torch.save the state_dict")
-    model.load_state_dict(load_reference_state_dict(path), strict=True)
+    path = checkpoint_file(os.path.abspath(args.ckpt))
+    model.load_state_dict(reference_state_dict(load_params(path)),
+                          strict=True)
     return model, cfg
 
 
 def prepare_test_data(args):
     from vivim_tpu_torch.data.dataset import ClipDataset
+    from vivim_tpu_torch.data.gather import gather_multiclass_frames
     from vivim_tpu_torch.data.loader import DataLoader
 
-    ds = ClipDataset(args.data_dir, size=args.image_size,
+    root = args.data_dir
+    if not args.gathered:
+        index = gather_multiclass_frames(root, copy=False)
+        root = {v: [{"frame": r["frame"], "background": r["background"],
+                     "solid": r.get("solid"), "non-solid": r.get("non-solid")}
+                    for r in e] for v, e in index.items()}
+    ds = ClipDataset(root, size=args.image_size,
                      clip_len=args.clip_length, augment="none",
                      with_edges=False)
     dl = DataLoader(ds, args.batch_size, shuffle=False, num_workers=2,
@@ -179,40 +220,70 @@ def _save_vis(args, batch, preds, start_idx):
     return B
 
 
-def plot_confusion_matrices(cm, output_dir):
-    """Raw / row-normalized / column-normalized heatmaps -> PNGs."""
-    import matplotlib.pyplot as plt
+def plot_confusion_matrices(cm, output_dir, wandb_run=None):
+    """Raw / row-normalized / column-normalized heatmaps -> PNGs (and wandb
+    Images with a run).  Where matplotlib cannot be imported it says which
+    heatmaps it did not write."""
+    from vivim_tpu_torch.train.logging import confusion_heatmap, pyplot
 
-    from vivim_tpu_torch.train.logging import confusion_heatmap
-
+    plt = pyplot()
+    if plt is None:
+        print("[infer] matplotlib cannot be imported: not writing "
+              + ", ".join(f"{n}.png" for n in HEATMAPS)
+              + " (metrics.json holds the confusion matrix)")
+        return
     cm = cm.astype(np.float64)
-    variants = {
-        "confusion_matrix": cm,
-        "confusion_matrix_row_norm":
-            cm / np.maximum(cm.sum(1, keepdims=True), 1),
-        "confusion_matrix_col_norm":
-            cm / np.maximum(cm.sum(0, keepdims=True), 1),
-    }
-    for name, mat in variants.items():
+    mats = (cm, cm / np.maximum(cm.sum(1, keepdims=True), 1),
+            cm / np.maximum(cm.sum(0, keepdims=True), 1))
+    for name, mat in zip(HEATMAPS, mats):
         fig = confusion_heatmap(mat, CLASS_NAMES)
         fig.savefig(os.path.join(output_dir, f"{name}.png"))
+        if wandb_run is not None:
+            import wandb
+
+            wandb_run.log({name: wandb.Image(fig)})
         plt.close(fig)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    wandb_run = None
+    if args.wandb:
+        try:
+            import wandb
+
+            wandb_run = wandb.init(project=args.wandb_project,
+                                   name=args.wandb_name)
+        except Exception as e:  # no package, no network: carry on
+            print(f"[infer] wandb unavailable ({e})")
     model, _ = load_model(args, args.device)
     _, loader = prepare_test_data(args)
     results, cm, perf = run_inference(args, model, loader, args.device)
     os.makedirs(args.output_dir, exist_ok=True)
-    plot_confusion_matrices(cm, args.output_dir)
     summary = {
         "performance": perf,
         "metrics": results,
         "confusion_matrix": cm.tolist(),
     }
+    # before the figures: a host without matplotlib keeps the metrics
     with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
         json.dump(summary, f, indent=2, default=str)
+    plot_confusion_matrices(cm, args.output_dir, wandb_run=wandb_run)
+    if wandb_run is not None:
+        flat = dict(perf)
+        for m in ("dice", "jaccard", "precision", "recall"):
+            flat[f"{m}_mean"] = results[m]["mean"]
+        wandb_run.log(flat)
+        if args.save_vis:
+            import wandb
+
+            vis_files = sorted(
+                f for f in os.listdir(args.output_dir)
+                if f.startswith("vis_") and f.endswith(".png"))
+            for f in vis_files[:args.vis_count]:
+                wandb_run.log({f"predictions/{f[:-4]}": wandb.Image(
+                    os.path.join(args.output_dir, f))})
+        wandb_run.finish()
     print(json.dumps(perf, indent=2))
     for m in ("dice", "jaccard", "precision", "recall"):
         print(m, results[m]["mean"], results[m]["per_class"])

@@ -252,11 +252,11 @@ def strip_lightning_prefix(sd, prefix="model."):
             for k, v in sd.items()}
 
 
-def load_reference_state_dict(path):
-    """A reference Lightning ``.ckpt`` or a port ``.pt`` -> the port's
-    state_dict.  Drops ``decoder.classifier.*``: the reference's HF decode
-    head carries it but never calls it."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+def reference_state_dict(obj):
+    """A loaded reference Lightning checkpoint (``{"state_dict": ...}``,
+    keys under ``model.``) or a port state_dict -> the port's state_dict.
+    Drops ``decoder.classifier.*``: the reference's HF decode head carries
+    it but never calls it."""
     sd = obj.get("state_dict", obj)
     return {k: v for k, v in strip_lightning_prefix(sd).items()
             if not k.startswith("decoder.classifier.")}

@@ -5,12 +5,19 @@ Port of the JAX package's ``kernels/mamba_inner.py`` (``mamba_inner``,
 PyTorch; the scan is the CUDA kernel on the GPU
 (``kernels/selective_scan.py``).  B, C and z reach the kernel as strided
 views of the projection outputs, so nothing is copied for them.
+
+``remat=True`` recomputes the pre-scan chain (the causal conv, x_proj and
+dt_proj) in the backward instead of keeping its activations
+(``torch.utils.checkpoint``; the reference CUDA Function's
+checkpoint_lvl=1).  The scan is outside the recomputed region.  The chain
+draws no random numbers, so the checkpoint needs no generator.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from vivim_tpu_torch.kernels.causal_conv1d import causal_conv1d
 from vivim_tpu_torch.kernels.selective_scan import selective_scan
@@ -29,16 +36,40 @@ def mamba_inner(
     out_proj_bias=None,
     delta_softplus=True,
     implementation=None,
+    remat=False,
 ):
     """Fused Mamba-block inner function, time-major.
 
     xz (batch, L, 2*d_inner), conv1d_weight (width, d_inner), x_proj_weight
     (dt_rank + 2*dstate, d_inner), delta_proj_weight (d_inner, dt_rank),
-    A (d_inner, dstate).  Returns (batch, L, d_inner), or (batch, L,
-    d_model) with out_proj.
+    A (d_inner, dstate).  ``remat=True`` recomputes the pre-scan chain in
+    the backward.  Returns (batch, L, d_inner), or (batch, L, d_model) with
+    out_proj.
     """
+    x, z, delta, B, C = _remat(remat, _pre_scan, xz, conv1d_weight,
+                               conv1d_bias, x_proj_weight, delta_proj_weight,
+                               A.shape[1])
+    y = selective_scan(x, delta, A, B, C, D=D, z=z, delta_bias=delta_bias,
+                       delta_softplus=delta_softplus,
+                       implementation=implementation)
+    if out_proj_weight is not None:
+        y = y @ out_proj_weight.t()
+        if out_proj_bias is not None:
+            y = y + out_proj_bias
+    return y
+
+
+def _remat(remat, fn, *args):
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _pre_scan(xz, conv1d_weight, conv1d_bias, x_proj_weight,
+              delta_proj_weight, dstate):
+    """Conv + projections of one direction: (x, z, delta, B, C)."""
     d_inner = xz.shape[-1] // 2
-    dstate = A.shape[1]
     delta_rank = delta_proj_weight.shape[1]
     x, z = xz[..., :d_inner], xz[..., d_inner:]
     x = causal_conv1d(x, conv1d_weight, conv1d_bias, activation="silu")
@@ -48,14 +79,7 @@ def mamba_inner(
     delta = x_dbl[..., :delta_rank] @ delta_proj_weight.to(x.dtype).t()
     B = x_dbl[..., delta_rank:delta_rank + dstate]
     C = x_dbl[..., delta_rank + dstate:]
-    y = selective_scan(x, delta, A, B, C, D=D, z=z, delta_bias=delta_bias,
-                       delta_softplus=delta_softplus,
-                       implementation=implementation)
-    if out_proj_weight is not None:
-        y = y @ out_proj_weight.t()
-        if out_proj_bias is not None:
-            y = y + out_proj_bias
-    return y
+    return x, z, delta, B, C
 
 
 def _pre_scan_grouped(xz, conv_w_g, conv_b_g, x_proj_g, dt_proj_g, dstate):
@@ -102,6 +126,7 @@ def mamba_inner_grouped(
     nb: int,
     delta_softplus=True,
     implementation=None,
+    remat=False,
 ):
     """Batched multi-direction Mamba inner: one scan launch for all G
     directions.
@@ -109,11 +134,12 @@ def mamba_inner_grouped(
     xz_grouped: (G*nb, L, 2*d_inner), direction-major.  Parameter stacks
     carry a leading (G,) axis: conv_w_g (G, width, d), conv_b_g (G, d),
     x_proj_g (G, R, d), dt_proj_g (G, d, rank), A_log_g (G, d, N), D_g and
-    delta_bias_g (G, d).  Returns (G*nb, L, d_inner).
+    delta_bias_g (G, d).  ``remat=True`` recomputes the grouped pre-scan
+    chain in the backward.  Returns (G*nb, L, d_inner).
     """
-    dstate = A_log_g.shape[-1]
-    x, z, delta, Bv, Cv = _pre_scan_grouped(
-        xz_grouped, conv_w_g, conv_b_g, x_proj_g, dt_proj_g, dstate)
+    x, z, delta, Bv, Cv = _remat(
+        remat, _pre_scan_grouped, xz_grouped, conv_w_g, conv_b_g, x_proj_g,
+        dt_proj_g, A_log_g.shape[-1])
     rep = lambda t: t.float().repeat_interleave(nb, dim=0)  # (G,.)->(G*nb,.)
     return selective_scan(
         x, delta, rep(-torch.exp(A_log_g.float())), Bv, Cv,

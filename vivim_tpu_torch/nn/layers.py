@@ -1,5 +1,6 @@
 """Shared layers: the random layers (Dropout, DropPath, FastDropout and
-``fast_keep_mask``), 3-D depthwise conv, Mix-FFN Mlp, and seeded weight init.
+``fast_keep_mask``), ``checkpoint`` (remat of a layer that keeps their
+draws), 3-D depthwise conv, Mix-FFN Mlp, and seeded weight init.
 
 Port of the JAX package's ``nn/layers.py``.  Tokens stay channels-last
 ``(B, N, C)``; ``DWConv3d`` permutes to NCDHW only around its
@@ -19,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -48,6 +50,56 @@ def use_generator(model: nn.Module, generator) -> nn.Module:
         if isinstance(m, Stochastic):
             m.generator = generator
     return model
+
+
+def checkpoint(module: nn.Module, *args):
+    """``module(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    the activations inside are dropped after the forward and recomputed in
+    the backward (the JAX package's ``nn.remat`` of a layer).
+
+    The recompute must repeat the forward exactly, and two things would
+    make it differ:
+    - the random layers inside draw from explicit generators, which
+      checkpoint's own RNG stash does not cover: the generators' states are
+      saved before the forward, set again for the recompute, and put back
+      after it, so the recompute draws the forward's masks and every later
+      draw is the one it would be without remat;
+    - under ``torch.func.functional_call`` (the bf16 step's cast
+      parameters) the module holds the swapped-in tensors only during the
+      forward: the recompute runs on the same tensors.
+
+    A BatchNorm inside would update its running statistics twice: the
+    region must hold none.  Without autograd this is ``module(*args)``."""
+    mods = list(module.modules())
+    if any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in mods):
+        raise ValueError(f"{type(module).__name__} holds a BatchNorm: its "
+                         "running statistics would update again in the "
+                         "recompute")
+    if not torch.is_grad_enabled():
+        return module(*args)
+    gens = list({id(m.generator): m.generator for m in mods
+                 if isinstance(m, Stochastic) and m.generator is not None}
+                .values())
+    saved = [g.get_state() for g in gens]
+    params = dict(module.named_parameters())
+    forward_done = False
+
+    def run(*a):
+        nonlocal forward_done
+        if not forward_done:
+            forward_done = True
+            return module(*a)
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, saved):
+            g.set_state(s)
+        try:
+            return torch.func.functional_call(module, params, a)
+        finally:  # also when checkpoint stops the recompute early
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def fast_keep_mask(generator, keep: float, shape, device):

@@ -11,6 +11,9 @@ suffix s in {"", "_b", "_s"}, ``conv1d{s}`` (depthwise, (d, 1, width)),
   three outputs are averaged.
 - ``"v2"``: forward + flipped backward, summed (not averaged).
 - ``"none"``: forward only.
+
+``remat_pre_scan`` recomputes the conv + projection chain of every
+direction in the backward (``mamba_inner(remat=True)``).
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ class MambaV3(nn.Module):
                  dt_scale: float = 1.0, dt_init_floor: float = 1e-4,
                  conv_bias: bool = True, bias: bool = False,
                  bimamba_type: str = "v3",
-                 scan_implementation: str | None = None):
+                 scan_implementation: str | None = None,
+                 remat_pre_scan: bool = False):
         super().__init__()
         if bimamba_type not in _SUFFIXES:
             raise ValueError(f"unknown bimamba_type {bimamba_type!r}")
@@ -64,6 +68,7 @@ class MambaV3(nn.Module):
         self.dt_scale, self.dt_init_floor = dt_scale, dt_init_floor
         self.bimamba_type = bimamba_type
         self.scan_implementation = scan_implementation
+        self.remat_pre_scan = remat_pre_scan
         d_inner, n, rank = self.d_inner, d_state, self.dt_rank
         self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=bias)
         for s in _SUFFIXES[bimamba_type]:
@@ -119,7 +124,8 @@ class MambaV3(nn.Module):
             xz, p["conv_w"], p["conv_b"], p["x_proj"], p["dt_proj"],
             -torch.exp(p["A_log"].float()), D=p["D"].float(),
             delta_bias=p["dt_bias"].float(), delta_softplus=True,
-            implementation=self.scan_implementation)
+            implementation=self.scan_implementation,
+            remat=self.remat_pre_scan)
 
     def forward(self, x, nframes: int = 1):
         """x: (B, L, d_model) frame-major tokens, L = nframes * H * W."""
@@ -138,7 +144,8 @@ class MambaV3(nn.Module):
                 xz_all, stack("conv_w"), stack("conv_b"), stack("x_proj"),
                 stack("dt_proj"), stack("A_log"), stack("D"),
                 stack("dt_bias"), nb=B,
-                implementation=self.scan_implementation)
+                implementation=self.scan_implementation,
+                remat=self.remat_pre_scan)
             out_f, out_b, out_s = out_all.split(B)
             out = (out_f + out_b.flip(1)
                    + position_to_frame_major(out_s, nframes)) / 3.0
@@ -158,13 +165,15 @@ class MambaLayer(nn.Module):
                  expand: int = 2, mlp_ratio: float = 4.0,
                  dropout_rate: float = 0.0, drop_path: float = 0.0,
                  scan_implementation: str | None = None,
-                 gelu_approximate: bool = False):
+                 gelu_approximate: bool = False,
+                 remat_pre_scan: bool = False):
         super().__init__()
         # torch LayerNorm eps 1e-5 (reference vivim.py:147,153)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.mamba = MambaV3(dim, d_state=d_state, d_conv=d_conv,
                              expand=expand, bimamba_type="v3",
-                             scan_implementation=scan_implementation)
+                             scan_implementation=scan_implementation,
+                             remat_pre_scan=remat_pre_scan)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate=dropout_rate,
                        gelu_approximate=gelu_approximate)

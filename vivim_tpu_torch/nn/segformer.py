@@ -22,7 +22,7 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from vivim_tpu_torch.nn.layers import Dropout, DropPath
+from vivim_tpu_torch.nn.layers import Dropout, DropPath, checkpoint
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, as the JAX package uses
 
@@ -44,6 +44,8 @@ class SegformerConfig:
     decoder_hidden_size: int = 768
     num_labels: int = 150
     gelu_approximate: bool = False  # exact erf GELU by default
+    # recompute each SegformerLayer in the backward (keep only its input)
+    remat_layers: bool = False
 
     @property
     def num_stages(self):
@@ -246,7 +248,8 @@ class SegformerEncoder(nn.Module):
         """x: (B, H, W, C_in) -> (tokens (B, H'*W', C_i), H', W')."""
         tokens, H, W = self.patch_embeddings[i](x)
         for layer in self.block[i]:
-            tokens = layer(tokens, H, W)
+            tokens = (checkpoint(layer, tokens, H, W)
+                      if self.cfg.remat_layers else layer(tokens, H, W))
         return tokens, H, W
 
 

@@ -26,6 +26,11 @@ Then ReLU, the head dropout twice (``FastDropout``), channelwise Dropout2d,
 ``out``, the resize to the input size and the optional edge head.  The
 random layers draw from the generator the train step sets
 (``nn.layers.use_generator``).
+
+Remat (``remat_pre_scan``, ``remat_blocks`` and the SegFormer's
+``remat_layers``) recomputes in the backward what it does not keep; the
+state-dict keys do not change with it, and the decode, which holds the
+BatchNorm, is never recomputed.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from vivim_tpu_torch.nn.layers import (
     Dropout,
     FastDropout,
     Stochastic,
+    checkpoint,
     fast_keep_mask,
 )
 from vivim_tpu_torch.nn.mamba import MambaLayer
@@ -59,6 +65,11 @@ class VivimConfig:
     segformer: sf.SegformerConfig = dataclasses.field(
         default_factory=sf.mit_b3)
     scan_implementation: str | None = None
+    # recompute the Mamba pre-scan chain in the backward
+    remat_pre_scan: bool = False
+    # recompute each whole MambaLayer in the backward (keep only its
+    # input); with segformer.remat_layers, the coarsest memory profile
+    remat_blocks: bool = False
 
     @classmethod
     def tiny_test(cls, **kw):
@@ -93,7 +104,8 @@ class VivimEncoder(nn.Module):
                 nn.Sequential(MambaLayer(
                     seg.hidden_sizes[i], drop_path=dp_rate,
                     scan_implementation=cfg.scan_implementation,
-                    gelu_approximate=seg.gelu_approximate))
+                    gelu_approximate=seg.gelu_approximate,
+                    remat_pre_scan=cfg.remat_pre_scan))
                 for _ in range(cfg.depths[i])))
 
     def forward(self, x):
@@ -106,7 +118,8 @@ class VivimEncoder(nn.Module):
             dim = tokens.shape[-1]
             t5 = tokens.reshape(B, T * Hi * Wi, dim)
             for block in stage:
-                t5 = block[0](t5, T, Hi, Wi)
+                t5 = (checkpoint(block[0], t5, T, Hi, Wi)
+                      if self.cfg.remat_blocks else block[0](t5, T, Hi, Wi))
             h = t5.reshape(B * T, Hi, Wi, dim)
             feats.append(h)
         return feats

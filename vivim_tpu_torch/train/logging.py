@@ -75,6 +75,19 @@ class MetricLogger:
             self.wandb.finish()
 
 
+def pyplot():
+    """``matplotlib.pyplot`` on the Agg backend, or None where matplotlib
+    cannot be imported (a host may lack it: the figures are optional)."""
+    try:
+        import matplotlib
+    except ImportError:
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
 def confusion_heatmap(mat, class_names):
     """One confusion-matrix heatmap figure (matplotlib, imported here)."""
     import matplotlib

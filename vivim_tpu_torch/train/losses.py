@@ -21,7 +21,10 @@ the reference training scripts' semantics
 
 All take ``logits (N, H, W, C)`` and integer ``targets (N, H, W)``.  Beside
 the table, ``structure_loss`` is the binary pipeline's loss on one logit
-channel and a float mask (modeling/utils.py:89-102).
+channel and a float mask (modeling/utils.py:89-102), and the legacy VOS
+losses of the reference's loss.py (``mask_iou``, ``mask_iou_loss``,
+``binary_entropy_loss``, ``cross_entropy_loss``, ``smooth_l1_loss``) take
+channels-first (N, K, H, W) probabilities, as there.
 """
 
 from __future__ import annotations
@@ -180,3 +183,68 @@ LOSSES = {
     "multiclass_structure": multiclass_structure_loss,
     "cross_entropy": cross_entropy,
 }
+
+
+# Legacy VOS losses (reference loss.py:4-83), kept for capability parity
+
+
+def mask_iou(pred, target, averaged=True):
+    """min / max mask IoU over (N, H, W) soft masks (loss.py:4-22): the
+    intersection is the elementwise min, the union the elementwise max, no
+    eps."""
+    p = pred.float().reshape(pred.shape[0], -1)
+    t = target.float().reshape(target.shape[0], -1)
+    iou = torch.minimum(p, t).sum(1) / torch.maximum(p, t).sum(1)
+    return iou.mean() if averaged else iou
+
+
+def mask_iou_loss(pred, mask, num_object, ref=None):
+    """Per-sample mean of (1 - mask IoU) over the object channels
+    (loss.py:61-77).  pred / mask (N, K, H, W): channels [start, start +
+    num_object) are scored, start 0 iff K == num_object (the reference
+    skips a background channel).  With ``ref`` (N, K', H, W), channel c
+    counts only where ref[i, start + c] has foreground (a masked mean)."""
+    K = mask.shape[1]
+    start = 0 if K == num_object else 1
+    p = pred[:, start:num_object + start].float()
+    m = mask[:, start:num_object + start].float()
+    obj_loss = 1.0 - (torch.minimum(p, m).sum((2, 3))
+                      / torch.maximum(p, m).sum((2, 3)))
+    if ref is None:
+        return obj_loss.mean(1).mean()
+    valid = (ref.reshape(ref.shape[0], ref.shape[1], -1).sum(-1) > 0)[
+        :, start:].float()
+    return ((obj_loss * valid).sum(1) / valid.sum(1).clamp(min=1.0)).mean()
+
+
+def binary_entropy_loss(pred, target, num_object=None, eps=0.001):
+    """Mean binary cross entropy of probabilities, with the reference's eps
+    inside the logs (loss.py:24-32; ``num_object`` unused there too)."""
+    p, t = pred.float(), target.float()
+    return (-t * torch.log(p + eps) - (1 - t) * torch.log(1 - p + eps)).mean()
+
+
+def cross_entropy_loss(pred, mask, num_object, bootstrap=0.4, ref=None):
+    """Bootstrapped cross entropy of softmaxed probabilities (loss.py:34-59):
+    per pixel the sum over channels [0, num_object] of -log(pred) * mask
+    (a channel zeroed where its ``ref`` has no foreground), then the mean
+    of the hardest ``bootstrap`` share of each sample's pixels."""
+    N, _, H, W = mask.shape
+    ce = -torch.log(pred.float())[:, :num_object + 1] * mask[
+        :, :num_object + 1].float()
+    if ref is not None:
+        valid = (ref.reshape(ref.shape[0], ref.shape[1], -1).sum(-1)
+                 > 0).float()
+        ce = ce * valid[:, :, None, None]
+    per_pixel = ce.sum(1).reshape(N, -1)
+    return per_pixel.topk(int(H * W * bootstrap), dim=1).values.mean()
+
+
+def smooth_l1_loss(pred, target, gamma=0.075):
+    """The reference's smooth-L1 (loss.py:79-83) with its in-place quirk:
+    the second masked assignment tests the difference after the first
+    shrank the entries above gamma, so |d| in (gamma, 1.5 gamma] takes both
+    branches, (|d| - gamma/2)^2 / (2 gamma)."""
+    d = (pred.float() - target.float()).abs()
+    d1 = torch.where(d > gamma, d - gamma / 2, d)
+    return torch.where(d1 <= gamma, d1 * d1 / (2 * gamma), d1).mean()

@@ -15,14 +15,14 @@ Port of the JAX package's ``train/trainer.py``:
 
 It runs on ``TrainerConfig.device``, CUDA unless the caller asks for the
 CPU.  ``profile_dir`` writes a torch.profiler trace of the first epoch's
-steps 1..``profile_steps``.  The parallel paths (``zero``, a mesh) are
-ROADMAP M12 and raise.
+steps 1..``profile_steps`` (``utils.profiling.trace``).  The parallel paths
+(``zero``, a mesh) are ROADMAP M12 and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import os
 import signal
 import threading
 import time
@@ -35,6 +35,7 @@ from vivim_tpu_torch.train import loop as loop_lib
 from vivim_tpu_torch.train.checkpoints import CheckpointManager
 from vivim_tpu_torch.train.logging import MetricLogger
 from vivim_tpu_torch.train.metrics import MulticlassMetricsTracker
+from vivim_tpu_torch.utils.profiling import trace
 
 
 @dataclasses.dataclass
@@ -130,31 +131,31 @@ class Trainer:
         losses, jaccs = [], []
         t0 = time.time()
         n_frames = 0
-        prof = None
-        for i, batch in enumerate(self.train_loader):
-            if i < skip:
-                continue
-            if self.epoch == 0 and self.cfg.profile_dir is not None:
-                if i == 1:  # skip the first, warm-up step
-                    prof = _start_profiler(self.device)
-                elif i == 1 + self.cfg.profile_steps and prof is not None:
-                    _stop_profiler(prof, self.cfg.profile_dir)
-                    prof = None
-            if self.preempted:
-                break
-            n_frames += batch["clip"].shape[0] * batch["clip"].shape[1]
-            self.state, metrics = self.train_step(
-                self.state, self._device_batch(batch))
-            losses.append(metrics["loss"])
-            jaccs.append(metrics["jaccard"])
-            if i % self.cfg.log_every == 0:
-                self.logger.log(
-                    {"train/loss": float(metrics["loss"]),
-                     "train/jaccard": float(metrics["jaccard"]),
-                     "train/grad_norm": float(metrics["grad_norm"])},
-                    step=self.state.step)
-        if prof is not None:  # epoch shorter than the profile window
-            _stop_profiler(prof, self.cfg.profile_dir)
+        # the trace of steps 1..profile_steps (the first is warm-up); it
+        # closes at the window's end or, in a shorter epoch, with the loop
+        prof = contextlib.ExitStack()
+        with prof:
+            for i, batch in enumerate(self.train_loader):
+                if i < skip:
+                    continue
+                if self.epoch == 0 and self.cfg.profile_dir is not None:
+                    if i == 1:
+                        prof.enter_context(trace(self.cfg.profile_dir))
+                    elif i == 1 + self.cfg.profile_steps:
+                        prof.close()
+                if self.preempted:
+                    break
+                n_frames += batch["clip"].shape[0] * batch["clip"].shape[1]
+                self.state, metrics = self.train_step(
+                    self.state, self._device_batch(batch))
+                losses.append(metrics["loss"])
+                jaccs.append(metrics["jaccard"])
+                if i % self.cfg.log_every == 0:
+                    self.logger.log(
+                        {"train/loss": float(metrics["loss"]),
+                         "train/jaccard": float(metrics["jaccard"]),
+                         "train/grad_norm": float(metrics["grad_norm"])},
+                        step=self.state.step)
         mean = lambda xs: float(torch.stack(xs).mean()) if xs else 0.0
         epoch_metrics = {"train/loss": mean(losses),
                          "train/jaccard": mean(jaccs)}
@@ -230,18 +231,3 @@ class Trainer:
                 signal.signal(sig, h)
         return best
 
-
-def _start_profiler(device):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
-
-
-def _stop_profiler(prof, profile_dir):
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

@@ -113,7 +113,28 @@ Phases, each of which raises on failure (exit code != 0):
    (4 threads, one epoch after the warm-up), beside phase 6's loader rate,
    and a ``Trainer.fit`` with ``profile_dir``, which must write one trace
    holding the selective-scan kernels;
-10. print the kernels line, the card line and, last, the device line.
+10. parallel, two ranks on this card over gloo (spawned processes; which
+   collectives gloo runs on CUDA tensors, probed by value, and the bytes
+   gathered, printed): (a) from one seeded state at full MiT-b3 width
+   (256 px, clip 5, fp32, dropouts 0), one step of each mode on a global
+   batch of 4 --
+   ``dp2`` (``-n_devices 2``), ``zero2`` (and ZeRO) and ``seq2``
+   (``-seq_shards 2``, the batch whole on both ranks) -- held against the
+   one-device step of the same state in this process: loss within 1e-5
+   relative, every parameter within rtol 1e-3 / atol 2e-3, ``zero2``
+   within 2e-4 of ``dp2`` with at most half of its params + moments per
+   rank beside the replicated leaves, ``seq2``'s sharded eval logits of
+   the seeded state within 1e-3, and the two ranks' parameters and BatchNorm statistics
+   equal after the step; K1-training 8, K1-inference 0 and K2 8 per step
+   and rank
+   (8 inference K1 per sharded forward), asserted; per rank the step ms
+   (2 ranks over gloo on one card, not a multi-card figure), peak memory
+   and the bytes gathered; (b) ``cli.train_folds.main`` in the two ranks on
+   phase 6's tree, fold 0 cut to ``PAR_CLI_CLIPS`` clips per video, with
+   ``-n_devices 2 -zero true`` and with ``-seq_shards 2`` (no validation);
+   then
+   ``cli.infer.main`` on each run's checkpoints on this card;
+11. print the kernels line, the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3b (a
@@ -200,6 +221,16 @@ LM_DECODE_STEPS = 16
 REMAT_STEPS = 4
 REMAT_BIG_BATCH = 12
 REMAT_BIG_STEPS = 3
+# phase 10: the global batch of each mode's step, the clips per video of
+# the two train_folds runs (3 steps of fold 0), the runs' flags (the seq
+# run skips its validation, for time: (a) holds the sharded forward), the
+# gloo timeout of the ranks and their wall limit (s)
+PAR_BATCH = 4
+PAR_CLI_CLIPS = 4
+PAR_CLI_RUNS = {"zero2": ["-n_devices", "2", "-zero", "true"],
+                "seq2": ["-seq_shards", "2", "-val_freq", "2"]}
+PAR_GROUP_TIMEOUT_S = 60
+PAR_WALL_S = 300
 
 
 def nvidia_smi(query):
@@ -1992,14 +2023,16 @@ def phase_remat(dev="cuda", segformer="b3", size=256, clip_len=5,
 
 
 def phase_infer_ckpt(workdir, dev="cuda", segformer="b3", size=256,
-                     clip_len=5):
+                     clip_len=5, run=os.path.join("runs", "smoke", "fold_0"),
+                     out="infer"):
     """(b) of phase 9: ``cli.infer.main`` on phase 6's fold-0 checkpoint
-    directory over fold 0's raw validation tree (``--gathered false``)."""
+    directory (or on the run ``run`` under ``workdir``) over fold 0's raw
+    validation tree (``--gathered false``), writing to ``out``."""
     from vivim_tpu_torch.cli import infer
 
     dev = torch.device(dev)
-    ckpt = os.path.join(workdir, "runs", "smoke", "fold_0", "ckpt")
-    out_dir = os.path.join(workdir, "infer")
+    ckpt = os.path.join(workdir, run, "ckpt")
+    out_dir = os.path.join(workdir, out)
     returned = []
     run_inference = infer.run_inference
 
@@ -2100,6 +2133,428 @@ def phase_tools(workdir, dev="cuda", segformer="b3", size=256, clip_len=5,
                           trace_scan_kernels=scans)
 
 
+def _par_model(segformer, dev, mesh=None, base=None):
+    """The CLI-built Vivim (seed 0) with every dropout and drop-path at 0,
+    or a copy of ``base`` (config and weights), its scans sharded over
+    ``mesh``'s seq axis when it has one."""
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.nn.vivim import Vivim
+
+    if base is None:
+        base, cfg = build_model(model_args(segformer), device="cpu", seed=0)
+        cfg = dataclasses.replace(
+            cfg, drop_path_rate=0.0, dropout_rate=0.0,
+            segformer=dataclasses.replace(cfg.segformer, drop_path_rate=0.0,
+                                          classifier_dropout=0.0))
+    else:
+        cfg = base.cfg
+    if mesh is not None and mesh.size("seq") > 1:
+        cfg = dataclasses.replace(cfg, seq_axis="seq", mesh=mesh)
+    model = Vivim(cfg)
+    model.load_state_dict(base.state_dict())
+    return model.to(dev)
+
+
+def _par_step_inputs(size, clip_len, batch):
+    b = make_requests(1, clip_len, size, 3, seed=11, batch=batch)[0]
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _par_rank(rank, world, port, out_dir, spec):
+    """One rank of phase 10 (a spawned process): (a) one step per mode
+    (dp2, zero2, seq2) from the seeded state (seq2 first runs its sharded
+    eval forward of that state), then one more; (b) ``train_folds.main`` with
+    ``-n_devices 2 -zero true``, then with ``-seq_shards 2``.  Writes
+    ``rank<r>.json`` (and rank 0 the states after the first step), or
+    ``rank<r>.err`` with its traceback."""
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        # the host's cores shared between the ranks and this script
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // (world + 1)))
+        from vivim_tpu_torch.cli import train_folds
+        from vivim_tpu_torch.parallel import comm, fsdp
+        from vivim_tpu_torch.parallel import mesh as mesh_lib
+
+        from vivim_tpu_torch.train import loop
+
+        if spec.get("min_shard_elems"):  # the CPU rehearsal's tiny leaves
+            fsdp.MIN_SHARD_ELEMS = spec["min_shard_elems"]
+        mesh_lib.init_distributed("gloo", PAR_GROUP_TIMEOUT_S)
+        dev = torch.device(spec["dev"])
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.set_device(dev)
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        seg, size, clip_len = spec["segformer"], spec["size"], spec["clip_len"]
+        batch = _par_step_inputs(size, clip_len, PAR_BATCH)
+        init = _par_model(seg, "cpu")
+        res = {"backend": torch.distributed.get_backend(), "modes": {},
+               "probe": _probe_collectives(dev, world)}
+        for mode in ("dp2", "zero2", "seq2"):
+            mesh = mesh_lib.make_mesh(world, "seq" if mode == "seq2"
+                                      else "data")
+            model = _par_model(seg, dev, mesh, init)
+            state = loop.create_train_state(model, 1e-4, 1e-2, 2,
+                                            seed=mesh.fold_seed(1))
+            dp_bytes = fsdp.state_bytes_per_device(state)
+            if mode == "zero2":
+                _, specs = fsdp.shard_state_fsdp(state, mesh)
+            step = loop.make_train_step(model, "recall_focused", 3,
+                                        mesh=mesh)
+            local = {k: v.to(dev) for k, v in
+                     mesh_lib.shard_batch(batch, mesh).items()}
+            out = {"clips": int(local["clip"].shape[0]), "ms": [],
+                   "launches": [], "gathered": []}
+            if mode == "seq2":  # the sharded forward of the seeded state
+                model.eval()
+                reset_counts()
+                with torch.no_grad():
+                    logits = model(batch["clip"][:1].to(dev))
+                out["eval_launches"] = counts()
+                if rank == 0:
+                    torch.save(logits.cpu(), os.path.join(out_dir,
+                                                          "seq2_logits.pt"))
+                del logits
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            for i in range(2):
+                reset_counts()
+                comm.reset_gathered()
+                sync()
+                t0 = time.perf_counter()
+                state, m = step(state, local)
+                sync()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["launches"].append(counts())
+                out["gathered"].append(list(comm.GATHERED))
+                if i == 0:
+                    out.update(loss=float(m["loss"]),
+                               grad_norm=float(m["grad_norm"]))
+                    whole = (state.zero.full() if state.zero is not None
+                             else contextlib.nullcontext())
+                    with whole:
+                        if rank == 0:
+                            torch.save({k: v.cpu() for k, v in
+                                        model.state_dict().items()},
+                                       os.path.join(out_dir, f"{mode}.pt"))
+                        # each tensor's sum: do the replicas agree?
+                        out["sums"] = [float(v.double().sum()) for v in
+                                       model.state_dict().values()
+                                       if v.is_floating_point()]
+            out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                               if on_card else 0.0)
+            out["state_bytes"] = fsdp.state_bytes_per_device(state)
+            out["dp_state_bytes"] = dp_bytes
+            if mode == "zero2":
+                params = dict(model.named_parameters())
+                out["replicated_bytes"] = sum(
+                    3 * 4 * state.opt.params[i].numel()
+                    for i, n in enumerate(state.opt.names)
+                    if specs[n] is None)
+                out["sharded_leaves"] = len(state.zero.leaves)
+                out["at_rest_elems"] = sum(p.numel()
+                                           for p in params.values())
+            res["modes"][mode] = out
+            del model, state, step, local
+            if on_card:
+                torch.cuda.empty_cache()
+        res["cli"] = {}
+        for name, flags in PAR_CLI_RUNS.items():
+            reset_counts()
+            comm.reset_gathered()
+            t0 = time.perf_counter()
+            train_folds.main(spec["cli_argv"] + ["-exp_name", name] + flags)
+            res["cli"][name] = dict(secs=time.perf_counter() - t0,
+                                    launches=counts(),
+                                    gathered=list(comm.GATHERED))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _probe_collectives(dev, world):
+    """Which collectives the group's backend runs on ``dev``'s tensors,
+    each checked by value: {name: "ok", "wrong values" or the error}."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(dist.get_rank() + 1), device=dev)
+    total = float(world * (world + 1) // 2)
+    ranks = [float(i + 1) for i in range(world)]
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == total).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return bool((y == 1.0).all())
+
+    def all_gather_into_tensor():
+        y = torch.empty(4 * world, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        return y.view(world, 4)[:, 0].tolist() == ranks
+
+    def reduce_scatter_tensor():
+        y = torch.empty(4 // world, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        return bool((y == total).all())
+
+    out = {}
+    for run in (all_reduce, broadcast, all_gather_into_tensor,
+                reduce_scatter_tensor):
+        try:
+            out[run.__name__] = "ok" if run() else "wrong values"
+        except RuntimeError as e:
+            out[run.__name__] = str(e).splitlines()[0][:160]
+        dist.barrier()
+    return out
+
+
+def _spawn_ranks(fn, world, out_dir, spec, wall_s):
+    """``fn(rank, world, port, out_dir, spec)`` in ``world`` spawned
+    processes; fails as soon as one fails (the others are killed) with its
+    traceback, and kills them all at ``wall_s``."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, world, port, out_dir, spec))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > wall_s:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(10)
+    errs = [open(os.path.join(out_dir, f"rank{r}.err")).read()
+            for r in range(world)
+            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    if errs or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(
+            f"phase 10 ranks ended with exit codes "
+            f"{[p.exitcode for p in procs]} after "
+            f"{time.perf_counter() - t0:.1f} s\n" + "\n".join(errs))
+    return time.perf_counter() - t0
+
+
+def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
+                   clip_len=5, min_shard_elems=None):
+    """Phase 10: the multi-rank training path with two ranks on one card
+    over gloo.  (a) one step of each mode against the one-device step of
+    the same seeded state on the whole batch; (b) ``train_folds.main`` in
+    the two ranks on phase 6's tree, with ``-n_devices 2 -zero true`` and
+    with ``-seq_shards 2``, and ``cli.infer.main`` on each run's
+    checkpoints in this process.  ``min_shard_elems`` lowers ZeRO's
+    threshold (a CPU rehearsal's tiny model).  Returns (launches,
+    summary)."""
+    from vivim_tpu_torch.train import loop
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    per_pass = LAYERS_PER_STAGE * len(STAGES)
+    t_phase = time.perf_counter()
+    # the reference: one device, the whole batch, the same seeded state
+    batch = _par_step_inputs(size, clip_len, PAR_BATCH)
+    model = _par_model(segformer, dev).eval()
+    with torch.no_grad():
+        ref_logits = model(batch["clip"][:1].to(dev)).cpu()
+    state = loop.create_train_state(model, 1e-4, 1e-2, 2, seed=1)
+    _, m = loop.make_train_step(model, "recall_focused", 3)(
+        state, {k: v.to(dev) for k, v in batch.items()})
+    ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               sd={k: v.cpu() for k, v in model.state_dict().items()})
+    del model, state
+    if on_card:
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(workdir, "parallel")
+    os.makedirs(out_dir)
+    cli_argv = ["-data_path", os.path.join(workdir, "folds"),
+                "-num_folds", "1", "-segformer",
+                segformer, "-image_size", str(size), "-clip_length",
+                str(clip_len), "-train_bs", str(PAR_BATCH), "-val_bs",
+                str(PAR_BATCH), "-epochs", "1", "-val_freq", "1",
+                "-max_numerosity", str(PAR_CLI_CLIPS), "-num_workers", "2",
+                "-device", f"{dev.type}:0" if on_card else "cpu",
+                "-dist_backend", "gloo", "-save_path",
+                os.path.join(workdir, "par_runs")]
+    spec = dict(dev="cuda:0" if on_card else "cpu", segformer=segformer,
+                size=size, clip_len=clip_len, cli_argv=cli_argv,
+                min_shard_elems=min_shard_elems)
+    print(f"parallel: 2 ranks over gloo, both on {spec['dev']}"
+          + (" (one card shared; gloo, a host library, moves CUDA tensors "
+             "through host memory)" if on_card else ""), flush=True)
+    secs = _spawn_ranks(_par_rank, 2, out_dir, spec, PAR_WALL_S)
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+             for r in range(2)]
+    summary = {"backend": ranks[0]["backend"], "ranks": 2,
+               "device": spec["dev"], "spawn_s": secs, "modes": {},
+               "probe": ranks[0]["probe"]}
+    print(f"parallel: {ranks[0]['backend']} on {spec['dev']} tensors, "
+          f"checked by value: {ranks[0]['probe']}", flush=True)
+    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+    label = "2 ranks over gloo on one card, not a multi-card figure"
+    for mode in ("dp2", "zero2", "seq2"):
+        sd = torch.load(os.path.join(out_dir, f"{mode}.pt"),
+                        weights_only=True)
+        per = [r["modes"][mode] for r in ranks]
+        for r, o in enumerate(per):
+            if abs(o["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+                raise AssertionError(f"{mode} rank {r}: loss {o['loss']} "
+                                     f"vs one device {ref['loss']}")
+            want = {"K1 inference": 0, "K1 training": per_pass,
+                    "K2": per_pass}
+            if on_card and any(l != want for l in o["launches"]):
+                raise AssertionError(f"{mode} rank {r} launched "
+                                     f"{o['launches']}, expected {want}")
+            for c in o["launches"]:
+                for k in launched:
+                    launched[k] += c[k]
+        drift = max(abs(a - b) for a, b in zip(per[0]["sums"],
+                                               per[1]["sums"]))
+        if drift:
+            raise AssertionError(f"{mode}: the ranks' parameters differ "
+                                 f"after the step (sums {drift:.3e} apart)")
+        worst = 0.0
+        for k, v in ref["sd"].items():
+            if v.is_floating_point():
+                torch.testing.assert_close(sd[k], v, rtol=1e-3, atol=2e-3,
+                                           msg=f"{mode} {k}")
+                worst = max(worst, (sd[k] - v).abs().max().item())
+        summary["modes"][mode] = dict(
+            loss=per[0]["loss"], grad_norm=per[0]["grad_norm"],
+            ref_loss=ref["loss"], param_max_abs_err=worst,
+            step_ms=[o["ms"] for o in per], peak_gib=[o["peak_gib"]
+                                                     for o in per],
+            launches_per_step=per[0]["launches"][0],
+            replica_sum_max_diff=drift,
+            gathered_per_step=[o["gathered"][1] for o in per],
+            state_bytes=[o["state_bytes"] for o in per],
+            clips_per_rank=per[0]["clips"], timing=label)
+        print(f"parallel {mode}: loss {per[0]['loss']:.7f} vs "
+              f"{ref['loss']:.7f} (one device, batch {PAR_BATCH}); every "
+              f"parameter after the step within rtol 1e-3 / atol 2e-3, max "
+              f"abs err {worst:.3e}; launches per step and rank "
+              f"{per[0]['launches'][0]}; the two ranks' parameter sums "
+              f"{drift:.3e} apart", flush=True)
+        for r, o in enumerate(per):
+            print(f"parallel {mode} rank {r}: {o['clips']} clips, step ms "
+                  f"{o['ms'][0]:.1f} first, {o['ms'][1]:.1f} second "
+                  f"({label}); peak {o['peak_gib']:.2f} GiB; params + "
+                  f"moments {o['state_bytes'] / 2**20:.1f} MiB; all_gathers "
+                  f"per step {o['gathered'][1][0]}, "
+                  f"{o['gathered'][1][1] / 2**20:.1f} MiB sent", flush=True)
+        if mode == "dp2":
+            dp_sd = sd
+        if mode == "zero2":
+            for k, v in dp_sd.items():
+                if v.is_floating_point():
+                    torch.testing.assert_close(sd[k], v, rtol=2e-4,
+                                               atol=2e-4, msg=f"zero2 {k}")
+            for r, o in enumerate(per):
+                cap = (0.5 * (o["dp_state_bytes"] - o["replicated_bytes"])
+                       + o["replicated_bytes"])
+                if o["sharded_leaves"] < 1 or o["state_bytes"] > cap:
+                    raise AssertionError(
+                        f"zero2 rank {r}: {o['state_bytes']} bytes of "
+                        f"params + moments, cap {cap}")
+            zdiff = max((sd[k] - v).abs().max().item()
+                        for k, v in dp_sd.items() if v.is_floating_point())
+            summary["modes"]["zero2"].update(
+                max_abs_diff_from_dp2=zdiff,
+                sharded_leaves=per[0]["sharded_leaves"],
+                model_elems_at_rest=per[0]["at_rest_elems"])
+            print(f"parallel zero2: within {zdiff:.3e} of dp2; "
+                  f"{per[0]['sharded_leaves']} leaves sharded; params + "
+                  f"moments per rank {per[0]['state_bytes'] / 2**20:.1f} "
+                  f"MiB vs {per[0]['dp_state_bytes'] / 2**20:.1f} MiB "
+                  f"under dp2 ({per[0]['replicated_bytes'] / 2**20:.2f} "
+                  f"MiB replicated); between steps the model's own "
+                  f"parameters hold {per[0]['at_rest_elems']} elements "
+                  "(the slices live in the optimizer)", flush=True)
+        if mode == "seq2":
+            logits = torch.load(os.path.join(out_dir, "seq2_logits.pt"),
+                                weights_only=True)
+            err = (logits - ref_logits).abs().max().item()
+            if not err <= 1e-3:
+                raise AssertionError(f"seq2 logits {err:.3e} from one "
+                                     "device's")
+            for r, o in enumerate(per):
+                want = {"K1 inference": per_pass, "K1 training": 0, "K2": 0}
+                if on_card and o["eval_launches"] != want:
+                    raise AssertionError(f"seq2 rank {r} forward launched "
+                                         f"{o['eval_launches']}")
+                for k in launched:
+                    launched[k] += o["eval_launches"][k]
+            summary["modes"]["seq2"]["logits_max_abs_err"] = err
+            print(f"parallel seq2: eval logits of the seeded state within "
+                  f"{err:.3e} of one device's; launches per forward and rank "
+                  f"{per[0]['eval_launches']}", flush=True)
+    summary["cli"] = {}
+    for name in PAR_CLI_RUNS:
+        runs = [r["cli"][name] for r in ranks]
+        for r, c in enumerate(runs):
+            n = c["launches"]
+            if on_card and (n["K1 training"] != n["K2"]
+                            or n["K1 training"] % per_pass
+                            or n["K1 inference"] % per_pass
+                            or not n["K1 training"]):
+                raise AssertionError(f"cli {name} rank {r} launched {n}")
+            for k in launched:
+                launched[k] += n[k]
+        run = os.path.join("par_runs", name, "fold_0")
+        recs = [json.loads(x) for x in open(os.path.join(
+            workdir, run, "metrics.jsonl"))]
+        validated = "-val_freq" not in PAR_CLI_RUNS[name]
+        if sum("config" in x for x in recs) != 1 or validated != any(
+                "val/dice" in x for x in recs):
+            raise AssertionError(f"cli {name}: metrics.jsonl holds "
+                                 f"{len(recs)} records")
+        inf_launched, perf = phase_infer_ckpt(workdir, dev, segformer, size,
+                                              clip_len, run=run,
+                                              out=f"infer_{name}")
+        for k in launched:
+            launched[k] += inf_launched[k]
+        summary["cli"][name] = dict(
+            secs=[c["secs"] for c in runs], launches=[c["launches"]
+                                                     for c in runs],
+            gathered=[c["gathered"] for c in runs], infer_fps=perf["fps"])
+        print(f"parallel cli {name}: train_folds in 2 ranks "
+              f"{runs[0]['secs']:.1f} s, launches per rank "
+              f"{[c['launches'] for c in runs]}; cli.infer read its "
+              "checkpoint on one card", flush=True)
+    summary["secs"] = time.perf_counter() - t_phase
+    print(f"parallel: phase {summary['secs']:.1f} s, of which the ranks "
+          f"{secs:.1f} s", flush=True)
+    return launched, summary
+
+
 def _kernel_entry(name, source, replaces, launches, rows, per,
                   weight=LAYERS_PER_STAGE, timed=None, **extra):
     """The kernels line's entry: times summed over the fp32 rows of
@@ -2192,11 +2647,14 @@ def main():
         tools_launched, tools_perf = phase_tools(
             work.name, loader_ref=cli_perf["loader"]["clips_per_s"])
         t0 = done("9c host tools", t0)
+        par_launched, par_perf = phase_parallel(work.name)
+        t0 = done("10 parallel (2 ranks over gloo on one card)", t0)
 
     paths = {"serve": serve_launched, "train": train_launched,
              "train_cli": cli_launched, "binary_edge": binary_launched,
              "lm": lm_launched, "remat": remat_launched,
-             "infer_ckpt": infer_launched, "profile": tools_launched}
+             "infer_ckpt": infer_launched, "profile": tools_launched,
+             "parallel": par_launched}
     total = {k: sum(p[k] for p in paths.values())
              for k in ("K1 inference", "K1 training", "K2")}
     k1 = _kernel_entry(
@@ -2237,7 +2695,8 @@ def main():
     print(json.dumps({"kernels": [k1, k2], "train": train_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
                       "lm": lm_summary, "remat": remat_perf,
-                      "infer_ckpt": infer_perf, "tools": tools_perf}))
+                      "infer_ckpt": infer_perf, "tools": tools_perf,
+                      "parallel": par_perf}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

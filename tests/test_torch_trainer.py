@@ -102,7 +102,8 @@ def test_validate_has_the_jax_trainers_metric_keys(tmp_path):
 
 
 def test_trainer_refuses_what_it_has_not_got(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="M12"):
+    # ZeRO without a data axis of more than one rank: the JAX message
+    with pytest.raises(ValueError, match="-n_devices N"):
         _trainer(tmp_path, "z", zero=True)
     # no wandb here: the logger says so and writes JSONL only, as the JAX
     # package's does

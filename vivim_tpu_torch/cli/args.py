@@ -1,11 +1,10 @@
 """Shared training CLI flags: every flag and default of the JAX package's
 ``cli/args.py`` (a superset of the reference's cfg.py:4-42), plus
-``-device``.
+``-device`` and ``-dist_backend``.
 
 Flags accept both single-dash (reference style: ``-image_size``) and
-double-dash forms.  Flags whose path the port does not have yet are parsed
-and refused by ``cli.common.refuse_unported`` with the ROADMAP item that
-takes them; none is dropped silently.
+double-dash forms.  ``-n_devices``, ``-seq_shards`` and ``-zero`` above one
+rank run under ``torchrun`` (``cli.common.init_parallel``).
 """
 
 from __future__ import annotations
@@ -70,18 +69,20 @@ def build_train_parser(description="vivim_tpu_torch training"):
     _add(p, "bf16", type=str2bool, default=False,
          help="run the model in bfloat16 activations")
     _add(p, "n_devices", type=int, default=None,
-         help="devices of the data-parallel mesh (ROADMAP M12: more than "
-              "one is refused)")
+         help="ranks of the data-parallel mesh: each trains on its block "
+              "of every batch, gradients averaged (under torchrun, one "
+              "process per rank)")
     _add(p, "seq_shards", type=int, default=1,
-         help="shard the Mamba token axis over this many devices (ROADMAP "
-              "M12: more than one is refused)")
+         help="shard the Mamba token axis over this many ranks (the "
+              "sequence-parallel scan); with -n_devices, a (data, seq) "
+              "mesh of n_devices x seq_shards ranks")
     _add(p, "grad_accum", type=int, default=1,
          help="micro-batch gradient accumulation: split each train batch "
               "into this many micro-batches, average the gradients, apply "
               "ONE optimizer update (train_bs must be divisible)")
     _add(p, "zero", type=str2bool, default=False,
-         help="ZeRO/FSDP sharding of params and AdamW moments (ROADMAP M12: "
-              "refused)")
+         help="ZeRO/FSDP sharding of params and AdamW moments over the "
+              "-n_devices data ranks")
     _add(p, "segformer", type=str, default="b3", choices=["b0", "b3", "tiny"])
     _add(p, "exact_gelu", type=str2bool, default=False,
          help="use the exact erf GELU (HF-bit-parity); the tanh form "
@@ -110,7 +111,13 @@ def build_train_parser(description="vivim_tpu_torch training"):
               "that reorders interpolation, so augmented pixels differ "
               "from the reference pipeline (exact when augmentation is off)")
     _add(p, "device", type=str, default="cuda",
-         help="torch device; 'cpu' runs on the CPU")
+         help="torch device; 'cpu' runs on the CPU; under torchrun 'cuda' "
+              "gives rank r the card LOCAL_RANK, 'cuda:<i>' puts every "
+              "rank on card i (gloo only)")
+    _add(p, "dist_backend", type=str, default="nccl",
+         choices=["nccl", "gloo"],
+         help="torch.distributed backend of a run of several ranks (gloo "
+              "for the CPU, or for ranks that share one card)")
     # Vestigial reference flags (cfg.py:4-42), accepted for drop-in CLI
     # compatibility and unused (device selection, legacy dataset switches)
     for name, default in (("vis", False), ("train_vis", False),

@@ -1,10 +1,11 @@
-"""Shared CLI plumbing: the device, the model and the loaders from parsed
-args, the pretrained-weight grafts (``-hf_dir``, ``-pretrain``), the binary
-CLIs' epoch loop, and the refusal of flags whose path the port does not
-have yet."""
+"""Shared CLI plumbing: the ranks of a run (``-n_devices``, ``-seq_shards``,
+``-zero``, ``-dist_backend``), the device, the model and the loaders from
+parsed args, the pretrained-weight grafts (``-hf_dir``, ``-pretrain``) and
+the binary CLIs' epoch loop."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -31,27 +32,121 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def refuse_unported(args):
-    """SystemExit for a training flag whose path the port does not have
-    yet, naming the ROADMAP item that takes it: a flag dropped silently
-    reads as a working config."""
-    refused = []
-    if args.seq_shards > 1:
-        refused.append(f"-seq_shards {args.seq_shards} (ROADMAP M12)")
-    if (args.n_devices or 1) > 1:
-        refused.append(f"-n_devices {args.n_devices} (ROADMAP M12)")
-    if args.zero:
-        refused.append("-zero true (ROADMAP M12)")
-    if refused:
-        raise SystemExit("not ported yet: " + ", ".join(refused))
+def init_parallel(args, cli: str):
+    """The device and the mesh of this rank, from ``-n_devices``,
+    ``-seq_shards``, ``-zero``, ``-dist_backend`` and ``-device``: (device,
+    None) for a one-process run.  Call it first in a training CLI's
+    ``main``.
+
+    Several ranks run one process each, under ``torchrun --nproc_per_node
+    n_devices x seq_shards``; the process group is joined here.  The mesh
+    is the one the JAX package's ``build_model`` / ``trainer_mesh`` build:
+    ("data", "seq") with both flags above 1, "seq" or "data" with one.
+    Rank r takes ``cuda:LOCAL_RANK``; ``-device cuda:<i>`` puts every rank
+    on card i, which only gloo allows (two ranks sharing one card).  The
+    errors are the JAX package's where it has them: ``-zero`` without more
+    than one data rank, a ``-train_bs`` that does not split evenly."""
+    from vivim_tpu_torch.parallel import mesh as mesh_lib
+
+    dp, seq = args.n_devices or 1, args.seq_shards or 1
+    if args.zero and dp <= 1:
+        # a silently ignored parallelism flag reads as a working config
+        raise SystemExit(
+            "-zero true shards params + optimizer moments over the 'data' "
+            f"mesh axis, but this run has {dp} 'data' device(s) — pass "
+            "-n_devices N (N > 1) or drop -zero")
+    world = dp * seq
+    env_world = int(os.environ.get("WORLD_SIZE", world))
+    if env_world != world:
+        raise SystemExit(
+            f"this run has {env_world} process(es) but -n_devices {dp} x "
+            f"-seq_shards {seq} = {world}: launch torchrun --nproc_per_node "
+            f"{world}, or set the flags to the world size")
+    if world == 1:
+        return args.device, None
+    if not mesh_lib.in_torchrun():
+        raise SystemExit(
+            f"-n_devices {dp} -seq_shards {seq} runs one process per rank: "
+            f"torchrun --nproc_per_node {world} -m vivim_tpu_torch.cli.{cli} "
+            "<flags>")
+    if args.train_bs % dp:
+        raise SystemExit(
+            f"-train_bs {args.train_bs} must be divisible by the 'data' "
+            f"mesh size {dp} so every device gets equal batch shards")
+    if args.train_bs % (dp * args.grad_accum):
+        raise SystemExit(
+            f"-train_bs {args.train_bs} must split into -grad_accum "
+            f"{args.grad_accum} micro-batches of equal shards over the "
+            f"{dp} 'data' devices")
+    backend = args.dist_backend
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if device.index is None:
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            device = torch.device("cuda", local)
+            if torch.cuda.is_available() and (
+                    local >= torch.cuda.device_count()):
+                raise SystemExit(
+                    f"rank {local} of this node has no card of its own "
+                    f"({torch.cuda.device_count()} visible); run fewer "
+                    "ranks, or share one card with -dist_backend gloo "
+                    "-device cuda:0")
+        elif backend == "nccl":
+            raise SystemExit(
+                f"-device {args.device} puts every rank on one card, which "
+                "NCCL refuses; pass -device cuda (a card per rank), or "
+                "-dist_backend gloo to share the card")
+        if torch.cuda.is_available():
+            torch.cuda.set_device(device)
+    mesh_lib.init_distributed(backend)
+    if seq > 1:
+        mesh = (mesh_lib.make_hybrid_mesh(dp, seq) if dp > 1
+                else mesh_lib.make_mesh(seq, axis="seq"))
+    else:
+        mesh = mesh_lib.make_mesh(dp, axis="data")
+    return str(device), mesh
 
 
-def build_model(args, device="cuda", seed: int = 0, out_chans=None):
+def loader_split(args, mesh):
+    """The train loader's split of every batch over the data ranks: each
+    loads only its block of each micro-batch."""
+    if mesh is None:
+        return {}
+    return dict(process_index=mesh.index("data"),
+                process_count=mesh.size("data"),
+                micro_batches=args.grad_accum)
+
+
+class _NoLogger:
+    """The logger of a rank that writes nothing (all but rank 0)."""
+
+    def log(self, *args, **kw):
+        pass
+
+    log_confusion_matrix = log
+
+    def finish(self):
+        pass
+
+
+def make_logger(run_dir, run_name, args, mesh):
+    """``metrics.jsonl`` (and wandb) under ``run_dir``, on rank 0 only."""
+    from vivim_tpu_torch.train.logging import MetricLogger
+
+    if mesh is not None and not mesh.is_main:
+        return _NoLogger()
+    return MetricLogger(run_dir, run_name=run_name, use_wandb=args.wandb,
+                        config=vars(args))
+
+
+def build_model(args, device="cuda", seed: int = 0, out_chans=None,
+                mesh=None):
     """Vivim from parsed CLI args (``segformer`` in b0 / b3 / tiny,
     ``num_classes``, ``with_edge``, ``exact_gelu``, ``remat``), with random
     weights from ``seed``, in eval mode on ``device``.  ``out_chans``
-    overrides ``num_classes`` (1 for the binary CLIs).  Returns (model,
-    cfg).
+    overrides ``num_classes`` (1 for the binary CLIs).  A ``mesh`` with a
+    ``seq`` axis (``init_parallel``, ``-seq_shards``) shards the Mamba
+    scans over it.  Returns (model, cfg).
 
     GELU is the tanh form unless ``args.exact_gelu`` is true, as in the JAX
     package; args without the flag (the infer CLI's) get the exact erf.
@@ -70,15 +165,20 @@ def build_model(args, device="cuda", seed: int = 0, out_chans=None):
                       hidden_size=seg.decoder_hidden_size, segformer=seg,
                       remat_pre_scan=remat == "pre_scan",
                       remat_blocks=remat == "blocks")
+    if mesh is not None and mesh.size("seq") > 1:
+        cfg = dataclasses.replace(cfg, seq_axis="seq", mesh=mesh)
     model = Vivim(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval(), cfg
 
 
-def build_loaders(args, train_root, val_root=None, dynamic=False):
+def build_loaders(args, train_root, val_root=None, dynamic=False,
+                  mesh=None):
     """Training and validation loaders (the latter None without
     ``val_root``).  ``-cache_mb`` caps each dataset's decode cache, so the
-    worst-case host RAM is twice it."""
+    worst-case host RAM is twice it.  With a ``mesh`` each data rank's
+    train loader loads its block of every batch (``loader_split``); the
+    validation loader loads whole batches, which the eval step splits."""
     from vivim_tpu_torch.data.dataset import ClipDataset
     from vivim_tpu_torch.data.loader import DataLoader
 
@@ -90,7 +190,8 @@ def build_loaders(args, train_root, val_root=None, dynamic=False):
         max_num=args.max_numerosity, augment=args.augment_intensity,
         dynamic=dynamic, seed=args.seed, with_edges=args.with_edge, **cache)
     train_dl = DataLoader(train_ds, args.train_bs, shuffle=True,
-                          num_workers=args.num_workers, seed=args.seed)
+                          num_workers=args.num_workers, seed=args.seed,
+                          **loader_split(args, mesh))
     if len(train_dl) == 0:
         raise SystemExit(
             f"{len(train_ds)} training clip(s) under {train_root!r} < "
@@ -164,30 +265,47 @@ def maybe_load_pretrained(args, model):
     return sorted(took)
 
 
+def setup_data_parallelism(args, state, mesh):
+    """The placement of a fresh train state for the binary CLIs' loop (the
+    Trainer has its own): rank 0's weights on every rank, after the weight
+    grafts, and with ``-zero`` the parameters and AdamW moments sharded
+    over ``data``.  Returns ``(state, shardings or None)``."""
+    from vivim_tpu_torch.parallel.fsdp import shard_state_fsdp
+    from vivim_tpu_torch.parallel.mesh import replicate
+
+    if mesh is None:
+        return state, None
+    replicate(state.model, mesh)
+    if args.zero:
+        return shard_state_fsdp(state, mesh)
+    return state, None
+
+
 def train_binary_run(args, model, train_dl, val_dl, run_dir, run_name,
-                     edge_loss_fn=None):
+                     edge_loss_fn=None, mesh=None):
     """The binary CLIs' epoch loop (train_binary, train_polyp): Adam with a
     cosine over the run, the center-frame step, validation every
     ``val_freq`` epochs through ``BinaryValidator``, ``metrics.jsonl`` and
-    the ``val/dice`` checkpoint (max, top 1) under ``run_dir``.  Returns the
-    last epoch's metrics."""
+    the ``val/dice`` checkpoint (max, top 1) under ``run_dir``.  With a
+    ``mesh`` (``init_parallel``) every rank runs the loop, and rank 0
+    alone writes.  Returns the last epoch's metrics."""
     from vivim_tpu_torch.train import binary
     from vivim_tpu_torch.train.checkpoints import CheckpointManager
-    from vivim_tpu_torch.train.logging import MetricLogger
     from vivim_tpu_torch.train.loop import TrainState
 
     dev = next(model.parameters()).device
-    logger = MetricLogger(run_dir, run_name=run_name, use_wandb=args.wandb,
-                          config=vars(args))
+    is_main = mesh is None or mesh.is_main
+    logger = make_logger(run_dir, run_name, args, mesh)
     total_steps = args.epochs * max(len(train_dl), 1)
     tx, schedule = binary.make_binary_optimizer(model, args.initlr,
                                                 total_steps)
+    seed = args.seed + 1 if mesh is None else mesh.fold_seed(args.seed + 1)
     state = TrainState(step=0, model=model, opt=tx,
-                       generator=torch.Generator(dev).manual_seed(
-                           args.seed + 1))
+                       generator=torch.Generator(dev).manual_seed(seed))
+    state, _ = setup_data_parallelism(args, state, mesh)
     train_step = binary.make_binary_train_step(
-        model, edge_loss_fn, grad_accum=args.grad_accum)
-    eval_step = binary.make_binary_eval_step(model)
+        model, edge_loss_fn, grad_accum=args.grad_accum, mesh=mesh)
+    eval_step = binary.make_binary_eval_step(model, mesh=mesh)
     ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
                              monitor="val/dice", mode="max", top_k=1)
 
@@ -208,9 +326,13 @@ def train_binary_run(args, model, train_dl, val_dl, run_dir, run_name,
             for batch in val_dl:
                 validator.update(*eval_step(state, device_batch(batch)))
             metrics.update(validator.results())
-            print(f"epoch {epoch}: " + ", ".join(
-                f"{k}={v:.4f}" for k, v in metrics.items()))
+            if is_main:
+                print(f"epoch {epoch}: " + ", ".join(
+                    f"{k}={v:.4f}" for k, v in metrics.items()))
         logger.log(metrics, step=state.step)
-        ckpt.save(state, state.step, metrics)
+        with (state.zero.full() if state.zero is not None
+              else contextlib.nullcontext()):
+            if is_main:
+                ckpt.save(state, state.step, metrics)
     logger.finish()
     return metrics

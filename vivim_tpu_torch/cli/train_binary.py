@@ -10,7 +10,9 @@ complements/main_dataset.py:14-15) or the OTU_2D single-image corpus
 (``-otu true``).  Logs and the val/dice checkpoint go under
 ``{save_path}/{exp_name}/binary``.  ``-bf16`` is accepted and does
 nothing: the binary step runs in fp32, as the JAX binary step has no
-compute dtype.  Runs on ``-device`` (CUDA unless ``-device cpu``).
+compute dtype.  Runs on ``-device`` (CUDA unless ``-device cpu``);
+``-n_devices`` / ``-seq_shards`` / ``-zero`` run under torchrun, one
+process per rank.
 
 Usage:
   python -m vivim_tpu_torch.cli.train_binary -data_path TrainData \\
@@ -24,9 +26,10 @@ import os
 from vivim_tpu_torch.cli.args import build_train_parser, str2bool
 from vivim_tpu_torch.cli.common import (
     build_model,
+    init_parallel,
+    loader_split,
     maybe_load_hf_segformer,
     maybe_load_pretrained,
-    refuse_unported,
     train_binary_run,
 )
 from vivim_tpu_torch.data.dataset import ClipDataset
@@ -41,11 +44,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.data_path:
         parser.error("-data_path is required")
-    refuse_unported(args)
+    device, mesh = init_parallel(args, "train_binary")
 
     # the model first: it resolves the device before any data is read
-    model, _ = build_model(args, device=args.device, seed=args.seed,
-                           out_chans=1)
+    model, _ = build_model(args, device=device, seed=args.seed,
+                           out_chans=1, mesh=mesh)
     if args.otu:
         from vivim_tpu_torch.data.otu import OTUDataset
 
@@ -70,7 +73,8 @@ def main(argv=None):
         raise SystemExit(
             f"no training samples found under {args.data_path!r}")
     train_dl = DataLoader(train_ds, args.train_bs,
-                          num_workers=args.num_workers, seed=args.seed)
+                          num_workers=args.num_workers, seed=args.seed,
+                          **loader_split(args, mesh))
     if len(train_dl) == 0:
         raise SystemExit(
             f"{len(train_ds)} training sample(s) < train_bs={args.train_bs}: "
@@ -90,7 +94,7 @@ def main(argv=None):
     return train_binary_run(
         args, model, train_dl, val_dl,
         os.path.join(args.save_path, args.exp_name, "binary"),
-        f"{args.exp_name}_binary", edge_loss_fn)
+        f"{args.exp_name}_binary", edge_loss_fn, mesh)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ MAE / weighted F; :173-241), through the binary CLIs' loop
 (``cli.common.train_binary_run``).  Logs and the val/dice checkpoint go
 under ``{save_path}/{exp_name}/polyp``.  ``-bf16`` is accepted and does
 nothing: the binary step runs in fp32, as the JAX binary step has no
-compute dtype.  Runs on ``-device`` (CUDA unless ``-device cpu``).
+compute dtype.  Runs on ``-device`` (CUDA unless ``-device cpu``);
+``-n_devices`` / ``-seq_shards`` / ``-zero`` run under torchrun, one
+process per rank.
 
 Usage:
   python -m vivim_tpu_torch.cli.train_polyp -data_path polyp_root \\
@@ -23,9 +25,10 @@ import os
 from vivim_tpu_torch.cli.args import build_train_parser
 from vivim_tpu_torch.cli.common import (
     build_model,
+    init_parallel,
+    loader_split,
     maybe_load_hf_segformer,
     maybe_load_pretrained,
-    refuse_unported,
     train_binary_run,
 )
 from vivim_tpu_torch.data.loader import DataLoader
@@ -40,11 +43,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.data_path:
         parser.error("-data_path is required (root holding Train/)")
-    refuse_unported(args)
+    device, mesh = init_parallel(args, "train_polyp")
 
     # the model first: it resolves the device before any data is read
-    model, _ = build_model(args, device=args.device, seed=args.seed,
-                           out_chans=1)
+    model, _ = build_model(args, device=device, seed=args.seed,
+                           out_chans=1, mesh=mesh)
     train_ds = PolypDataset(args.data_path, args.image_size,
                             clip_len=args.clip_length,
                             augment=args.augment_intensity != "none",
@@ -66,7 +69,8 @@ def main(argv=None):
                               clip_len=args.clip_length, augment=False,
                               seed=args.seed)
     train_dl = DataLoader(train_ds, args.train_bs,
-                          num_workers=args.num_workers, seed=args.seed)
+                          num_workers=args.num_workers, seed=args.seed,
+                          **loader_split(args, mesh))
     if len(train_dl) == 0:
         raise SystemExit(
             f"{len(train_ds)} training clip(s) < train_bs={args.train_bs}: "
@@ -86,7 +90,7 @@ def main(argv=None):
     return train_binary_run(
         args, model, train_dl, val_dl,
         os.path.join(args.save_path, args.exp_name, "polyp"),
-        f"{args.exp_name}_polyp", edge_loss_fn)
+        f"{args.exp_name}_polyp", edge_loss_fn, mesh)
 
 
 if __name__ == "__main__":

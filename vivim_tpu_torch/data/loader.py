@@ -20,6 +20,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 
+def block_rows(n: int, index: int, count: int, micro_batches: int = 1):
+    """Rows of a batch of ``n`` that process ``index`` of ``count`` holds:
+    its contiguous block of each of ``micro_batches`` contiguous
+    micro-batches, so that its i-th local micro-batch is its block of the
+    global i-th (with one micro-batch, its block of the batch)."""
+    if n % (count * micro_batches):
+        raise ValueError(f"a batch of {n} does not split into "
+                         f"{micro_batches} micro-batches over {count} "
+                         "processes")
+    mb, local = n // micro_batches, n // micro_batches // count
+    return [i * mb + index * local + j for i in range(micro_batches)
+            for j in range(local)]
+
+
 class DataLoader:
     """Iterates shuffled, batched clips with background prefetch.
 
@@ -37,15 +51,19 @@ class DataLoader:
         the augmentation rng is keyed by the global sample index, so the
         blocks concatenated in process order are the one-process batch.
         Defaults (0, 1) are one process.
+      micro_batches: with process sharding, the block is taken from each of
+        this many contiguous micro-batches of the batch (``block_rows``),
+        so a process's i-th micro-batch is its block of the global i-th.
     """
 
     def __init__(self, dataset, batch_size, shuffle=True, num_workers=4,
                  drop_last=True, prefetch=4, seed=42,
-                 process_index=0, process_count=1):
-        if batch_size % process_count:
+                 process_index=0, process_count=1, micro_batches=1):
+        if batch_size % (process_count * micro_batches):
             raise ValueError(
                 f"global batch_size {batch_size} must divide evenly over "
-                f"{process_count} processes")
+                f"{process_count} processes x {micro_batches} "
+                "micro-batches")
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} out of range "
                              f"for process_count {process_count}")
@@ -61,6 +79,7 @@ class DataLoader:
         self.seed = seed
         self.process_index = process_index
         self.process_count = process_count
+        self.micro_batches = micro_batches
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -93,9 +112,9 @@ class DataLoader:
         batches = [order[i * self.batch_size: (i + 1) * self.batch_size]
                    for i in range(len(self))]
         if self.process_count > 1:
-            local = self.batch_size // self.process_count
-            lo = self.process_index * local
-            batches = [b[lo: lo + local] for b in batches]
+            rows = block_rows(self.batch_size, self.process_index,
+                              self.process_count, self.micro_batches)
+            batches = [[b[r] for r in rows] for b in batches]
         return batches
 
     def __iter__(self):

@@ -37,13 +37,16 @@ def mamba_inner(
     delta_softplus=True,
     implementation=None,
     remat=False,
+    seq_axis=None,
+    mesh=None,
 ):
     """Fused Mamba-block inner function, time-major.
 
     xz (batch, L, 2*d_inner), conv1d_weight (width, d_inner), x_proj_weight
     (dt_rank + 2*dstate, d_inner), delta_proj_weight (d_inner, dt_rank),
     A (d_inner, dstate).  ``remat=True`` recomputes the pre-scan chain in
-    the backward.  Returns (batch, L, d_inner), or (batch, L, d_model) with
+    the backward.  ``seq_axis`` + ``mesh`` shard the scan's L over that
+    mesh axis (``selective_scan``).  Returns (batch, L, d_inner), or (batch, L, d_model) with
     out_proj.
     """
     x, z, delta, B, C = _remat(remat, _pre_scan, xz, conv1d_weight,
@@ -51,7 +54,8 @@ def mamba_inner(
                                A.shape[1])
     y = selective_scan(x, delta, A, B, C, D=D, z=z, delta_bias=delta_bias,
                        delta_softplus=delta_softplus,
-                       implementation=implementation)
+                       implementation=implementation, seq_axis=seq_axis,
+                       mesh=mesh)
     if out_proj_weight is not None:
         y = y @ out_proj_weight.t()
         if out_proj_bias is not None:
@@ -127,6 +131,8 @@ def mamba_inner_grouped(
     delta_softplus=True,
     implementation=None,
     remat=False,
+    seq_axis=None,
+    mesh=None,
 ):
     """Batched multi-direction Mamba inner: one scan launch for all G
     directions.
@@ -135,7 +141,8 @@ def mamba_inner_grouped(
     carry a leading (G,) axis: conv_w_g (G, width, d), conv_b_g (G, d),
     x_proj_g (G, R, d), dt_proj_g (G, d, rank), A_log_g (G, d, N), D_g and
     delta_bias_g (G, d).  ``remat=True`` recomputes the grouped pre-scan
-    chain in the backward.  Returns (G*nb, L, d_inner).
+    chain in the backward; ``seq_axis`` + ``mesh`` shard the scan's L.
+    Returns (G*nb, L, d_inner).
     """
     x, z, delta, Bv, Cv = _remat(
         remat, _pre_scan_grouped, xz_grouped, conv_w_g, conv_b_g, x_proj_g,
@@ -144,4 +151,5 @@ def mamba_inner_grouped(
     return selective_scan(
         x, delta, rep(-torch.exp(A_log_g.float())), Bv, Cv,
         D=rep(D_g), z=z, delta_bias=rep(delta_bias_g),
-        delta_softplus=delta_softplus, implementation=implementation)
+        delta_softplus=delta_softplus, implementation=implementation,
+        seq_axis=seq_axis, mesh=mesh)

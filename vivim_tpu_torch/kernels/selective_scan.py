@@ -50,11 +50,14 @@ Layout is time-major: ``u/delta/z: (B, L, D)``, ``B/C: (B, L, N)``,
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import torch
 import torch.nn.functional as F
 
 from vivim_tpu_torch.kernels import _build, refs
+
+_log = logging.getLogger(__name__)
 
 # Kernel launches so far, per kernel; a caller resets them to 0 to count one
 # run.  LAUNCHES: K1 inference; TRAIN_LAUNCHES: K1 training; BWD_LAUNCHES: K2.
@@ -453,6 +456,8 @@ def selective_scan(
     return_last_state=False,
     initial_state=None,
     implementation=None,
+    seq_axis=None,
+    mesh=None,
 ):
     """Selective scan, time-major: see ``refs.selective_scan_ref`` for the
     contract.  ``implementation``: None (the kernels on CUDA tensors, their
@@ -461,9 +466,41 @@ def selective_scan(
     fold the groups into the batch axis (``_grouped_selective_scan``).  On
     CUDA the kernels take variable B/C with d_state 16; constant (dim,
     dstate) B or C, alone or beside grouped ones, raise there.
+
+    ``seq_axis`` + ``mesh`` (a ``parallel.mesh.Mesh``): shard L over the
+    ranks of that axis and run the sequence-parallel scan
+    (``parallel/seq_scan.py``).  It requires delta_softplus=True and no
+    initial_state.  An L that does not divide by the axis size runs the
+    one-device scan on every rank, with the JAX package's log line.
     """
     if implementation not in (None, "ref"):
         raise ValueError(f"unknown implementation {implementation!r}")
+    n_shards = (mesh.size(seq_axis)
+                if seq_axis is not None and mesh is not None else 1)
+    if n_shards > 1:
+        # one line per call: which scans sharded and which did not
+        if u.shape[1] % n_shards == 0:
+            _log.info("seq-sharded scan: L=%d sharded over %d '%s' devices "
+                      "(shape %s)", u.shape[1], n_shards, seq_axis,
+                      tuple(u.shape))
+        else:
+            _log.info("seq-shard FALLBACK: L=%d %% %d shards != 0 -> "
+                      "single-device scan (shape %s)", u.shape[1], n_shards,
+                      tuple(u.shape))
+    if n_shards > 1 and u.shape[1] % n_shards == 0:
+        from vivim_tpu_torch.parallel.seq_scan import (
+            seq_sharded_selective_scan,
+        )
+
+        if not delta_softplus or initial_state is not None:
+            raise ValueError(
+                "seq-sharded scan requires delta_softplus=True and no "
+                "initial_state")
+        y, last = seq_sharded_selective_scan(
+            u, delta, A, B, C, D=D, z=z, delta_bias=delta_bias, mesh=mesh,
+            axis_name=seq_axis, implementation=implementation,
+            return_last_state=return_last_state)
+        return (y, last) if return_last_state else y
     ref = lambda: refs.selective_scan_ref(
         u, delta, A, B, C, D, z, delta_bias, delta_softplus,
         return_last_state, initial_state=initial_state)

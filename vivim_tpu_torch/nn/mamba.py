@@ -13,7 +13,10 @@ suffix s in {"", "_b", "_s"}, ``conv1d{s}`` (depthwise, (d, 1, width)),
 - ``"none"``: forward only.
 
 ``remat_pre_scan`` recomputes the conv + projection chain of every
-direction in the backward (``mamba_inner(remat=True)``).
+direction in the backward (``mamba_inner(remat=True)``).  ``seq_axis`` +
+``mesh`` shard the scan's tokens over that mesh axis
+(``parallel/seq_scan.py``); the flips, permutes and projections around it
+run whole on every rank of the axis.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ class MambaV3(nn.Module):
                  conv_bias: bool = True, bias: bool = False,
                  bimamba_type: str = "v3",
                  scan_implementation: str | None = None,
-                 remat_pre_scan: bool = False):
+                 remat_pre_scan: bool = False, seq_axis: str | None = None,
+                 mesh=None):
         super().__init__()
         if bimamba_type not in _SUFFIXES:
             raise ValueError(f"unknown bimamba_type {bimamba_type!r}")
@@ -69,6 +73,7 @@ class MambaV3(nn.Module):
         self.bimamba_type = bimamba_type
         self.scan_implementation = scan_implementation
         self.remat_pre_scan = remat_pre_scan
+        self.seq_axis, self.mesh = seq_axis, mesh
         d_inner, n, rank = self.d_inner, d_state, self.dt_rank
         self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=bias)
         for s in _SUFFIXES[bimamba_type]:
@@ -125,7 +130,8 @@ class MambaV3(nn.Module):
             -torch.exp(p["A_log"].float()), D=p["D"].float(),
             delta_bias=p["dt_bias"].float(), delta_softplus=True,
             implementation=self.scan_implementation,
-            remat=self.remat_pre_scan)
+            remat=self.remat_pre_scan, seq_axis=self.seq_axis,
+            mesh=self.mesh)
 
     def forward(self, x, nframes: int = 1):
         """x: (B, L, d_model) frame-major tokens, L = nframes * H * W."""
@@ -145,7 +151,8 @@ class MambaV3(nn.Module):
                 stack("dt_proj"), stack("A_log"), stack("D"),
                 stack("dt_bias"), nb=B,
                 implementation=self.scan_implementation,
-                remat=self.remat_pre_scan)
+                remat=self.remat_pre_scan, seq_axis=self.seq_axis,
+                mesh=self.mesh)
             out_f, out_b, out_s = out_all.split(B)
             out = (out_f + out_b.flip(1)
                    + position_to_frame_major(out_s, nframes)) / 3.0
@@ -166,14 +173,16 @@ class MambaLayer(nn.Module):
                  dropout_rate: float = 0.0, drop_path: float = 0.0,
                  scan_implementation: str | None = None,
                  gelu_approximate: bool = False,
-                 remat_pre_scan: bool = False):
+                 remat_pre_scan: bool = False, seq_axis: str | None = None,
+                 mesh=None):
         super().__init__()
         # torch LayerNorm eps 1e-5 (reference vivim.py:147,153)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.mamba = MambaV3(dim, d_state=d_state, d_conv=d_conv,
                              expand=expand, bimamba_type="v3",
                              scan_implementation=scan_implementation,
-                             remat_pre_scan=remat_pre_scan)
+                             remat_pre_scan=remat_pre_scan,
+                             seq_axis=seq_axis, mesh=mesh)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate=dropout_rate,
                        gelu_approximate=gelu_approximate)

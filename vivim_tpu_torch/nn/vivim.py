@@ -21,7 +21,9 @@ package:
   rate ``dropout_rate / 2`` (``ScaleDropout``), the reversed scales are
   concatenated and fused; BatchNorm with the batch statistics, computed by
   hand because flax updates the running variance with the biased batch
-  variance where ``nn.BatchNorm2d`` uses the unbiased one (ROADMAP F3).
+  variance where ``nn.BatchNorm2d`` uses the unbiased one (ROADMAP F3);
+  under data parallel (``stats_group``) over every data rank's batch,
+  through a differentiable all_reduce of the count, sum and sum of squares.
 Then ReLU, the head dropout twice (``FastDropout``), channelwise Dropout2d,
 ``out``, the resize to the input size and the optional edge head.  The
 random layers draw from the generator the train step sets
@@ -50,6 +52,7 @@ from vivim_tpu_torch.nn.layers import (
     fast_keep_mask,
 )
 from vivim_tpu_torch.nn.mamba import MambaLayer
+from vivim_tpu_torch.parallel.comm import AllReduceSum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,10 @@ class VivimConfig:
     # recompute each whole MambaLayer in the backward (keep only its
     # input); with segformer.remat_layers, the coarsest memory profile
     remat_blocks: bool = False
+    # long-clip mode: shard the Mamba tokens over this axis of ``mesh`` (a
+    # parallel.mesh.Mesh; the sequence-parallel scan, parallel/seq_scan.py)
+    seq_axis: str | None = None
+    mesh: object = None
 
     @classmethod
     def tiny_test(cls, **kw):
@@ -105,7 +112,8 @@ class VivimEncoder(nn.Module):
                     seg.hidden_sizes[i], drop_path=dp_rate,
                     scan_implementation=cfg.scan_implementation,
                     gelu_approximate=seg.gelu_approximate,
-                    remat_pre_scan=cfg.remat_pre_scan))
+                    remat_pre_scan=cfg.remat_pre_scan,
+                    seq_axis=cfg.seq_axis, mesh=cfg.mesh))
                 for _ in range(cfg.depths[i])))
 
     def forward(self, x):
@@ -162,6 +170,9 @@ class Vivim(nn.Module):
         self.feature_drop = Dropout(cfg.dropout_rate, broadcast_dims=(1, 2))
         if cfg.with_edge:
             self.edgeocr_cls_head = nn.Conv2d(seg.hidden_sizes[0], 1, 1)
+        # the process group over which the train-mode decode BatchNorm
+        # takes its statistics (data parallel); None: this batch alone
+        self.stats_group = None
 
     def forward(self, x):
         """x: (B, T, H, W, in_chans) -> logits (B, T, H, W, out_chans);
@@ -218,8 +229,19 @@ class Vivim(nn.Module):
         hmap = hmap @ dec.linear_fuse.weight[:, :, 0, 0].t()
         bn = dec.batch_norm
         hf = hmap.float()
-        mean = hf.mean((0, 1, 2))
-        var = hf.var((0, 1, 2), unbiased=False)
+        if self.stats_group is None:
+            mean = hf.mean((0, 1, 2))
+            var = hf.var((0, 1, 2), unbiased=False)
+        else:
+            # count, sum and sum of squares over every data rank's batch,
+            # as flax computes them over a batch-sharded array
+            c = hf.shape[-1]
+            stats = AllReduceSum.apply(torch.cat([
+                hf.sum((0, 1, 2)), (hf * hf).sum((0, 1, 2)),
+                hf.new_full((1,), hf[..., 0].numel())]), self.stats_group)
+            mean = stats[:c] / stats[-1]
+            var = torch.clamp(stats[c:2 * c] / stats[-1] - mean * mean,
+                              min=0.0)
         with torch.no_grad():
             bn.running_mean.lerp_(mean, bn.momentum)
             bn.running_var.lerp_(var, bn.momentum)

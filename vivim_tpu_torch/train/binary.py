@@ -11,7 +11,12 @@ semantics (complements/train_binary.py):
   thresholds (the Medical curves) plus S-measure, E-measure, MAE and the
   weighted F-measure, in numpy on the host.
 
-The step runs in fp32: the JAX binary step has no compute dtype.
+The step runs in fp32: the JAX binary step has no compute dtype.  With a
+``mesh`` the steps are data parallel as ``train/loop.py``'s: the train
+step takes this rank's block and averages the gradients over ``data``; the
+eval step takes the whole batch, runs this rank's block when the batch
+divides, and gathers the predictions, so ``BinaryValidator`` sees the
+whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -20,8 +25,15 @@ import numpy as np
 import torch
 
 from vivim_tpu_torch.nn.layers import use_generator
-from vivim_tpu_torch.train.loop import AdamW
-from vivim_tpu_torch.train.losses import structure_loss
+from vivim_tpu_torch.parallel import comm
+from vivim_tpu_torch.train.loop import (
+    AdamW,
+    average_grads,
+    data_group,
+    gathered,
+    split_eval_batch,
+)
+from vivim_tpu_torch.train.losses import batch_group, structure_loss
 
 
 def make_binary_optimizer(model, lr, total_steps, eta_min_ratio=0.01):
@@ -37,7 +49,8 @@ def center_frames(x, nframes):
     return x[:, nframes // 2]
 
 
-def make_binary_train_step(model, edge_loss_fn=None, grad_accum: int = 1):
+def make_binary_train_step(model, edge_loss_fn=None, grad_accum: int = 1,
+                           mesh=None):
     """Returns ``step(state, batch) -> (state, {"loss"})``.
 
     ``batch``: clip (B, T, H, W, 3) and masks (B, T, H, W, 1) [, edges
@@ -47,10 +60,13 @@ def make_binary_train_step(model, edge_loss_fn=None, grad_accum: int = 1):
     ``edge_loss_fn(pred, mask, edge, edges)`` on the center frame instead.
     ``grad_accum``: contiguous micro-batches, gradients and losses
     averaged, the BatchNorm statistics threaded through them in turn, one
-    update.  The random layers draw from the state's generator."""
+    update.  The random layers draw from the state's generator.  ``mesh``:
+    data parallel over its ``data`` axis (``batch`` is this rank's
+    block)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     with_edge = model.cfg.with_edge
+    group = data_group(mesh)
 
     def compute_loss(clip, masks, edges):
         T = clip.shape[1]
@@ -71,38 +87,52 @@ def make_binary_train_step(model, edge_loss_fn=None, grad_accum: int = 1):
                 f"batch size {B} not divisible by grad_accum={grad_accum}")
         model.train()
         use_generator(model, state.generator)
+        model.stats_group = group
         for p in model.parameters():
             p.grad = None
         mb = B // grad_accum
         loss_sum = 0.0
-        for i in range(grad_accum):
-            part = slice(i * mb, (i + 1) * mb)
-            edges = batch["edges"][part] if "edges" in batch else None
-            loss = compute_loss(clip[part], masks[part], edges)
-            (loss / grad_accum).backward()
-            loss_sum = loss_sum + loss.detach()
+        with gathered(state), batch_group(group):
+            for i in range(grad_accum):
+                part = slice(i * mb, (i + 1) * mb)
+                edges = batch["edges"][part] if "edges" in batch else None
+                loss = compute_loss(clip[part], masks[part], edges)
+                (loss / grad_accum).backward()
+                loss_sum = loss_sum + loss.detach()
+            average_grads(state, mesh)
         state.opt.step()
         state.step += 1
+        if group is not None:
+            loss_sum = comm.all_reduce_sum(loss_sum.reshape(1), group)[0] / (
+                comm.size(group))
         return state, {"loss": loss_sum / grad_accum}
 
     return step
 
 
-def make_binary_eval_step(model):
+def make_binary_eval_step(model, mesh=None):
     """Returns ``step(state, batch) -> (loss, pred, mask)``: the center
     frame's structure loss, its sigmoid (B, H, W, 1) and its mask, on the
-    device."""
+    device.  ``mesh``: the whole batch's, from this rank's block."""
+    group = data_group(mesh)
 
     def step(state, batch):
         model.eval()
-        with torch.inference_mode():
+        batch, blocked = split_eval_batch(batch, mesh)
+        with gathered(state), torch.inference_mode(), \
+                batch_group(group if blocked else None):
             out = model(batch["clip"])
             logits5 = out[0] if model.cfg.with_edge else out
             T = batch["clip"].shape[1]
             logits = center_frames(logits5, T)
             mask = center_frames(batch["masks"], T)
-            return (structure_loss(logits, mask), torch.sigmoid(logits),
-                    mask)
+            res = (structure_loss(logits, mask), torch.sigmoid(logits), mask)
+            if blocked:
+                n = comm.size(group)
+                res = (comm.all_reduce_sum(res[0].reshape(1), group)[0] / n,
+                       comm.all_gather(res[1], group).flatten(0, 1),
+                       comm.all_gather(res[2], group).flatten(0, 1))
+            return res
 
     return step
 

@@ -5,8 +5,9 @@ semantics (modeling/utils.py:105-216, JointEdgeSegLoss, and
 modeling/InverseForm.py:20-36, InverseNet):
 
 - ``edge_bce``: class-balanced binary cross entropy over the edge map:
-  positive pixels weighted by neg/total, negatives by pos/total, labels
-  above 1 ignored through a zero weight (bce2d, utils.py:121-152);
+  positive pixels weighted by neg/total, negatives by pos/total (counted
+  over the global batch under data parallel, ``losses.batch_group``),
+  labels above 1 ignored through a zero weight (bce2d, utils.py:121-152);
 - ``edge_attention``: the segmentation structure loss on a target that keeps
   the mask only where the edge LOGIT exceeds 0.8 and is ones elsewhere
   (utils.py:155-162);
@@ -28,7 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vivim_tpu_torch.train.losses import _weighted_structure, structure_loss
+from vivim_tpu_torch.train.losses import (
+    _weighted_structure,
+    batch_sum,
+    structure_loss,
+)
 
 
 def edge_bce(logits, targets):
@@ -37,8 +42,8 @@ def edge_bce(logits, targets):
     targets = targets.float().reshape(-1)
     pos = targets == 1
     neg = targets == 0
-    pos_num = pos.sum()
-    neg_num = neg.sum()
+    # over the global batch under data parallel (losses.batch_group)
+    pos_num, neg_num = batch_sum(torch.stack([pos.sum(), neg.sum()]))
     total = torch.clamp(pos_num + neg_num, min=1)
     weight = torch.where(pos, neg_num / total,
                          torch.where(neg, pos_num / total, 0.0))

@@ -16,10 +16,23 @@ PyTorch runs eagerly, so a "step" is a plain function that updates the
 the optimizer moments, the step count) and returns it with its metrics.
 The random layers draw from the state's generator, which the step hands to
 the model (``nn.layers.use_generator``).
+
+Data parallel (a ``mesh`` with a ``data`` axis of more than one rank, one
+process per rank): each rank's train step takes its own block of the
+global batch, the train-mode decode BatchNorm and the losses' batch-wide
+counts (``losses.batch_group``) take their statistics over the axis, the
+gradients are averaged over it (and over a ``seq`` row's equal copies)
+before the global-norm clip (once per step, after the micro-batches), and
+the metrics are the global batch's.  A ZeRO state (``state.zero``, ``parallel/fsdp.py``) gathers its
+parameters for the step and keeps only its slices after it.  The eval step
+takes the whole batch and runs this rank's block of it when the batch
+divides over the axis (else every rank runs it whole), and returns the
+whole batch's loss and counters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -28,6 +41,8 @@ import torch
 from torch import nn
 
 from vivim_tpu_torch.nn.layers import use_generator
+from vivim_tpu_torch.parallel import comm
+from vivim_tpu_torch.parallel.mesh import shard_batch
 from vivim_tpu_torch.train import losses as losses_lib
 from vivim_tpu_torch.train.metrics import confusion_matrix, per_class_confusion
 
@@ -92,6 +107,9 @@ class AdamW:
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # (per-leaf norms, live indices) -> global norm; None: the norm of
+        # the leaves here (ZeRO sums its slices' over the data axis)
+        self.reduce_norm = None
 
     def schedule(self, step: int) -> float:
         return cosine_lr(self.lr, self.total_steps, self.eta_min_ratio, step)
@@ -106,8 +124,9 @@ class AdamW:
         grads = [p.grad for p in params]
         norm = None
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [g.float() for g in torch._foreach_norm(grads)]))
+            norms = torch.stack([g.float() for g in torch._foreach_norm(grads)])
+            norm = (torch.linalg.vector_norm(norms) if self.reduce_norm is None
+                    else self.reduce_norm(norms, live))
             # optax scales by max/norm only when norm > max: the factor is 1
             torch._foreach_mul_(grads, self.clip_norm
                                 / torch.clamp(norm, min=self.clip_norm))
@@ -164,6 +183,7 @@ class TrainState:
     model: nn.Module
     opt: AdamW
     generator: torch.Generator
+    zero: object = None  # parallel.fsdp.Zero when the state is ZeRO-sharded
 
 
 def create_train_state(model, lr, weight_decay, total_steps, seed: int,
@@ -235,9 +255,51 @@ def _split_edge(model, out, edge_loss_fn):
     return out if with_edge else (out, None)
 
 
+def data_group(mesh):
+    """The process group of ``mesh``'s ``data`` axis, or None (one rank)."""
+    return mesh.group("data") if mesh is not None else None
+
+
+@contextlib.contextmanager
+def gathered(state):
+    """The model's parameters whole for the body (a ZeRO state gathers
+    them, and frees them after)."""
+    if state.zero is None:
+        yield
+        return
+    state.zero.gather()
+    try:
+        yield
+    finally:
+        state.zero.release()
+
+
+def average_grads(state, mesh):
+    """Average the gradients over every rank of ``mesh`` (ZeRO: into each
+    rank's slices).  Over ``data`` this is data parallel's mean; the ranks
+    of one ``seq`` row hold copies that are equal in exact arithmetic, and
+    their mean keeps them bitwise equal where the card's non-deterministic
+    backward kernels (atomic sums) let them drift apart."""
+    group = comm.world() if mesh is not None else None
+    if state.zero is not None:
+        state.zero.reduce_grads(group)
+    else:
+        comm.all_reduce_mean_([p.grad for p in state.opt.params
+                               if p.grad is not None], group)
+
+
+def split_eval_batch(batch, mesh):
+    """(this rank's rows of an eval batch, whether they are a block): the
+    whole batch when it does not divide over the data axis."""
+    n = mesh.size("data") if mesh is not None else 1
+    if n == 1 or batch["clip"].shape[0] % n:
+        return batch, False
+    return shard_batch(batch, mesh), True
+
+
 def make_train_step(model, loss_fn: Callable | str = "recall_focused",
                     num_classes: int = 3, compute_dtype=None,
-                    grad_accum: int = 1, edge_loss_fn=None):
+                    grad_accum: int = 1, edge_loss_fn=None, mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     ``batch``: clip (B, T, H, W, 3) and one-hot masks (B, T, H, W, C)
@@ -251,12 +313,17 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
     micro-batches; their gradients and losses are averaged, their Jaccard
     counts summed, the BatchNorm statistics thread through them in turn,
     and one optimizer update follows.  Metrics: ``loss``, ``jaccard``,
-    ``grad_norm`` (before clipping), as 0-dim tensors.
+    ``grad_norm`` (before clipping), as 0-dim tensors.  ``mesh``: data
+    parallel over its ``data`` axis (see the module docstring): ``batch``
+    is this rank's block, and its micro-batches are its blocks of the
+    global ones (``DataLoader(micro_batches=grad_accum)``).
     """
     if isinstance(loss_fn, str):
         loss_fn = losses_lib.LOSSES[loss_fn]
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    group = data_group(mesh)
+
     def step(state: TrainState, batch):
         clip, masks = batch["clip"], batch["masks"]
         B = clip.shape[0]
@@ -265,28 +332,36 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
                 f"batch size {B} not divisible by grad_accum={grad_accum}")
         model.train()
         use_generator(model, state.generator)
+        model.stats_group = group
         for p in model.parameters():
             p.grad = None
         mb = B // grad_accum
         loss_sum = 0.0
         counts = 0.0
-        for i in range(grad_accum):
-            part = slice(i * mb, (i + 1) * mb)
-            logits5, edge5 = _split_edge(
-                model, _forward(model, clip[part], compute_dtype),
-                edge_loss_fn)
-            logits, targets = flatten_frames(logits5, masks[part])
-            loss = loss_fn(logits, targets, num_classes)
-            if edge5 is not None:
-                # the losses cast to fp32 themselves, as in the JAX step
-                loss = loss + edge_loss_fn(logits5, masks[part], edge5,
-                                           batch["edges"][part])
-            (loss / grad_accum).backward()
-            loss_sum = loss_sum + loss.detach()
-            counts = counts + jaccard_counts(logits.detach(), targets,
-                                             num_classes)
+        with gathered(state), losses_lib.batch_group(group):
+            for i in range(grad_accum):
+                part = slice(i * mb, (i + 1) * mb)
+                logits5, edge5 = _split_edge(
+                    model, _forward(model, clip[part], compute_dtype),
+                    edge_loss_fn)
+                logits, targets = flatten_frames(logits5, masks[part])
+                loss = loss_fn(logits, targets, num_classes)
+                if edge5 is not None:
+                    # the losses cast to fp32 themselves, as in the JAX step
+                    loss = loss + edge_loss_fn(logits5, masks[part], edge5,
+                                               batch["edges"][part])
+                (loss / grad_accum).backward()
+                loss_sum = loss_sum + loss.detach()
+                counts = counts + jaccard_counts(logits.detach(), targets,
+                                                 num_classes)
+            average_grads(state, mesh)
         grad_norm = state.opt.step()
         state.step += 1
+        if group is not None:  # the global batch's loss and counts
+            total = comm.all_reduce_sum(
+                torch.cat([loss_sum.reshape(1), counts]), group)
+            loss_sum = total[0] / comm.size(group)
+            counts = total[1:]
         tp, fp, fn = counts
         return state, {"loss": loss_sum / grad_accum,
                        "jaccard": tp / torch.clamp(tp + fp + fn, min=1),
@@ -298,19 +373,24 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
 def make_eval_step(model, loss_fn: Callable | str = "recall_focused",
                    num_classes: int = 3, with_edge: bool = False,
                    compute_dtype=None, edge_loss_fn=None,
-                   return_preds: bool = False):
+                   return_preds: bool = False, mesh=None):
     """Returns ``step(state, batch) -> (loss, confusion (B*T, C, 4), cm
     (C, C)[, preds (B*T, H, W)])``, all computed on the device: only the
     counters need to reach the host.  With ``edge_loss_fn`` and
     ``"edges"`` in the batch, the loss includes the edge term, as the
     reference's validation criterion does
-    (multiclass_training_folds.py:749-762)."""
+    (multiclass_training_folds.py:749-762).  ``mesh``: the whole batch
+    comes in and its blocks run on the data ranks (see the module
+    docstring); the results are the whole batch's."""
     if isinstance(loss_fn, str):
         loss_fn = losses_lib.LOSSES[loss_fn]
+    group = data_group(mesh)
 
     def step(state: TrainState, batch):
         model.eval()
-        with torch.inference_mode():
+        batch, blocked = split_eval_batch(batch, mesh)
+        with gathered(state), torch.inference_mode(), \
+                losses_lib.batch_group(group if blocked else None):
             out = _forward(model, batch["clip"], compute_dtype)
             logits5 = out[0] if with_edge else out
             logits, targets = flatten_frames(logits5, batch["masks"])
@@ -319,8 +399,16 @@ def make_eval_step(model, loss_fn: Callable | str = "recall_focused",
                 loss = loss + edge_loss_fn(logits5, batch["masks"], out[1],
                                            batch["edges"])
             preds = logits.argmax(-1)
-            res = (loss, per_class_confusion(preds, targets, num_classes),
-                   confusion_matrix(preds, targets, num_classes))
+            conf = per_class_confusion(preds, targets, num_classes)
+            cm = confusion_matrix(preds, targets, num_classes)
+            if blocked:  # every block's frames, in batch order
+                loss = comm.all_reduce_sum(loss.reshape(1), group)[0] / (
+                    comm.size(group))
+                conf = comm.all_gather(conf, group).flatten(0, 1)
+                cm = comm.all_reduce_sum(cm, group)
+                if return_preds:
+                    preds = comm.all_gather(preds, group).flatten(0, 1)
+            res = (loss, conf, cm)
         return res + (preds,) if return_preds else res
 
     return step

@@ -19,7 +19,14 @@ the reference training scripts' semantics
 - ``multiclass_structure_loss``: per-class weighted BCE + weighted IoU with
   a 31x31 mean-pool boundary-emphasis weight map.
 
-All take ``logits (N, H, W, C)`` and integer ``targets (N, H, W)``.  Beside
+All take ``logits (N, H, W, C)`` and integer ``targets (N, H, W)``.  Every
+one is a mean over the batch, so under data parallel the average of the
+ranks' losses (and gradients) is the global batch's, except where a weight
+comes from the batch itself: ``class_balanced_focal_loss``'s class counts
+without ``alpha``, and the edge loss's edge pixel counts
+(``edge_loss.edge_bce``).  Those counts are summed over ``batch_group``'s
+process group while the train or eval step holds it, as the JAX step
+takes them from the global batch.  Beside
 the table, ``structure_loss`` is the binary pipeline's loss on one logit
 channel and a float mask (modeling/utils.py:89-102), and the legacy VOS
 losses of the reference's loss.py (``mask_iou``, ``mask_iou_loss``,
@@ -29,10 +36,35 @@ channels-first (N, K, H, W) probabilities, as there.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
 
+from vivim_tpu_torch.parallel import comm
+
 _EPS = 1e-6
+_BATCH_GROUP = contextvars.ContextVar("batch_group", default=None)
+
+
+@contextlib.contextmanager
+def batch_group(group):
+    """The losses' batch-wide counts summed over ``group`` (the data ranks
+    of a data-parallel step, whose blocks make up the global batch) in the
+    body; None: this batch alone."""
+    token = _BATCH_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP.reset(token)
+
+
+def batch_sum(x):
+    """``x``, a count over this rank's block, summed over the batch group
+    (non-differentiable: the counts are of targets)."""
+    group = _BATCH_GROUP.get()
+    return x if group is None else comm.all_reduce_sum(x, group)
 
 
 def _onehot(targets, num_classes):
@@ -71,8 +103,9 @@ def class_balanced_focal_loss(logits, targets, num_classes=None, gamma=2.0,
     p = _probs(logits)
     t = _onehot(targets, C)
     if alpha is None:
-        counts = t.sum((0, 1, 2)) + _EPS         # (C,)
-        w = t[..., 0].numel() / (C * counts)
+        counts = batch_sum(torch.cat([t.sum((0, 1, 2)), t.new_full(
+            (1,), t[..., 0].numel())]))         # (C,) and the pixel count
+        w = counts[-1] / (C * (counts[:-1] + _EPS))
         alpha = w / w.sum()
     else:
         alpha = torch.as_tensor(alpha, dtype=torch.float32,

@@ -15,8 +15,17 @@ Port of the JAX package's ``train/trainer.py``:
 
 It runs on ``TrainerConfig.device``, CUDA unless the caller asks for the
 CPU.  ``profile_dir`` writes a torch.profiler trace of the first epoch's
-steps 1..``profile_steps`` (``utils.profiling.trace``).  The parallel paths
-(``zero``, a mesh) are ROADMAP M12 and raise.
+steps 1..``profile_steps`` (``utils.profiling.trace``).
+
+With a ``mesh`` (``parallel.mesh``; one process per rank) it trains data
+parallel over the mesh's ``data`` axis: the train loader gives each data
+rank its block of every batch, and the steps average the gradients and
+reduce the metrics (``train/loop.py``); a ``seq`` axis shards the Mamba
+scans of the model built on the same mesh.  ``zero`` shards the parameters
+and AdamW moments over ``data`` (``parallel/fsdp.py``), after the weight
+grafts, when ``fit`` starts.  Every rank runs the epoch loop, the
+validation and the checkpoint pick in lockstep; only rank 0 writes the
+checkpoints (whole, in the one-card layout) and ``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -31,6 +40,9 @@ import numpy as np
 import torch
 
 from vivim_tpu_torch.cli.common import resolve_device
+from vivim_tpu_torch.parallel import comm
+from vivim_tpu_torch.parallel.fsdp import shard_state_fsdp
+from vivim_tpu_torch.parallel.mesh import replicate
 from vivim_tpu_torch.train import loop as loop_lib
 from vivim_tpu_torch.train.checkpoints import CheckpointManager
 from vivim_tpu_torch.train.logging import MetricLogger
@@ -56,7 +68,7 @@ class TrainerConfig:
     decay_mask: str = "tagged"  # "torch" = decay all params (ref parity)
     profile_dir: str | None = None  # torch.profiler trace of early steps
     profile_steps: int = 5
-    zero: bool = False  # ZeRO / FSDP: ROADMAP M12, raises
+    zero: bool = False  # ZeRO: shard params + AdamW moments over 'data'
     device: str = "cuda"
 
 
@@ -64,12 +76,23 @@ class Trainer:
     def __init__(self, model, cfg: TrainerConfig, train_loader, val_loader,
                  ckpt_dir: str, logger: MetricLogger, mesh=None,
                  with_edge: bool = False, edge_loss_fn=None):
-        if cfg.zero or mesh is not None:
-            raise NotImplementedError(
-                "the parallel training paths (zero, a mesh) are ROADMAP M12")
+        dp = mesh.size("data") if mesh is not None else 1
+        if cfg.zero and dp <= 1:
+            # a silently ignored parallelism flag reads as a working config
+            raise ValueError(
+                "zero=True shards params + optimizer moments over the "
+                f"'data' mesh axis, but this run has {dp} 'data' "
+                "device(s) — pass -n_devices N (N > 1) or drop -zero")
+        if getattr(train_loader, "process_count", dp) != dp:
+            raise ValueError(
+                f"the train loader splits its batches over "
+                f"{train_loader.process_count} process(es), the mesh over "
+                f"{dp} data rank(s)")
         self.device = resolve_device(cfg.device)
         self.model = model.to(self.device)
         self.cfg = cfg
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.logger = logger
@@ -78,21 +101,61 @@ class Trainer:
             top_k=cfg.top_k)
         self.total_steps = cfg.epochs * max(len(train_loader), 1)
         self.state = loop_lib.create_train_state(
-            self.model, cfg.lr, cfg.weight_decay, self.total_steps, cfg.seed,
-            decay_mask=cfg.decay_mask)
+            self.model, cfg.lr, cfg.weight_decay, self.total_steps,
+            self._seed(cfg.seed), decay_mask=cfg.decay_mask)
         self.lr_schedule = self.state.opt.schedule
         compute_dtype = torch.bfloat16 if cfg.bf16 else None
         edge_loss_fn = edge_loss_fn if with_edge else None
         self.train_step = loop_lib.make_train_step(
             self.model, cfg.loss, cfg.num_classes,
             compute_dtype=compute_dtype, grad_accum=cfg.grad_accum,
-            edge_loss_fn=edge_loss_fn)
+            edge_loss_fn=edge_loss_fn, mesh=mesh)
         self.eval_step = loop_lib.make_eval_step(
             self.model, cfg.loss, cfg.num_classes, with_edge=with_edge,
-            compute_dtype=compute_dtype, edge_loss_fn=edge_loss_fn)
+            compute_dtype=compute_dtype, edge_loss_fn=edge_loss_fn,
+            mesh=mesh)
         self.epoch = 0
         self.preempted = False
         self._skip_batches = 0  # mid-epoch resume: batches already consumed
+        self._placed = mesh is None and not cfg.zero
+
+    def _seed(self, seed):
+        """The generator seed of this rank (the data rank folded in)."""
+        return seed if self.mesh is None else self.mesh.fold_seed(seed)
+
+    def _place(self):
+        """Once, before the first step and after the weight grafts: every
+        rank starts from rank 0's weights; ``zero`` shards the state."""
+        if self._placed:
+            return
+        replicate(self.model, self.mesh)
+        if self.cfg.zero:
+            shard_state_fsdp(self.state, self.mesh)
+        self._placed = True
+
+    def _whole(self):
+        """The whole state on every rank for the body (ZeRO gathers it)."""
+        return (self.state.zero.full() if self.state.zero is not None
+                else contextlib.nullcontext())
+
+    def _log(self, metrics, step):
+        if self.is_main:
+            self.logger.log(metrics, step=step)
+
+    def _agree(self, flag: bool) -> bool:
+        """Whether any rank raised ``flag`` (every rank gets the answer)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(comm.all_reduce_sum(t, comm.world()) > 0)
+
+    def _save(self, metrics) -> bool:
+        """Rank 0 writes ``last`` (and ``best`` when it ranks); every rank
+        gets its answer."""
+        with self._whole():
+            saved = (self.ckpt.save(self.state, self.state.step, metrics)
+                     if self.is_main else False)
+        return self._agree(saved)
 
     def _install_preemption_handlers(self):
         """SIGTERM / SIGINT -> flag (main thread only); returns the previous
@@ -109,7 +172,13 @@ class Trainer:
                 for sig in (signal.SIGTERM, signal.SIGINT)}
 
     def resume(self, path: str | None = None):
-        self.state = self.ckpt.restore(self.state, path)
+        self._place()
+        with self._whole():
+            self.state = self.ckpt.restore(self.state, path)
+        if self.mesh is not None and self.mesh.index("data") > 0:
+            # the checkpoint holds data rank 0's generator
+            self.state.generator.manual_seed(
+                self._seed(self.cfg.seed + self.state.step))
         spe = max(len(self.train_loader), 1)
         self.epoch = self.state.step // spe
         # a mid-epoch checkpoint (preemption): the loader's per-epoch order
@@ -143,15 +212,17 @@ class Trainer:
                         prof.enter_context(trace(self.cfg.profile_dir))
                     elif i == 1 + self.cfg.profile_steps:
                         prof.close()
-                if self.preempted:
+                if self._agree(self.preempted):
+                    self.preempted = True
                     break
-                n_frames += batch["clip"].shape[0] * batch["clip"].shape[1]
+                n_frames += (batch["clip"].shape[0] * batch["clip"].shape[1]
+                             * (self.mesh.size("data") if self.mesh else 1))
                 self.state, metrics = self.train_step(
                     self.state, self._device_batch(batch))
                 losses.append(metrics["loss"])
                 jaccs.append(metrics["jaccard"])
                 if i % self.cfg.log_every == 0:
-                    self.logger.log(
+                    self._log(
                         {"train/loss": float(metrics["loss"]),
                          "train/jaccard": float(metrics["jaccard"]),
                          "train/grad_norm": float(metrics["grad_norm"])},
@@ -162,7 +233,7 @@ class Trainer:
         epoch_metrics["train/lr"] = self.lr_schedule(self.state.step)
         epoch_metrics["train/frames_per_sec"] = n_frames / max(
             time.time() - t0, 1e-9)
-        self.logger.log(epoch_metrics, step=self.state.step)
+        self._log(epoch_metrics, step=self.state.step)
         return epoch_metrics
 
     def validate(self):
@@ -199,12 +270,14 @@ class Trainer:
             for c, v in enumerate(results[m]["per_class"]):
                 if v is not None:
                     metrics[f"val/{m}_class{c}"] = v
-        self.logger.log(metrics, step=self.state.step)
-        self.logger.log_confusion_matrix(
-            cm, [f"class_{i}" for i in range(nc)], step=self.state.step)
+        self._log(metrics, step=self.state.step)
+        if self.is_main:
+            self.logger.log_confusion_matrix(
+                cm, [f"class_{i}" for i in range(nc)], step=self.state.step)
         return metrics, results, cm
 
     def fit(self, resume_path: str | None = None):
+        self._place()
         if resume_path:
             self.resume(resume_path)
         best = None
@@ -214,7 +287,7 @@ class Trainer:
                 em = self.train_epoch()
                 if self.preempted:
                     # a resumable 'last' (no metrics: no best-score update)
-                    self.ckpt.save(self.state, self.state.step, {})
+                    self._save({})
                     print(f"[trainer] preempted at step {self.state.step} "
                           f"(epoch {self.epoch}): checkpoint saved, exiting")
                     break
@@ -224,7 +297,7 @@ class Trainer:
                     vm, _, _ = self.validate()
                     metrics.update(vm)
                 self.epoch += 1
-                if self.ckpt.save(self.state, self.state.step, metrics):
+                if self._save(metrics):
                     best = metrics.get(self.cfg.monitor)
         finally:
             for sig, h in prev_handlers.items():

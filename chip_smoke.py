@@ -134,7 +134,29 @@ Phases, each of which raises on failure (exit code != 0):
    ``-n_devices 2 -zero true`` and with ``-seq_shards 2`` (no validation);
    then
    ``cli.infer.main`` on each run's checkpoints on this card;
-11. print the kernels line, the card line and, last, the device line.
+11. the LM's tensor-parallel and pipeline paths at mamba-130m width
+   (phase 8's config and seeded snapshot, fp32): (a) K1-training and K2
+   against their plain versions at (2, 128, 1536) and (2, 128, 768), fp32
+   and bf16, device ms and bound; ``MambaLM``'s next-token loss at batch 2
+   x 128 through the kernels against the same model on the plain scan
+   (loss within 1e-5 relative, every gradient within rtol 1e-3 / atol
+   2e-3 and each leaf's largest error within ``GRAD_REL`` of its largest
+   |grad|, which every leaf halved must fail; 24 K1-training and 24 K2);
+   (b) gloo's ``send`` / ``recv`` and ``batch_isend_irecv`` of this
+   card's tensors probed by value, each in its own pair of processes; (c)
+   two ranks on this card over gloo: tp2 (``lm_tp_forward`` from each
+   rank's split: logits within 1e-3, each gradient slice within the
+   one-device check's bounds of one device's, the replicated leaves'
+   gradients equal on both ranks; ``tp_generate``'s 32 greedy tokens
+   equal to one device's; ``bench_generation --tp_shards 2`` in fp32 and
+   bf16, int8 refused) and pp2 (``lm_pp_forward`` at 2 microbatches from
+   each rank's stage, checked as tp2), and both eval cores' scores of 4
+   pairs within 1e-3 of one device's; per rank and mode the launches of
+   every run (both gradient runs, all the scoring forwards), all_reduces
+   and hops with their bytes, parameters held (a TP eval core: its split
+   alone), peak memory and the second call's ms (2 ranks over gloo on one
+   card, not a multi-card figure);
+12. print the kernels line, the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3b (a
@@ -231,6 +253,20 @@ PAR_CLI_RUNS = {"zero2": ["-n_devices", "2", "-zero", "true"],
                 "seq2": ["-seq_shards", "2", "-val_freq", "2"]}
 PAR_GROUP_TIMEOUT_S = 60
 PAR_WALL_S = 300
+# phase 11: the LM's model-parallel paths at mamba-130m width: the batch,
+# prompt and microbatches of the gradient checks, the new tokens of
+# tp_generate and of the TP bench lines, the scored (context,
+# continuation) pairs, the wall limit of the ranks (s) and of a p2p probe
+LMP_BATCH = 2
+LMP_PROMPT = 128
+LMP_MICRO = 2
+LMP_GEN = 32
+LMP_PAIRS = 4
+LMP_WALL_S = 420
+P2P_WALL_S = 60
+# a gradient leaf's largest error over its largest |grad| (phase 11)
+GRAD_REL = 1e-3
+LMP_LABEL = "2 ranks over gloo on one card, not a multi-card figure"
 
 
 def nvidia_smi(query):
@@ -621,18 +657,16 @@ def check_train_pair(u, delta, A, B, C, D, bias, h0, dout, dlast, dtype,
     return fwd_err, bwd_err, cs, fwd_plain, bwd_plain
 
 
-def phase_train_kernels(peaks):
-    """K1's training variant and K2 at the training step's stage shapes,
-    each against its plain version on the same inputs (K2 on the chunk
-    states K1 saved), the chunk-edge cases, and a ragged case through the
-    autograd Function."""
-    from vivim_tpu_torch.kernels import refs
+def train_kernel_rows(peaks, shapes, b, gen, label, reps=20):
+    """K1-training and K2 at (b, L, d) for each (tag, L, d) of ``shapes``,
+    fp32 and bf16, each against its plain version (K2 on the chunk states
+    K1 saved): (K1-training rows, K2 rows) with error, device ms, one
+    eager call's ms, plain ms, bound, Lc / Ls, grid and us per pass.
+    ``reps``: CUDA-event repeats of the eager call, or a function of L."""
     from vivim_tpu_torch.kernels import selective_scan as ss
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     fwd_rows, bwd_rows = [], []
-    b = TRAIN_SCAN_BATCH
-    for si, (L, d) in enumerate(STAGES):
+    for tag, L, d in shapes:
         lc, grid = picked_chunk(b, L, d)
         ls, bgrid = picked_segment(b, L, d)
         for dtype in (torch.float32, torch.bfloat16):
@@ -641,12 +675,12 @@ def phase_train_kernels(peaks):
                 dtype)
             fwd_err, bwd_err, cs, fwd_plain, bwd_plain = check_train_pair(
                 u, delta, A, B, C, D, bias, None, dout, None, dtype, None,
-                f"stage {si} {dtype_name(dtype)}")
+                f"{label} {tag} {dtype_name(dtype)}")
             fwd = lambda: ss.selective_scan_fwd_states_cuda(
                 u, delta, A, B, C, D, bias, True)
             bwd = lambda: ss.selective_scan_bwd_cuda(
                 u, delta, A, B, C, D, bias, cs, dout, None, True)
-            reps = 5 if L > 10000 else 20
+            n_reps = reps(L) if callable(reps) else reps
             elem = u.element_size()
             for rows, kind, err, run, plain, work, extra, text in (
                     (fwd_rows, "K1-train", fwd_err, fwd, fwd_plain,
@@ -657,14 +691,14 @@ def phase_train_kernels(peaks):
                      bwd_work(b, L, d, elem, ss.CHUNK),
                      dict(l_seg=ls, grid=bgrid, split_us=kernel_split(bwd)),
                      grid_text(ls, bgrid, "Ls"))):
-                call_ms, ms = cuda_ms(run, reps), device_ms(run, calls=5)
+                call_ms, ms = cuda_ms(run, n_reps), device_ms(run, calls=5)
                 bound_ms, bound_by, term = bound(work, peaks)
-                rows.append(dict(stage=si, L=L, d=d, dtype=dtype_name(dtype),
+                rows.append(dict(stage=tag, L=L, d=d, dtype=dtype_name(dtype),
                                  max_abs_err=err, ms=ms, call_ms=call_ms,
                                  plain_ms=plain, bound_ms=bound_ms,
                                  bound_by=bound_by, bound_term=term,
                                  mbytes=work[0] / 1e6, **extra))
-                print(f"{kind:8s} stage {si} {dtype_name(dtype):8s} "
+                print(f"{kind:8s} {label} {tag} {dtype_name(dtype):8s} "
                       f"b={b} L={L:5d} d={d:4d} {text}: max_abs_err="
                       f"{err:.3e} ms={ms:.4f} (one call with its launch "
                       f"{call_ms:.4f}; {split_text(extra['split_us'])}) "
@@ -672,6 +706,21 @@ def phase_train_kernels(peaks):
                       f"({term}; {work[0] / 1e6:.1f} MB, "
                       f"{work[2] / 1e6:.0f} M exps)", flush=True)
             del u, delta, B, C, dout, cs
+    return fwd_rows, bwd_rows
+
+
+def phase_train_kernels(peaks):
+    """K1's training variant and K2 at the training step's stage shapes,
+    each against its plain version on the same inputs (K2 on the chunk
+    states K1 saved), the chunk-edge cases, and a ragged case through the
+    autograd Function."""
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b = TRAIN_SCAN_BATCH
+    fwd_rows, bwd_rows = train_kernel_rows(
+        peaks, [(si, L, d) for si, (L, d) in enumerate(STAGES)], b, gen,
+        "stage", reps=lambda L: 5 if L > 10000 else 20)
     # chunk edges: ragged L and d, per-batch parameters, an initial state,
     # a non-zero dlast; K1-training, then K2 on its chunk states
     for L, forced in chunk_edge_cases(b):
@@ -2223,7 +2272,7 @@ def _par_rank(rank, world, port, out_dir, spec):
                 torch.cuda.reset_peak_memory_stats()
             for i in range(2):
                 reset_counts()
-                comm.reset_gathered()
+                comm.reset_counters()
                 sync()
                 t0 = time.perf_counter()
                 state, m = step(state, local)
@@ -2265,7 +2314,7 @@ def _par_rank(rank, world, port, out_dir, spec):
         res["cli"] = {}
         for name, flags in PAR_CLI_RUNS.items():
             reset_counts()
-            comm.reset_gathered()
+            comm.reset_counters()
             t0 = time.perf_counter()
             train_folds.main(spec["cli_argv"] + ["-exp_name", name] + flags)
             res["cli"][name] = dict(secs=time.perf_counter() - t0,
@@ -2358,7 +2407,7 @@ def _spawn_ranks(fn, world, out_dir, spec, wall_s):
             if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
     if errs or any(p.exitcode != 0 for p in procs):
         raise AssertionError(
-            f"phase 10 ranks ended with exit codes "
+            f"the ranks ended with exit codes "
             f"{[p.exitcode for p in procs]} after "
             f"{time.perf_counter() - t0:.1f} s\n" + "\n".join(errs))
     return time.perf_counter() - t0
@@ -2555,6 +2604,615 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
     return launched, summary
 
 
+def _p2p_rank(rank, world, port, out_dir, spec):
+    """One rank of a point-to-point probe (``_probe_p2p``): ``spec["op"]``
+    between the two ranks on ``spec["dev"]``'s tensors, checked by value;
+    writes ``rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    res = {}
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=20))
+        dev = torch.device(spec["dev"])
+        x = torch.full((1024,), float(rank + 1), device=dev)
+        y = torch.zeros(1024, device=dev)
+        if spec["op"] == "send/recv":
+            if rank == 0:
+                dist.send(x, 1)
+            else:
+                dist.recv(y, 0)
+            ok = rank == 0 or bool((y == 1.0).all())
+        else:
+            works = dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, 1 - rank),
+                 dist.P2POp(dist.irecv, y, 1 - rank)])
+            for w in works:
+                w.wait()
+            ok = bool((y == float(2 - rank)).all())
+        res["result"] = "ok" if ok else "wrong values"
+    except RuntimeError as e:
+        res["result"] = str(e).splitlines()[0][:160]
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _probe_p2p(dev, workdir):
+    """Whether gloo's point-to-point calls (``send`` / ``recv`` and
+    ``batch_isend_irecv``) move ``dev``'s tensors between two ranks, each
+    op in its own pair of processes, both pairs at once: either call of
+    CUDA tensors may abort its process, so this cannot run in
+    ``_probe_collectives``'s working ranks.  {op: "ok",
+    "wrong values", the error, or the exit codes of a pair that died}."""
+    import multiprocessing
+    import socket
+
+    ctx = multiprocessing.get_context("spawn")
+    pairs = {}
+    for op in ("send/recv", "batch_isend_irecv"):
+        out_dir = os.path.join(workdir, f"p2p_{op.replace('/', '_')}")
+        os.makedirs(out_dir)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [ctx.Process(target=_p2p_rank, args=(
+            r, 2, port, out_dir, {"dev": str(dev), "op": op}))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        pairs[op] = (out_dir, procs)
+    t0 = time.perf_counter()
+    found = {}
+    for op, (out_dir, procs) in pairs.items():
+        for p in procs:
+            p.join(max(1.0, P2P_WALL_S - (time.perf_counter() - t0)))
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        results = []
+        for r in range(2):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            results.append(json.load(open(path)).get("result")
+                           if os.path.exists(path) else None)
+        codes = [p.exitcode for p in procs]
+        if results == ["ok", "ok"]:
+            found[op] = "ok"
+        else:
+            found[op] = (f"exit codes {codes}; " + "; ".join(
+                f"rank {r}: {x}" for r, x in enumerate(results)))
+    return found
+
+
+def next_token_loss(logits, toks):
+    """Mean cross-entropy of each position's next token."""
+    logp = torch.log_softmax(logits[:, :-1].float(), -1)
+    return -logp.gather(-1, toks[:, 1:, None]).mean()
+
+
+def lmp_pairs(n, seed=12):
+    """``n`` seeded (context, continuation) string pairs of lowercase
+    letters: contexts of 20 to 100 characters, continuations of 3 to 12."""
+    import random
+
+    rng = random.Random(seed)
+    text = lambda k: "".join(rng.choice("abcdefghijklmnopqrstuvwxyz ")
+                             for _ in range(k))
+    return [(text(rng.randint(20, 100)), text(rng.randint(3, 12)))
+            for _ in range(n)]
+
+
+def _lmp_tensors(spec, dev):
+    """The seeded tokens of phase 11: (batch, prompt) for the gradient
+    checks, its first row for decode."""
+    g = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, spec["vocab"], (spec["batch"], spec["prompt"]),
+                         generator=g)
+    return toks.to(dev)
+
+
+def _max_err(got, want):
+    return (got.detach().float() - want.to(got.device).float()).abs().max(
+        ).item()
+
+
+def _leaf_err(g, want):
+    """(largest abs error, that over the leaf's largest |want|)."""
+    err = _max_err(g, want)
+    scale = want.abs().max().item()
+    return err, (err / scale if scale > 0 else (0.0 if err == 0 else
+                                                math.inf))
+
+
+def _check_grads(grads, ref, what):
+    """Every gradient within rtol 1e-3 / atol 2e-3 of ``ref``'s tensor of
+    the same name, and each leaf's largest error within ``GRAD_REL`` of
+    its largest |ref|: most of the LM's gradients are below 2e-3, where
+    the absolute bound alone would pass a gradient scaled by k or 1/k.
+    {max_abs_err, max_rel_err (over the leaves), least_scale (the
+    smallest leaf's largest |ref|)}."""
+    out = dict(max_abs_err=0.0, max_rel_err=0.0, least_scale=math.inf)
+    for k, g in grads.items():
+        want = ref[k].to(g.device)
+        torch.testing.assert_close(g, want, rtol=1e-3, atol=2e-3,
+                                   msg=f"{what} {k}")
+        err, rel = _leaf_err(g, want)
+        if not rel <= GRAD_REL:
+            raise AssertionError(
+                f"{what} {k}: max abs err {err:.3e} is {rel:.3e} of the "
+                f"leaf's largest |grad|, above {GRAD_REL}")
+        out.update(max_abs_err=max(out["max_abs_err"], err),
+                   max_rel_err=max(out["max_rel_err"], rel),
+                   least_scale=min(out["least_scale"],
+                                   want.abs().max().item()))
+    return out
+
+
+def _grad_text(e):
+    return (f"max abs err {e['max_abs_err']:.3e}, at most "
+            f"{e['max_rel_err']:.3e} of a leaf's largest |grad| (limit "
+            f"{GRAD_REL}; the smallest leaf's largest |grad| "
+            f"{e['least_scale']:.3e})")
+
+
+def _replicas_equal(tensors, group):
+    """Whether every rank of ``group`` holds the same bits in each tensor
+    (rank 0's broadcast and compared)."""
+    from vivim_tpu_torch.parallel import comm
+
+    same = True
+    for t in tensors:
+        mine = t.detach().contiguous()
+        theirs = comm.broadcast_(mine.clone(), 0, group)
+        same = same and torch.equal(mine, theirs)
+    return same
+
+
+def _lmp_grad_run(forward, params, toks, sync):
+    """Two forward + backward runs of the next-token loss from leaves
+    cloned off ``params``: (logits, grads, each run's launches of its
+    forward and backward, the first run's launches of its forward, the
+    comm counters of its forward and of its backward, ms of the second
+    run)."""
+    from vivim_tpu_torch.parallel import comm
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    out = {"launches_runs": []}
+    for i in range(2):
+        for p in leaves.values():
+            p.grad = None
+        reset_counts()
+        comm.reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        logits = forward(leaves)
+        fwd_counts = counts()
+        fwd_comm = dict(reduced=list(comm.REDUCED), hopped=list(comm.HOPPED))
+        comm.reset_counters()
+        next_token_loss(logits, toks).backward()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        out["launches_runs"].append(counts())
+        if i == 0:
+            out.update(logits=logits.detach(), launches_fwd=fwd_counts,
+                       comm_fwd=fwd_comm,
+                       comm_bwd=dict(reduced=list(comm.REDUCED),
+                                     hopped=list(comm.HOPPED)))
+        else:
+            out["ms"] = ms
+    out["grads"] = {k: p.grad for k, p in leaves.items()
+                    if p.grad is not None}
+    out["held"] = sum(p.numel() for p in leaves.values())
+    return out
+
+
+def _lmp_rank(rank, world, port, out_dir, spec):
+    """One rank of phase 11 (a spawned process): tp2 (the forward and
+    gradients from this rank's split, ``tp_generate``, the bench CLI in
+    fp32 and bf16, int8 refused, the eval core), then pp2 (the forward and
+    gradients from this rank's stage, the eval core), each held against
+    the parent's one-device reference in ``spec["ref"]``.  Writes
+    ``rank<r>.json``, or ``rank<r>.err`` with its traceback."""
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // (world + 1)))
+        from vivim_tpu_torch.cli import bench_generation
+        from vivim_tpu_torch.cli.lm_eval_harness import MambaEvalCore, load_lm
+        from vivim_tpu_torch.parallel import comm
+        from vivim_tpu_torch.parallel import mesh as mesh_lib
+        from vivim_tpu_torch.parallel import pipeline as pp
+        from vivim_tpu_torch.parallel import tensor_parallel as tp
+
+        mesh_lib.init_distributed("gloo", PAR_GROUP_TIMEOUT_S)
+        dev = torch.device(spec["dev"])
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.set_device(dev)
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        ref = torch.load(spec["ref"], mmap=True, weights_only=True)
+        model, params = load_lm(None, 0, 0, 0, hf_dir=spec["snap"],
+                                device=dev)
+        cfg = model.cfg
+        toks = _lmp_tensors(spec, dev)
+        tok = CharTokenizer(cfg.vocab_size)
+        res = {"modes": {}}
+
+        def peak():
+            return torch.cuda.max_memory_allocated() / 2**30 if on_card \
+                else 0.0
+
+        def score(core):
+            """(each pair's score, the launches of all of them)."""
+            reset_counts()
+            out = [core.loglikelihood_pair(ctx, cont)
+                   for ctx, cont in spec["pairs"]]
+            return out, counts()
+
+        # tp2: this rank's split of every mixer, on a "model" axis
+        mesh = mesh_lib.make_mesh(world, axis="model")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        local = tp.split_tp_params(params, mesh)
+        run = _lmp_grad_run(lambda p: tp.lm_tp_forward(cfg, p, toks, mesh),
+                            local, toks, sync)
+        want = tp.split_tp_params(ref["grads"], mesh)
+        tp2 = dict(
+            logits_err=_max_err(run["logits"], ref["logits"]),
+            grad_err=_check_grads(run["grads"], want, "tp2"),
+            replicated_equal=_replicas_equal(
+                [g for k, g in run["grads"].items()
+                 if ".mixer." not in k or k.endswith("out_proj.bias")],
+                mesh.group("model")),
+            **{k: run[k] for k in ("launches_runs", "launches_fwd",
+                                   "comm_fwd", "comm_bwd", "ms", "held")})
+        # the prefill alone (no new token), then the whole decode: their
+        # difference over the new tokens is each token's all_reduces
+        reset_counts()
+        comm.reset_counters()
+        tp.tp_generate(model, local, toks[:1], 0, mesh)
+        tp2.update(prefill_launches=counts(),
+                   prefill_reduced=list(comm.REDUCED))
+        reset_counts()
+        comm.reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        out = tp.tp_generate(model, local, toks[:1], spec["gen"], mesh,
+                             top_k=1, generator=torch.Generator(
+                                 device=dev).manual_seed(1))
+        sync()
+        tp2.update(generate_ms=(time.perf_counter() - t0) * 1e3,
+                   generate_launches=counts(),
+                   generate_reduced=list(comm.REDUCED),
+                   tokens_equal=torch.equal(out.cpu(), ref["tokens"]))
+        tp2["peak_gib"] = peak()
+        del local, run, want
+        bench = {}
+        for dtype in ("float32", "bfloat16"):
+            buf = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(buf):
+                bench_generation.main([
+                    "--hf_dir", spec["snap"], "--tp_shards", str(world),
+                    "--dist_backend", "gloo", "--device", spec["dev"],
+                    "--dtype", dtype, "--genlen", str(spec["gen"]),
+                    "--repeats", "1"])
+            bench[dtype] = dict(lines=buf.getvalue().strip().splitlines(),
+                                launches=counts())
+        try:
+            bench_generation.main(["--tp_shards", str(world), "--dtype",
+                                   "int8", "--device", spec["dev"]])
+            bench["int8"] = "ran"
+        except SystemExit as e:
+            bench["int8"] = str(e)
+        tp2["bench"] = bench
+        core = MambaEvalCore(model, params, tok, tp_shards=world)
+        tp2["core_held"] = sum(v.numel() for v in core.params.values())
+        tp2["scores"], tp2["score_launches"] = score(core)
+        del core
+        res["modes"]["tp2"] = tp2
+
+        # pp2: this rank's stage of the layers beside the embedding and
+        # norm_f, on a "pipe" axis
+        mesh = mesh_lib.make_mesh(world, axis="pipe")
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        lps = cfg.n_layer // world
+        mine = range(mesh.index("pipe") * lps, (mesh.index("pipe") + 1) * lps)
+        local = {k: v for k, v in params.items()
+                 if not k.startswith("backbone.layers.")
+                 or int(k.split(".")[2]) in mine}
+        run = _lmp_grad_run(
+            lambda p: pp.lm_pp_forward(cfg, p, toks, mesh,
+                                       n_micro=spec["n_micro"]),
+            local, toks, sync)
+        pp2 = dict(
+            logits_err=_max_err(run["logits"], ref["logits"]),
+            grad_err=_check_grads(run["grads"], ref["grads"], "pp2"),
+            replicated_equal=_replicas_equal(
+                [g for k, g in run["grads"].items()
+                 if not k.startswith("backbone.layers.")],
+                mesh.group("pipe")),
+            held_layers=[min(mine), max(mine)],
+            **{k: run[k] for k in ("launches_runs", "launches_fwd",
+                                   "comm_fwd", "comm_bwd", "ms", "held")})
+        pp2["peak_gib"] = peak()
+        del local, run
+        pp2["scores"], pp2["score_launches"] = score(
+            MambaEvalCore(model, params, tok, pp_stages=world))
+        res["modes"]["pp2"] = pp2
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_lm_parallel(peaks=None, dev="cuda", config=LM_CONFIG,
+                      batch=LMP_BATCH, prompt=LMP_PROMPT, gen_len=LMP_GEN,
+                      n_micro=LMP_MICRO):
+    """Phase 11: the LM's tensor-parallel and pipeline paths at mamba-130m
+    width.  (a) In this process: K1-training and K2 at the LM's shapes
+    (whole and half of d_inner) against their plain versions; the
+    one-device ``MambaLM`` gradients of a next-token loss through the
+    kernels against the same model on the plain scan; the one-device
+    logits, gradients, greedy tokens and eval-core scores the ranks are
+    held against.  (b) gloo's point-to-point calls probed on this device's
+    tensors.  (c) Two ranks on this device over gloo (``_lmp_rank``).
+    ``dev="cpu"`` rehearses the host side at a small ``config``.  Returns
+    (launches, summary)."""
+    from vivim_tpu_torch.cli.lm_eval_harness import MambaEvalCore, load_lm
+    from vivim_tpu_torch.nn import lm
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    summary = {"timing": LMP_LABEL}
+    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+
+    def add(c):
+        for k in launched:
+            launched[k] += c[k]
+
+    if on_card:  # (a) the kernels at the LM's shapes
+        d_inner = 2 * config["d_model"]
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        summary["fwd_rows"], summary["bwd_rows"] = train_kernel_rows(
+            peaks, [(f"lm d={d}", prompt, d) for d in (d_inner,
+                                                       d_inner // 2)],
+            batch, gen, "LM")
+    with tempfile.TemporaryDirectory() as work:
+        snap = os.path.join(work, "snap")
+        os.makedirs(snap)
+        write_lm_snapshot(snap, config)
+        model, params = load_lm(None, 0, 0, 0, hf_dir=snap, device=dev)
+        cfg = model.cfg
+        spec = dict(dev=f"{dev.type}:0" if on_card else "cpu", snap=snap,
+                    ref=os.path.join(work, "ref.pt"), vocab=cfg.vocab_size,
+                    batch=batch, prompt=prompt, gen=gen_len, n_micro=n_micro,
+                    pairs=lmp_pairs(LMP_PAIRS))
+        toks = _lmp_tensors(spec, dev)
+        # (a) one device, through the kernels and through the plain scan
+        ref_model = lm.MambaLM(cfg, scan_implementation="ref")
+        ref_model.load_state_dict(model.state_dict())
+        ref_model = ref_model.to(dev)
+        runs = {}
+        for name, m in (("kernels", model), ("plain", ref_model)):
+            reset_counts()
+            logits = m(toks)
+            loss = next_token_loss(logits, toks)
+            loss.backward()
+            sync()
+            runs[name] = dict(
+                logits=logits.detach(), loss=loss.item(), launches=counts(),
+                grads={k: p.grad for k, p in m.named_parameters()})
+        got, want = runs["kernels"], runs["plain"]
+        add(got["launches"])
+        per = cfg.n_layer
+        if on_card and got["launches"] != {"K1 inference": 0,
+                                           "K1 training": per, "K2": per}:
+            raise AssertionError(f"one-device LM step launched "
+                                 f"{got['launches']}")
+        if abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
+            raise AssertionError(f"LM loss {got['loss']} through the kernels"
+                                 f", {want['loss']} on the plain scan")
+        one_err = _check_grads(got["grads"], want["grads"], "one-device LM")
+        # the check must fail a gradient scaled by 1/k (k = 2), the fault
+        # of a missing or wrong adjoint, on every leaf
+        passed = [k for k, g in got["grads"].items()
+                  if _leaf_err(0.5 * g, want["grads"][k])[1] <= GRAD_REL]
+        if passed:
+            raise AssertionError(f"the gradient check passes halved "
+                                 f"gradients of {passed}")
+        summary["one_device"] = dict(
+            loss=got["loss"], plain_loss=want["loss"], grad_err=one_err,
+            logits_err=_max_err(got["logits"], want["logits"]),
+            launches=got["launches"])
+        print(f"lm parallel: one device, batch {batch} x {prompt}, "
+              f"next-token loss {got['loss']:.7f} through K1-training + K2 "
+              f"vs {want['loss']:.7f} on the plain scan; every gradient "
+              f"within rtol 1e-3 / atol 2e-3, {_grad_text(one_err)}; "
+              f"every leaf halved fails the check; launches "
+              f"{got['launches']}", flush=True)
+        del ref_model, runs, want
+        model.zero_grad(set_to_none=True)
+        # the reference of the ranks: the kernels' run, greedy tokens and
+        # scores on one device
+        reset_counts()
+        ref_tokens = lm.generate(
+            model, params, toks[:1], gen_len, top_k=1,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        core = MambaEvalCore(model, params, CharTokenizer(cfg.vocab_size))
+        ref_scores = [core.loglikelihood_pair(c, x) for c, x in spec["pairs"]]
+        add(counts())
+        torch.save({"logits": got["logits"].cpu(), "tokens": ref_tokens.cpu(),
+                    "grads": {k: g.cpu() for k, g in got["grads"].items()}},
+                   spec["ref"])
+        del model, params, got, core
+        if on_card:
+            torch.cuda.empty_cache()
+        # (b) gloo's point-to-point calls on this device's tensors
+        summary["p2p_probe"] = _probe_p2p(dev, work)
+        print(f"lm parallel: gloo point-to-point on {spec['dev']} tensors, "
+              f"checked by value: {summary['p2p_probe']}", flush=True)
+        # (c) the ranks
+        out_dir = os.path.join(work, "ranks")
+        os.makedirs(out_dir)
+        secs = _spawn_ranks(_lmp_rank, 2, out_dir, spec, LMP_WALL_S)
+        ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+                 for r in range(2)]
+    summary["spawn_s"] = secs
+    lps = cfg.n_layer // 2
+    want_launches = {
+        "tp2": {"K1 inference": 0, "K1 training": per, "K2": per},
+        "pp2": {"K1 inference": 0,
+                "K1 training": lps * (n_micro + 1),
+                "K2": lps * (n_micro + 1)}}
+    for mode in ("tp2", "pp2"):
+        per_rank = [r["modes"][mode] for r in ranks]
+        for r, o in enumerate(per_rank):
+            if not o["logits_err"] <= 1e-3:
+                raise AssertionError(f"{mode} rank {r}: logits "
+                                     f"{o['logits_err']:.3e} from one "
+                                     "device's")
+            if not o["replicated_equal"]:
+                raise AssertionError(f"{mode} rank {r}: the replicated "
+                                     "leaves' gradients differ between ranks")
+            for run in o["launches_runs"]:
+                if on_card and run != want_launches[mode]:
+                    raise AssertionError(f"{mode} rank {r} launched {run} "
+                                         "in a forward + backward, "
+                                         f"expected {want_launches[mode]}")
+            # every scoring forward: n_micro 1, so a pipeline stage runs
+            # its layers at each of its k ticks
+            want_score = (lps * 2 if mode == "pp2" else per) * len(
+                o["scores"])
+            if on_card and o["score_launches"] != {
+                    "K1 inference": want_score, "K1 training": 0, "K2": 0}:
+                raise AssertionError(f"{mode} rank {r}: {len(o['scores'])} "
+                                     "scoring forwards launched "
+                                     f"{o['score_launches']}, expected "
+                                     f"{want_score} K1 inference")
+            if mode == "tp2" and o["core_held"] != o["held"]:
+                raise AssertionError(f"tp2 rank {r}: the eval core holds "
+                                     f"{o['core_held']} parameters, its "
+                                     f"split {o['held']}")
+            for (ll, greedy), (ll1, greedy1) in zip(o["scores"], ref_scores):
+                if abs(ll - ll1) > 1e-3 or greedy != greedy1:
+                    raise AssertionError(
+                        f"{mode} rank {r}: score {ll} ({greedy}) vs one "
+                        f"device's {ll1} ({greedy1})")
+            for run in o["launches_runs"]:
+                add(run)
+            add(o["score_launches"])
+            print(f"lm parallel {mode} rank {r}: logits within "
+                  f"{o['logits_err']:.3e} of one device's, gradients "
+                  f"{_grad_text(o['grad_err'])}; launches per "
+                  f"forward {o['launches_fwd']}, per forward + backward "
+                  f"{o['launches_runs'][0]} (both runs alike); all_reduces "
+                  "per forward "
+                  f"{o['comm_fwd']['reduced'][0]} "
+                  f"({o['comm_fwd']['reduced'][1] / 2**20:.2f} MiB), per "
+                  f"backward {o['comm_bwd']['reduced'][0]} "
+                  f"({o['comm_bwd']['reduced'][1] / 2**20:.2f} MiB); hops "
+                  f"per forward {o['comm_fwd']['hopped'][0]} "
+                  f"({o['comm_fwd']['hopped'][1] / 2**10:.0f} KiB), per "
+                  f"backward {o['comm_bwd']['hopped'][0]}; parameters held "
+                  f"{o['held'] / 1e6:.2f} M; peak {o['peak_gib']:.2f} GiB; "
+                  f"forward + backward {o['ms']:.1f} ms, second call "
+                  f"({LMP_LABEL}); {len(o['scores'])} eval-core scores "
+                  f"within 1e-3 of one device's, greedy flags equal, "
+                  f"{o['score_launches']['K1 inference']} K1 in the "
+                  f"{len(o['scores'])} scoring forwards"
+                  + (f"; the eval core holds {o['core_held'] / 1e6:.2f} M "
+                     "parameters, its split" if mode == "tp2" else ""),
+                  flush=True)
+        summary[mode] = [{k: v for k, v in o.items() if k != "bench"}
+                         for o in per_rank]
+    tp2 = [r["modes"]["tp2"] for r in ranks]
+    for r, o in enumerate(tp2):
+        n_tok, tok_bytes = ((g - p) / gen_len for g, p in zip(
+            o["generate_reduced"], o["prefill_reduced"]))
+        if not o["tokens_equal"]:
+            raise AssertionError(f"tp_generate rank {r}: tokens differ from "
+                                 "one device's generate")
+        if on_card and o["generate_launches"]["K1 inference"] != per:
+            raise AssertionError(f"tp_generate rank {r} launched "
+                                 f"{o['generate_launches']}")
+        if n_tok != 2 * per or o["prefill_reduced"][0] != 2 * per:
+            raise AssertionError(
+                f"tp_generate rank {r}: {o['prefill_reduced'][0]} "
+                f"all_reduces in the prefill and {n_tok} per decode token, "
+                f"expected {2 * per} each")
+        if on_card and o["prefill_launches"]["K1 inference"] != per:
+            raise AssertionError(f"tp_generate prefill rank {r} launched "
+                                 f"{o['prefill_launches']}")
+        add(o["generate_launches"])
+        add(o["prefill_launches"])
+        for dtype in ("float32", "bfloat16"):
+            b = o["bench"][dtype]
+            add(b["launches"])
+            if on_card and b["launches"]["K1 inference"] != 2 * per:
+                raise AssertionError(f"bench --tp_shards {dtype} rank {r} "
+                                     f"launched {b['launches']}")
+        if "single-device decode only" not in o["bench"]["int8"]:
+            raise AssertionError(f"bench --dtype int8 --tp_shards rank {r}: "
+                                 f"{o['bench']['int8']}")
+        print(f"lm parallel tp_generate rank {r}: {gen_len} tokens at top-k "
+              f"1 from a (1, {prompt}) prompt equal to one device's "
+              f"generate; {o['generate_launches']['K1 inference']} K1 per "
+              f"generate; all_reduces: {o['prefill_reduced'][0]} in the "
+              f"prefill ({o['prefill_reduced'][1] / 2**20:.2f} MiB), "
+              f"{n_tok:.0f} per decode token ({tok_bytes / 2**10:.1f} KiB); "
+              f"{o['generate_ms']:.1f} ms ({LMP_LABEL})", flush=True)
+    lines = {}
+    for dtype in ("float32", "bfloat16"):
+        if tp2[1]["bench"][dtype]["lines"]:
+            raise AssertionError(f"bench {dtype}: rank 1 printed")
+        line = tp2[0]["bench"][dtype]["lines"][-1]
+        lines[dtype] = json.loads(line)
+        print(f"lm parallel bench_generation --tp_shards 2 --dtype {dtype} "
+              f"(rank 0; {LMP_LABEL}): {line}", flush=True)
+    print(f"lm parallel: bench_generation --dtype int8 --tp_shards 2 stops: "
+          f"{tp2[0]['bench']['int8']}", flush=True)
+    summary["bench"] = lines
+    summary["secs"] = time.perf_counter() - t_phase
+    print(f"lm parallel: phase {summary['secs']:.1f} s, of which the ranks "
+          f"{secs:.1f} s", flush=True)
+    return launched, summary
+
+
+def lm_step_rows(rows):
+    """The rows of one-device LM training's shape: (LMP_BATCH, LMP_PROMPT,
+    d_inner)."""
+    return [r for r in rows if r["d"] == 2 * LM_CONFIG["d_model"]]
+
+
+def lm_step_text():
+    return (f"LM training step: one launch per layer at ({LMP_BATCH}, "
+            f"{LMP_PROMPT}, {2 * LM_CONFIG['d_model']}), "
+            f"{LM_CONFIG['n_layer']} per step on one device (a tensor-"
+            f"parallel rank's are at d {LM_CONFIG['d_model']}, in shapes), "
+            f"fp32, {TIMING}")
+
+
 def _kernel_entry(name, source, replaces, launches, rows, per,
                   weight=LAYERS_PER_STAGE, timed=None, **extra):
     """The kernels line's entry: times summed over the fp32 rows of
@@ -2649,12 +3307,15 @@ def main():
         t0 = done("9c host tools", t0)
         par_launched, par_perf = phase_parallel(work.name)
         t0 = done("10 parallel (2 ranks over gloo on one card)", t0)
+    lmp_launched, lmp_perf = phase_lm_parallel(peaks)
+    t0 = done("11 LM tensor parallel and pipeline (2 ranks over gloo on one "
+              "card)", t0)
 
     paths = {"serve": serve_launched, "train": train_launched,
              "train_cli": cli_launched, "binary_edge": binary_launched,
              "lm": lm_launched, "remat": remat_launched,
              "infer_ckpt": infer_launched, "profile": tools_launched,
-             "parallel": par_launched}
+             "parallel": par_launched, "lm_parallel": lmp_launched}
     total = {k: sum(p[k] for p in paths.values())
              for k in ("K1 inference", "K1 training", "K2")}
     k1 = _kernel_entry(
@@ -2681,7 +3342,14 @@ def main():
             f"{JAX_PACKAGE}/kernels/selective_scan.py:174",
             total["K1 training"], fwd_rows,
             f"train step: {LAYERS_PER_STAGE} launches at each stage shape "
-            f"(scan batch {TRAIN_SCAN_BATCH}), fp32, {TIMING}"))
+            f"(scan batch {TRAIN_SCAN_BATCH}), fp32, {TIMING}"),
+        lm_training=_kernel_entry(
+            "selective_scan_fwd (training variant, LM)",
+            "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
+            f"{JAX_PACKAGE}/kernels/selective_scan.py:174",
+            lmp_launched["K1 training"], lmp_perf["fwd_rows"],
+            lm_step_text(), weight=LM_CONFIG["n_layer"],
+            timed=lm_step_rows(lmp_perf["fwd_rows"])))
     k2 = _kernel_entry(
         "selective_scan_bwd",
         "vivim_tpu_torch/kernels/csrc/selective_scan_bwd.cu",
@@ -2689,14 +3357,23 @@ def main():
         total["K2"], bwd_rows,
         f"train step: {LAYERS_PER_STAGE} launches at each stage shape "
         f"(scan batch {TRAIN_SCAN_BATCH}), fp32, {TIMING}",
-        ragged_max_abs_err=ragged_err, launches_by_path=paths)
+        ragged_max_abs_err=ragged_err, launches_by_path=paths,
+        lm=_kernel_entry(
+            "selective_scan_bwd (LM)",
+            "vivim_tpu_torch/kernels/csrc/selective_scan_bwd.cu",
+            f"{JAX_PACKAGE}/kernels/selective_scan.py:227",
+            lmp_launched["K2"], lmp_perf["bwd_rows"], lm_step_text(),
+            weight=LM_CONFIG["n_layer"],
+            timed=lm_step_rows(lmp_perf["bwd_rows"])))
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     lm_summary = {k: v for k, v in lm_perf.items() if k != "scan_rows"}
+    lmp_summary = {k: v for k, v in lmp_perf.items()
+                   if k not in ("fwd_rows", "bwd_rows")}
     print(json.dumps({"kernels": [k1, k2], "train": train_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
                       "lm": lm_summary, "remat": remat_perf,
                       "infer_ckpt": infer_perf, "tools": tools_perf,
-                      "parallel": par_perf}))
+                      "parallel": par_perf, "lm_parallel": lmp_summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,8 +2,10 @@
 write phase 6's PNG tree (without phase 6's runs), and run
 ``chip_smoke.phase_parallel`` (two ranks over gloo sharing the card; it
 prints which collectives gloo runs on CUDA tensors, checked by value).
+With ``--lm``, run phase 11 alone instead (``chip_smoke.phase_lm_parallel``:
+the LM's tensor-parallel and pipeline paths, two ranks over gloo).
 
-    python3 scripts/probe_parallel.py
+    python3 scripts/probe_parallel.py [--lm]
 """
 import json
 import os
@@ -26,6 +28,14 @@ if __name__ == "__main__":
     print(sys.version, torch.__version__, torch.version.cuda, flush=True)
     print(f"build {_build.build_all():.1f} s", flush=True)
     print(cs.nvidia_smi("name,power.limit"), flush=True)
+    if "--lm" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        launched, perf = cs.phase_lm_parallel(
+            cs.card_peaks(torch.cuda.get_device_name(0)))
+        print(f"phase 11: {time.perf_counter() - t0:.1f} s; {launched}",
+              flush=True)
+        print(json.dumps(perf), flush=True)
+        sys.exit(0)
     if native.get_lib() is None:
         sys.exit("probe_parallel: the native host ops did not build")
     with tempfile.TemporaryDirectory() as work:

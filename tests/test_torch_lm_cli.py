@@ -208,17 +208,29 @@ def test_bench_generation_keys_equal_the_jax_cli(capsys):
 
 
 def test_unported_and_missing_pieces_stop_as_the_jax_clis(tmp_path):
+    """Missing pieces stop as the JAX CLIs do.  ``--tp_shards`` /
+    ``--pp_stages`` run under torchrun (``tests/test_torch_tensor_parallel.
+    py``); outside it the bench stops naming the torchrun command, the eval
+    CLI stops first for the missing ``lm_eval`` (the JAX CLI's order), and
+    the eval core finds no process group to shard over."""
     with pytest.raises(SystemExit, match="--prompt needs --tokenizer"):
         tbench.main(TINY + ["--device", "cpu", "--prompt", "hi"])
-    with pytest.raises(SystemExit, match=r"--tp_shards 2 \(ROADMAP M12\)"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
         tbench.main(TINY + ["--device", "cpu", "--tp_shards", "2"])
+    with pytest.raises(SystemExit, match="single-device decode only"):
+        tbench.main(TINY + ["--device", "cpu", "--tp_shards", "2",
+                            "--dtype", "int8"])
     for flag in ("--tp_shards", "--pp_stages"):
-        with pytest.raises(SystemExit, match=r"ROADMAP M12"):
-            teval.main(["--tasks", "x", flag, "2", "--device", "cpu"])
+        for main in (teval.main, jeval.main):
+            with pytest.raises(SystemExit, match="lm_eval is not installed"):
+                main(["--tasks", "x", flag, "2"])
     for main in (teval.main, jeval.main):
         with pytest.raises(SystemExit, match="lm_eval is not installed"):
             main(["--tasks", "lambada_openai"])
     model, params = teval.load_lm(None, 50, 16, 2, device="cpu")
     for kw in (dict(tp_shards=2), dict(pp_stages=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP M12"):
+        with pytest.raises(ValueError, match="use torchrun"):
             teval.MambaEvalCore(model, params, ToyTokenizer(), **kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        teval.MambaEvalCore(model, params, ToyTokenizer(), tp_shards=2,
+                            pp_stages=2)

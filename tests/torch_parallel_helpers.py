@@ -340,3 +340,209 @@ def cli_body(rank, world, out_dir, cli, argv, min_shard_elems=None):
     res = mod.main(argv)
     with open(os.path.join(out_dir, f"cli_rank{rank}.json"), "w") as f:
         json.dump(res, f, default=float)
+
+
+# ------------------------------------------------- LM model-parallel bodies
+
+
+class CharTok:
+    """The JAX TP / PP tests' tokenizer: ids of characters mod 50, eos 0."""
+
+    eos_token_id = 0
+
+    def encode(self, s):
+        return [ord(c) % 50 for c in s]
+
+    def decode(self, ids):
+        return "".join(chr(65 + (i % 26)) for i in ids)
+
+
+# the JAX TP test's decode cases: greedy up to eos 1, and a draw at
+# temperature 0.8 from the top 5
+GEN_CASES = ({"temperature": 0.0, "eos_token_id": 1},
+             {"temperature": 0.8, "top_k": 5})
+GEN_SEED = 3
+SCORE_PAIR = ("hello wor", "ld")
+
+
+def _tensors(arrays):
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+def load_lm(out_dir, name, lm_cfg):
+    """(port MambaLM, its parameter dict, tokens) from ``name``.npz (a port
+    state_dict beside ``tokens``)."""
+    from vivim_tpu_torch.nn import lm as tlm
+
+    d = load(out_dir, name)
+    toks = torch.from_numpy(d.pop("tokens")).long()
+    model = tlm.MambaLM(tlm.MambaLMConfig(**lm_cfg))
+    model.load_state_dict(_tensors(d), strict=True)
+    return model.eval(), tlm.lm_params(model), toks
+
+
+def _grad_run(forward, params):
+    """(logits, {name: grad}) of sum(logits ** 2) through ``forward`` from
+    leaves cloned off ``params``."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    logits = forward(leaves)
+    (logits ** 2).sum().backward()
+    return logits, {k: p.grad for k, p in leaves.items()
+                    if p.grad is not None}
+
+
+def _prefixed(prefix, d):
+    return {f"{prefix}{k}": v for k, v in d.items()}
+
+
+def tp_body(rank, world, out_dir, lm_cfg):
+    """Tensor parallel over a "model" axis of every rank: the plain and the
+    biased mixer; the LM's logits and the gradients of sum(logits ** 2)
+    from this rank's split; ``tp_generate`` in both decode cases and with
+    biased mixers; the eval core's score, greedy continuation and the
+    bytes its split holds."""
+    from vivim_tpu_torch.cli.lm_eval_harness import MambaEvalCore
+    from vivim_tpu_torch.parallel import tensor_parallel as tp
+    from vivim_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(world, axis="model")
+    res = {}
+    for name in ("mixer", "mixer_bias"):
+        d = _tensors(load(out_dir, name))
+        res[f"{name}_y"] = tp.tp_mamba_mixer(d, d.pop("x"), mesh)
+    model, params, toks = load_lm(out_dir, "lm", lm_cfg)
+    cfg = model.cfg
+    local = tp.split_tp_params(params, mesh)
+    logits, grads = _grad_run(
+        lambda p: tp.lm_tp_forward(cfg, p, toks, mesh), local)
+    res.update(logits=logits, **_prefixed("g:", grads))
+    _, _, gen_toks = load_lm(out_dir, "gen", lm_cfg)
+    for i, kw in enumerate(GEN_CASES):
+        res[f"gen{i}"] = tp.tp_generate(
+            model, local, gen_toks, 6, mesh,
+            generator=torch.Generator().manual_seed(GEN_SEED), **kw)
+    d = _tensors(load(out_dir, "lm_bias"))
+    bias_toks = d.pop("tokens").long()
+    res["gen_bias"] = tp.tp_generate(model, tp.split_tp_params(d, mesh),
+                                     bias_toks, 5, mesh, temperature=0.0)
+    core = MambaEvalCore(model, params, CharTok(), max_gen_toks=5,
+                         tp_shards=world)
+    res["ll"], res["greedy"] = core.loglikelihood_pair(*SCORE_PAIR)
+    res["until"] = core.generate_until_str("ab")
+    res["core_bytes"] = sum(v.untyped_storage().nbytes()
+                            for v in core.params.values())
+    res["split_bytes"] = sum(v.numel() * v.element_size()
+                             for v in local.values())
+    save(out_dir, f"tp_rank{rank}", **res)
+
+
+def tp_hybrid_body(rank, world, out_dir, lm_cfg):
+    """A 2 x 2 ("data", "model") mesh: the global batch's logits, each
+    rank its data block's, its mixers split over model."""
+    from vivim_tpu_torch.data.loader import block_rows
+    from vivim_tpu_torch.parallel import tensor_parallel as tp
+    from vivim_tpu_torch.parallel.mesh import make_hybrid_mesh
+
+    mesh = make_hybrid_mesh(2, 2, ("data", "model"))
+    model, params, toks = load_lm(out_dir, "lm4", lm_cfg)
+    with torch.no_grad():
+        logits = tp.lm_tp_forward(model.cfg,
+                                  tp.split_tp_params(params, mesh), toks,
+                                  mesh, batch_axis="data")
+    save(out_dir, f"tp_hybrid_rank{rank}", logits=logits,
+         rows=block_rows(toks.shape[0], mesh.index("data"), 2),
+         coords=[mesh.index("data"), mesh.index("model")])
+
+
+def pp_body(rank, world, out_dir, cases, hybrid_cfg=None):
+    """Pipeline over a "pipe" axis of every rank, one result per case:
+    ``(npz name, config, n_micro, with gradients)``; then with 2 ranks the
+    eval core's score and both hop routes of ``comm.ppermute`` on the same
+    tensors, with 4 and a ``hybrid_cfg`` the 2 x 2 ("data", "pipe")
+    case."""
+    from vivim_tpu_torch.cli.lm_eval_harness import MambaEvalCore
+    from vivim_tpu_torch.parallel import comm
+    from vivim_tpu_torch.parallel import pipeline as pp
+    from vivim_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(world, axis="pipe")
+    for name, lm_cfg, n_micro, grads in cases:
+        model, params, toks = load_lm(out_dir, name, lm_cfg)
+        fwd = lambda p: pp.lm_pp_forward(model.cfg, p, toks, mesh,
+                                         n_micro=n_micro)
+        comm.reset_counters()
+        if grads:
+            logits, g = _grad_run(fwd, params)
+        else:
+            with torch.no_grad():
+                logits, g = fwd(params), {}
+        save(out_dir, f"pp_{name}_w{world}_rank{rank}", logits=logits,
+             hops=comm.HOPPED, **_prefixed("g:", g))
+    if world == 2:
+        model, params, _ = load_lm(out_dir, cases[0][0], cases[0][1])
+        core = MambaEvalCore(model, params, CharTok(), pp_stages=world)
+        ll, greedy = core.loglikelihood_pair(*SCORE_PAIR)
+        x = torch.arange(6.0).reshape(2, 3) + 10 * rank
+        hop = [(i, (i + 1) % world) for i in range(world)]
+        routes = {}
+        for route in (comm._hop_p2p, comm._hop_gather):
+            routes[route.__name__] = route(x.clone(), hop, comm.world())
+        xr = x.clone().requires_grad_(True)
+        y = comm.ppermute(xr, hop, comm.world())
+        (y * (rank + 1)).sum().backward()
+        save(out_dir, f"pp_core_rank{rank}", ll=ll, greedy=greedy,
+             ppermute=y, ppermute_grad=xr.grad, **routes)
+    if hybrid_cfg is not None:
+        from vivim_tpu_torch.data.loader import block_rows
+        from vivim_tpu_torch.parallel.mesh import make_hybrid_mesh
+
+        mesh = make_hybrid_mesh(2, 2, ("data", "pipe"))
+        model, params, toks = load_lm(out_dir, "hybrid", hybrid_cfg)
+        with torch.no_grad():
+            logits = pp.lm_pp_forward(model.cfg, params, toks, mesh,
+                                      n_micro=2, batch_axis="data")
+        save(out_dir, f"pp_hybrid_rank{rank}", logits=logits,
+             rows=block_rows(toks.shape[0], mesh.index("data"), 2, 2))
+
+
+def lm_cli_body(rank, world, out_dir, bench_argv, eval_argv):
+    """``bench_generation.main(bench_argv)``, then ``lm_eval_harness.main(
+    eval_argv)`` with ``lm_eval`` and the tokenizer stood in for (neither
+    is installed here): the stand-in harness asks the wrapper for the
+    log-likelihood of ``SCORE_PAIR``."""
+    import contextlib
+    import io
+    import json
+    import sys
+    import types
+
+    import transformers
+
+    from vivim_tpu_torch.cli import bench_generation, lm_eval_harness
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_generation.main(bench_argv)
+    lines = buf.getvalue().strip().splitlines()
+
+    class Request:
+        def __init__(self, *args):
+            self.args = args
+
+    def simple_evaluate(model, tasks, limit):
+        return {"results": {"pair": model.loglikelihood(
+            [Request(*SCORE_PAIR)])[0]}}
+
+    harness = types.ModuleType("lm_eval")
+    harness.simple_evaluate = simple_evaluate
+    api = types.ModuleType("lm_eval.api")
+    api.model = types.ModuleType("lm_eval.api.model")
+    api.model.LM = object
+    sys.modules.update({"lm_eval": harness, "lm_eval.api": api,
+                        "lm_eval.api.model": api.model})
+    transformers.AutoTokenizer.from_pretrained = lambda name: CharTok()
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = lm_eval_harness.main(eval_argv)
+    with open(os.path.join(out_dir, f"lm_cli_rank{rank}.json"), "w") as f:
+        json.dump({"bench": lines, "eval": results["results"]["pair"]}, f)

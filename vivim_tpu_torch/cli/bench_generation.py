@@ -13,6 +13,13 @@ Usage (on the card unless ``--device cpu``):
   python -m vivim_tpu_torch.cli.bench_generation --hf_dir /path/snapshot \\
       --prompt "My cat wrote all this CUDA code for a new language model" \\
       --tokenizer EleutherAI/gpt-neox-20b
+  torchrun --nproc_per_node 2 -m vivim_tpu_torch.cli.bench_generation \\
+      --tp_shards 2                 # a card per rank, NCCL
+  torchrun --nproc_per_node 2 -m vivim_tpu_torch.cli.bench_generation \\
+      --tp_shards 2 --dist_backend gloo --device cuda:0   # one card shared
+
+``--tp_shards N`` decodes tensor-parallel (``parallel/tensor_parallel.
+tp_generate``) over N ranks, one process each; only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ def main(argv=None):
     p.add_argument("--topp", type=float, default=1.0)
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--tp_shards", type=int, default=1,
-                   help="tensor-parallel decode: not ported (ROADMAP M12)")
+                   help="tensor-parallel decode over a 'model' mesh axis "
+                        "of that many ranks under torchrun (sharded "
+                        "conv/ssm cache; parallel/tensor_parallel)")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16", "int8"],
                    help="weights and activations of the decode: bfloat16 "
@@ -61,19 +70,29 @@ def main(argv=None):
                         "The SSM state and its recurrence stay fp32 in "
                         "every mode")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device (cuda by default; cpu runs the "
-                        "kernels' plain versions)")
+                   help="torch device (cuda by default, cuda:LOCAL_RANK "
+                        "per rank; cuda:<i> puts every rank on card i, "
+                        "gloo only; cpu runs the kernels' plain versions)")
+    p.add_argument("--dist_backend", type=str, default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend of --tp_shards ranks "
+                        "(gloo for the CPU, or for ranks that share one "
+                        "card)")
     args = p.parse_args(argv)
-    if args.tp_shards > 1:
-        raise SystemExit(f"not ported yet: --tp_shards {args.tp_shards} "
-                         "(ROADMAP M12)")
+    if args.dtype == "int8" and args.tp_shards > 1:
+        raise SystemExit("--dtype int8 is single-device decode only "
+                         "(the TP island shards plain param trees)")
 
+    from vivim_tpu_torch.cli.common import init_model_parallel
     from vivim_tpu_torch.cli.lm_eval_harness import load_lm
     from vivim_tpu_torch.nn.lm import generate
 
+    device, mesh = init_model_parallel(
+        args.tp_shards, "model", "--tp_shards", args.device,
+        args.dist_backend, "bench_generation")
     model, params = load_lm(args.ckpt, args.vocab, args.d_model,
                             args.n_layer, hf_dir=args.hf_dir,
-                            hf_repo=args.hf_repo, device=args.device)
+                            hf_repo=args.hf_repo, device=device)
     dev = next(model.parameters()).device
     if args.dtype == "bfloat16":
         params = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
@@ -100,10 +119,25 @@ def main(argv=None):
                             device=dev)
 
     def gen():
-        return generate(model, params, tokens, args.genlen,
-                        generator=torch.Generator(device=dev).manual_seed(1),
-                        temperature=args.temperature, top_k=args.topk,
-                        top_p=args.topp)
+        kw = dict(generator=torch.Generator(device=dev).manual_seed(1),
+                  temperature=args.temperature, top_k=args.topk,
+                  top_p=args.topp)
+        if mesh is not None:
+            return tp_generate(model, params, tokens, args.genlen, mesh,
+                               **kw)
+        return generate(model, params, tokens, args.genlen, **kw)
+
+    if mesh is not None:
+        from vivim_tpu_torch.parallel.tensor_parallel import (
+            split_tp_params,
+            tp_generate,
+        )
+
+        # this rank's channels, split once and held alone: the whole
+        # weights go (tp_generate reads only the model's config)
+        params = {k: v.clone() for k, v in
+                  split_tp_params(params, mesh).items()}
+        model.to("meta")
 
     def sync():
         if dev.type == "cuda":
@@ -116,6 +150,8 @@ def main(argv=None):
         out = gen()
     sync()
     dt = (time.perf_counter() - t0) / args.repeats
+    if mesh is not None and not mesh.is_main:
+        return out
     print(json.dumps({
         "prompt_len": int(tokens.shape[1]),
         "gen_len": args.genlen,

@@ -1,5 +1,6 @@
 """Shared CLI plumbing: the ranks of a run (``-n_devices``, ``-seq_shards``,
-``-zero``, ``-dist_backend``), the device, the model and the loaders from
+``-zero``, ``-dist_backend``; the LM CLIs' ``--tp_shards`` /
+``--pp_stages``), the device, the model and the loaders from
 parsed args, the pretrained-weight grafts (``-hf_dir``, ``-pretrain``) and
 the binary CLIs' epoch loop."""
 
@@ -78,33 +79,66 @@ def init_parallel(args, cli: str):
             f"-train_bs {args.train_bs} must split into -grad_accum "
             f"{args.grad_accum} micro-batches of equal shards over the "
             f"{dp} 'data' devices")
-    backend = args.dist_backend
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if device.index is None:
-            local = int(os.environ.get("LOCAL_RANK", "0"))
-            device = torch.device("cuda", local)
-            if torch.cuda.is_available() and (
-                    local >= torch.cuda.device_count()):
-                raise SystemExit(
-                    f"rank {local} of this node has no card of its own "
-                    f"({torch.cuda.device_count()} visible); run fewer "
-                    "ranks, or share one card with -dist_backend gloo "
-                    "-device cuda:0")
-        elif backend == "nccl":
-            raise SystemExit(
-                f"-device {args.device} puts every rank on one card, which "
-                "NCCL refuses; pass -device cuda (a card per rank), or "
-                "-dist_backend gloo to share the card")
-        if torch.cuda.is_available():
-            torch.cuda.set_device(device)
-    mesh_lib.init_distributed(backend)
+    device = _join_ranks(args.device, args.dist_backend, "-")
     if seq > 1:
         mesh = (mesh_lib.make_hybrid_mesh(dp, seq) if dp > 1
                 else mesh_lib.make_mesh(seq, axis="seq"))
     else:
         mesh = mesh_lib.make_mesh(dp, axis="data")
     return str(device), mesh
+
+
+def _join_ranks(device, backend, dash):
+    """This rank's card (``cuda:LOCAL_RANK`` for ``device`` "cuda";
+    ``cuda:<i>`` puts every rank on card i, which only gloo allows), set
+    as current, and the run's process group joined."""
+    from vivim_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            dev = torch.device("cuda", local)
+            if torch.cuda.is_available() and (
+                    local >= torch.cuda.device_count()):
+                raise SystemExit(
+                    f"rank {local} of this node has no card of its own "
+                    f"({torch.cuda.device_count()} visible); run fewer "
+                    f"ranks, or share one card with {dash}dist_backend "
+                    f"gloo {dash}device cuda:0")
+        elif backend == "nccl":
+            raise SystemExit(
+                f"{dash}device {device} puts every rank on one card, which "
+                f"NCCL refuses; pass {dash}device cuda (a card per rank), "
+                f"or {dash}dist_backend gloo to share the card")
+        if torch.cuda.is_available():
+            torch.cuda.set_device(dev)
+    mesh_lib.init_distributed(backend)
+    return dev
+
+
+def init_model_parallel(n, axis, flag, device, backend, cli):
+    """The device and the 1-D mesh of an LM CLI run of ``n`` ranks over
+    ``axis`` (``--tp_shards`` over "model", ``--pp_stages`` over "pipe"):
+    (device, None) for one rank.  Several ranks run one process each under
+    ``torchrun --nproc_per_node n``, each on its card as the training CLIs'
+    ranks (``init_parallel``)."""
+    from vivim_tpu_torch.parallel import mesh as mesh_lib
+
+    env_world = int(os.environ.get("WORLD_SIZE", n))
+    if env_world != n:
+        raise SystemExit(
+            f"this run has {env_world} process(es) but {flag} {n}: launch "
+            f"torchrun --nproc_per_node {n}, or set the flag to the world "
+            "size")
+    if n == 1:
+        return device, None
+    if not mesh_lib.in_torchrun():
+        raise SystemExit(
+            f"{flag} {n} runs one process per rank: torchrun "
+            f"--nproc_per_node {n} -m vivim_tpu_torch.cli.{cli} <flags>")
+    dev = _join_ranks(device, backend, "--")
+    return str(dev), mesh_lib.make_mesh(n, axis)
 
 
 def loader_split(args, mesh):

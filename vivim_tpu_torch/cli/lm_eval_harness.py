@@ -9,8 +9,10 @@ behind ``lm_eval.api.model.LM`` when the harness is installed.
   python -m vivim_tpu_torch.cli.lm_eval_harness --tasks lambada_openai \\
       --hf_dir /path/to/mamba-130m --tokenizer EleutherAI/gpt-neox-20b
 
-Runs on the card unless given ``--device cpu``.  ``--tp_shards`` /
-``--pp_stages`` above 1 are not ported (ROADMAP M12) and stop the CLI.
+Runs on the card unless given ``--device cpu``.  ``--tp_shards N`` /
+``--pp_stages N`` score tensor- / pipeline-parallel over N ranks, one
+process each under ``torchrun --nproc_per_node N`` (``--dist_backend gloo
+--device cuda:0`` shares one card).
 """
 
 from __future__ import annotations
@@ -22,16 +24,15 @@ import os
 import torch
 
 
-def _refuse_sharding(tp_shards, pp_stages):
-    refused = [f"{flag} {n} (ROADMAP M12)"
-               for flag, n in (("tp_shards", tp_shards),
-                               ("pp_stages", pp_stages)) if n > 1]
-    if refused:
-        raise NotImplementedError("not ported yet: " + ", ".join(refused))
+def _check_sharding(tp_shards, pp_stages):
+    if tp_shards > 1 and pp_stages > 1:
+        raise ValueError(
+            "tp_shards and pp_stages are mutually exclusive — pick "
+            "one sharding for the eval forward")
 
 
 class MambaEvalCore:
-    """lm_eval request semantics over one device's forward and
+    """lm_eval request semantics over the LM's forward and
     ``nn.lm.generate``.
 
     ``tokenizer`` needs ``encode(str) -> list[int]`` and ``decode(list[int])
@@ -39,16 +40,26 @@ class MambaEvalCore:
     bf16 copy, or an int8 dict of ``nn.quant.quantize_lm_params``): float
     dicts score through the model's own forward (``torch.func.
     functional_call``), int8 ones through ``nn.lm.forward_functional``, the
-    path decode serves.  ``tp_shards`` / ``pp_stages`` above 1 raise
-    (ROADMAP M12).
+    path decode serves.
+
+    ``tp_shards > 1`` runs everything tensor-parallel over a 1-D ``model``
+    mesh of that many ranks (the run's process group): scoring through
+    ``parallel.tensor_parallel.lm_tp_forward``, greedy continuations
+    through ``tp_generate``.  ``pp_stages > 1`` scores pipeline-parallel
+    over a ``pipe`` mesh (``parallel.pipeline.lm_pp_forward``, ``n_micro=1``:
+    a scoring batch is one sequence, so the pipeline buys the k-way split of
+    the layers, not microbatch overlap); continuations run on one device's
+    token loop, so a stage's rank holds the whole model.  A TP rank's core
+    holds its own split.  The two are mutually exclusive (a ``ValueError``).
     """
 
     def __init__(self, model, params, tokenizer, max_gen_toks=128,
                  eot_token_id=None, tp_shards=1, pp_stages=1):
         from vivim_tpu_torch.nn.lm import forward_functional
         from vivim_tpu_torch.nn.quant import tree_has_qtensor
+        from vivim_tpu_torch.parallel.mesh import make_mesh
 
-        _refuse_sharding(tp_shards, pp_stages)
+        _check_sharding(tp_shards, pp_stages)
         self.model = model
         self.params = params
         self.tokenizer = tokenizer
@@ -57,7 +68,30 @@ class MambaEvalCore:
             eot_token_id if eot_token_id is not None
             else getattr(tokenizer, "eos_token_id", None) or 0)
         self.device = next(model.parameters()).device
-        if tree_has_qtensor(params):
+        self._tp_mesh = None
+        impl = model.scan_implementation
+        if pp_stages > 1:
+            from vivim_tpu_torch.parallel.pipeline import lm_pp_forward
+
+            mesh = make_mesh(pp_stages, axis="pipe")
+            self._fwd = lambda toks: lm_pp_forward(
+                model.cfg, params, toks, mesh, n_micro=1,
+                implementation=impl)
+        elif tp_shards > 1:
+            from vivim_tpu_torch.parallel.tensor_parallel import (
+                lm_tp_forward,
+                split_tp_params,
+            )
+
+            self._tp_mesh = make_mesh(tp_shards, axis="model")
+            # this rank's split, tensors of its own: the caller may free
+            # the whole weights (the CLI does)
+            self.params = {k: v.clone() for k, v in
+                           split_tp_params(params, self._tp_mesh).items()}
+            self._fwd = lambda toks: lm_tp_forward(
+                model.cfg, self.params, toks, self._tp_mesh,
+                implementation=impl)
+        elif tree_has_qtensor(params):
             self._fwd = lambda toks: forward_functional(model, params, toks)
         else:
             self._fwd = lambda toks: torch.func.functional_call(
@@ -95,11 +129,20 @@ class MambaEvalCore:
         from vivim_tpu_torch.nn import lm as lm_lib
 
         ctx_ids = self.tokenizer.encode(ctx) if ctx else [self.eot_token_id]
-        out = lm_lib.generate(
-            self.model, self.params, self._tokens(ctx_ids),
-            max_gen_toks or self.max_gen_toks,
+        kw = dict(
             generator=torch.Generator(device=self.device).manual_seed(0),
             temperature=0.0, eos_token_id=self.eot_token_id)
+        n_new = max_gen_toks or self.max_gen_toks
+        if self._tp_mesh is not None:
+            from vivim_tpu_torch.parallel.tensor_parallel import tp_generate
+
+            out = tp_generate(
+                self.model, self.params, self._tokens(ctx_ids), n_new,
+                self._tp_mesh, implementation=self.model.scan_implementation,
+                **kw)
+        else:
+            out = lm_lib.generate(self.model, self.params,
+                                  self._tokens(ctx_ids), n_new, **kw)
         new_ids = out[0, len(ctx_ids):].tolist()
         if self.eot_token_id in new_ids:
             new_ids = new_ids[:new_ids.index(self.eot_token_id)]
@@ -223,21 +266,25 @@ def main(argv=None):
     p.add_argument("--n_layer", type=int, default=24)
     p.add_argument("--max_gen_toks", type=int, default=128)
     p.add_argument("--tp_shards", type=int, default=1,
-                   help="tensor-parallel shards for scoring: not ported "
-                        "(ROADMAP M12)")
+                   help="tensor-parallel shards for scoring (Megatron "
+                        "column/row split of every mixer over a 'model' "
+                        "mesh axis; ranks under torchrun)")
     p.add_argument("--pp_stages", type=int, default=1,
-                   help="pipeline-parallel stages for scoring: not ported "
-                        "(ROADMAP M12)")
+                   help="pipeline-parallel stages for scoring (GPipe "
+                        "stage-split layer stack over a 'pipe' mesh axis; "
+                        "ranks under torchrun; mutually exclusive with "
+                        "--tp_shards)")
     p.add_argument("--limit", type=int, default=None,
                    help="cap examples per task (smoke runs)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device (cuda by default; cpu runs the "
-                        "kernels' plain versions)")
+                   help="torch device (cuda by default, cuda:LOCAL_RANK "
+                        "per rank; cuda:<i> puts every rank on card i, "
+                        "gloo only; cpu runs the kernels' plain versions)")
+    p.add_argument("--dist_backend", type=str, default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend of the ranks (gloo for "
+                        "the CPU, or for ranks that share one card)")
     args = p.parse_args(argv)
-    try:
-        _refuse_sharding(args.tp_shards, args.pp_stages)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
 
     try:
         import lm_eval
@@ -249,16 +296,33 @@ def main(argv=None):
 
     from transformers import AutoTokenizer
 
+    from vivim_tpu_torch.cli.common import init_model_parallel
+
+    _check_sharding(args.tp_shards, args.pp_stages)
+    flag, n, axis = (("--pp_stages", args.pp_stages, "pipe")
+                     if args.pp_stages > 1
+                     else ("--tp_shards", args.tp_shards, "model"))
+    device, mesh = init_model_parallel(n, axis, flag, args.device,
+                                       args.dist_backend, "lm_eval_harness")
     tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
     model, params = load_lm(args.ckpt, args.vocab, args.d_model,
                             args.n_layer, hf_dir=args.hf_dir,
-                            hf_repo=args.hf_repo, device=args.device)
+                            hf_repo=args.hf_repo, device=device)
     wrapper = build_wrapper(model, params, tokenizer,
-                            max_gen_toks=args.max_gen_toks)
+                            max_gen_toks=args.max_gen_toks,
+                            tp_shards=args.tp_shards,
+                            pp_stages=args.pp_stages)
+    if args.tp_shards > 1:
+        # the core holds this rank's split; the whole weights go (TP reads
+        # only the model's config).  Pipeline stages keep the whole model:
+        # greedy continuations run the one-device token loop.
+        del params
+        model.to("meta")
     results = lm_eval.simple_evaluate(
         model=wrapper, tasks=args.tasks.split(","), limit=args.limit)
-    print(json.dumps(results.get("results", results), indent=2,
-                     default=str))
+    if mesh is None or mesh.is_main:
+        print(json.dumps(results.get("results", results), indent=2,
+                         default=str))
     return results
 
 

@@ -200,7 +200,8 @@ def rescale_residual_projections(params, n_layer, n_residuals_per_layer=1):
             for k, v in params.items()}
 
 
-def _sub(params, prefix):
+def sub_params(params, prefix):
+    """The entries of ``params`` under ``prefix``, the prefix dropped."""
     n = len(prefix)
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
@@ -223,27 +224,39 @@ class LMParts:
 
 
 def split_params(model: MambaLM, params) -> LMParts:
-    cfg = model.cfg
+    return parts_for(model.cfg, params, model.scan_implementation)
+
+
+def parts_for(cfg: MambaLMConfig, params, implementation=None) -> LMParts:
+    """``split_params`` from a config: the tensor-parallel forward's (its
+    mixers' leaves are this rank's split of them)."""
     return LMParts(
         emb=params["backbone.embedding.weight"],
-        layers=[(_sub(params, f"backbone.layers.{i}.mixer."),
-                 _sub(params, f"backbone.layers.{i}.norm."))
+        layers=[(sub_params(params, f"backbone.layers.{i}.mixer."),
+                 sub_params(params, f"backbone.layers.{i}.norm."))
                 for i in range(cfg.n_layer)],
-        norm_f=_sub(params, "backbone.norm_f."),
+        norm_f=sub_params(params, "backbone.norm_f."),
         apply_norm=norm_fn_for(cfg), dtype=quant.compute_dtype(params),
         residual_in_fp32=cfg.residual_in_fp32,
-        implementation=model.scan_implementation)
+        implementation=implementation)
 
 
-@torch.no_grad()
 def forward_functional(model: MambaLM, params, tokens) -> torch.Tensor:
     """Full-sequence logits through the prefill path ``generate`` uses;
     unlike ``model(tokens)`` it takes int8 dicts, so scoring runs the same
     weights decode serves.  For a float dict it computes what ``model``
-    does: embed -> n x [norm + mixer prefill] -> norm_f -> tied head."""
+    does: embed -> n x [norm + mixer prefill] -> norm_f -> tied head, and
+    is differentiable in the dict's tensors (K1-training and K2 on the
+    card); a caller that wants no graph runs it under ``no_grad``."""
     check_kernel_config(model.cfg, tokens.device, model.scan_implementation)
-    parts = split_params(model, params)
-    h, _, _ = _backbone(parts, tokens)
+    return forward_parts(split_params(model, params), tokens)
+
+
+def forward_parts(parts: LMParts, tokens, mixer_prefill=None):
+    """Full-sequence logits (B, L, V) of split parameters, each mixer
+    through ``mixer_prefill(mixer params, x)`` (``mamba_prefill`` when
+    None; the hook a tensor-parallel forward uses)."""
+    h, _, _ = _backbone(parts, tokens, mixer_prefill)
     return quant.lm_head(h, parts.emb)
 
 

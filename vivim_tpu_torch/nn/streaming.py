@@ -12,6 +12,15 @@ dict under the reference Mamba's names (``in_proj.weight``,
 ``dt_proj.weight``, ``dt_proj.bias``, ``A_log``, ``D``,
 ``out_proj.weight``); ``in_proj.weight`` / ``out_proj.weight`` may be int8
 QTensors (``nn.quant``).  Activations are time-major.
+
+Given a process ``group``, ``mamba_prefill`` and ``mamba_step`` run one
+rank's channel split of a tensor-parallel mixer (``parallel.
+tensor_parallel.split_tp_params``: the rank's x and z rows of in_proj, its
+d_inner / k slice of every per-channel leaf) and add the split's three
+collectives (``parallel/comm.py``): ``copy_to_model`` at the replicated
+input, the sum of the partial x_proj product (dt, B and C; summed in the
+backward too) and ``reduce_from_model`` of the partial out_proj product,
+before the whole out bias.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from vivim_tpu_torch.kernels.causal_conv1d import (
 from vivim_tpu_torch.kernels.refs import selective_state_update_ref
 from vivim_tpu_torch.kernels.selective_scan import selective_scan
 from vivim_tpu_torch.nn.quant import matmul_t
+from vivim_tpu_torch.parallel import comm
 
 
 def allocate_cache(batch: int, d_model: int, d_state: int = 16,
@@ -46,8 +56,15 @@ def _split_proj(params, x):
     return xz[..., :d_inner], xz[..., d_inner:]
 
 
-def _out_proj(params, y):
+def _x_proj(params, xc, group):
+    x_dbl = xc @ params["x_proj.weight"].t().to(xc.dtype)
+    return x_dbl if group is None else comm.AllReduceSum.apply(x_dbl, group)
+
+
+def _out_proj(params, y, group=None):
     out = matmul_t(y, params["out_proj.weight"])
+    if group is not None:
+        out = comm.reduce_from_model(out, group)
     if "out_proj.bias" in params:
         out = out + params["out_proj.bias"]
     return out
@@ -61,27 +78,29 @@ def _ssm_params(params):
     return conv_w, dt_rank, n, -torch.exp(params["A_log"].float())
 
 
-def mamba_step(params, x, conv_state, ssm_state):
+def mamba_step(params, x, conv_state, ssm_state, group=None):
     """One decode step (mamba_simple.py:356-401).
 
     x: (B, d_model) token activations; conv_state: (B, W, d_inner);
     ssm_state: (B, d_inner, N).  Returns (out (B, d_model), new conv_state,
     new ssm_state).
     """
+    if group is not None:
+        x = comm.copy_to_model(x, group)
     xw, z = _split_proj(params, x)
     conv_w, dt_rank, n, A = _ssm_params(params)
     xw, conv_state = causal_conv1d_update(
         xw, conv_state, conv_w, params.get("conv1d.bias"), "silu")
-    x_dbl = xw @ params["x_proj.weight"].t().to(xw.dtype)
+    x_dbl = _x_proj(params, xw, group)
     dt = x_dbl[..., :dt_rank] @ params["dt_proj.weight"].t().to(xw.dtype)
     y, ssm_state = selective_state_update_ref(
         ssm_state, xw, dt, A, x_dbl[..., dt_rank:dt_rank + n],
         x_dbl[..., dt_rank + n:], D=params["D"].float(), z=z,
         dt_bias=params["dt_proj.bias"].float(), dt_softplus=True)
-    return _out_proj(params, y), conv_state, ssm_state
+    return _out_proj(params, y, group), conv_state, ssm_state
 
 
-def mamba_prefill(params, x, implementation=None):
+def mamba_prefill(params, x, implementation=None, group=None):
     """The prompt's full forward, emitting the states for ``mamba_step``.
 
     x: (B, L, d_model).  Returns (out (B, L, d_model), conv_state (the last
@@ -90,17 +109,19 @@ def mamba_prefill(params, x, implementation=None):
     forward over the longer sequence.  The scan is K1 on the card, with z
     gated in the kernel.
     """
+    if group is not None:
+        x = comm.copy_to_model(x, group)
     xw, z = _split_proj(params, x)
     conv_w, dt_rank, n, A = _ssm_params(params)
     width = conv_w.shape[0]
     pad = torch.nn.functional.pad(xw, (0, 0, max(width - x.shape[1], 0), 0))
     conv_state = pad[:, -width:].contiguous()
     xc = causal_conv1d(xw, conv_w, params.get("conv1d.bias"), "silu")
-    x_dbl = xc @ params["x_proj.weight"].t().to(xc.dtype)
+    x_dbl = _x_proj(params, xc, group)
     delta = x_dbl[..., :dt_rank] @ params["dt_proj.weight"].t().to(xc.dtype)
     y, ssm_state = selective_scan(
         xc, delta, A, x_dbl[..., dt_rank:dt_rank + n],
         x_dbl[..., dt_rank + n:], D=params["D"].float(), z=z,
         delta_bias=params["dt_proj.bias"].float(), delta_softplus=True,
         return_last_state=True, implementation=implementation)
-    return _out_proj(params, y), conv_state, ssm_state
+    return _out_proj(params, y, group), conv_state, ssm_state

@@ -1,9 +1,11 @@
-"""Multi-rank training over ``torch.distributed``, one process per rank.
+"""Multi-rank runs over ``torch.distributed``, one process per rank.
 
 Submodules: ``comm`` (the collectives, and their adjoint convention),
 ``mesh`` (process groups, the named mesh, the batch helpers), ``fsdp``
-(ZeRO sharding of the parameters and AdamW moments over ``data``) and
-``seq_scan`` (the sequence-sharded selective scan over ``seq``).
+(ZeRO sharding of the parameters and AdamW moments over ``data``),
+``seq_scan`` (the sequence-sharded selective scan over ``seq``), and the
+Mamba LM's ``tensor_parallel`` (mixers split over ``model``) and
+``pipeline`` (GPipe stages over ``pipe``).
 """
 
 from vivim_tpu_torch.parallel.fsdp import (

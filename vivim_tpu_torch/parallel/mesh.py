@@ -12,11 +12,12 @@ collectives themselves (``parallel/comm.py``).
   the CLIs read ``LOCAL_RANK`` for the card), with a timeout, so that a
   rank that died cannot hold the others in a collective for long.
 - ``make_mesh(n, axis)``: one axis over the world; ``make_hybrid_mesh(dp,
-  seq)``: a ("data", "seq") mesh whose rank layout is the JAX
-  ``devices.reshape(dp, seq)``, so the ranks of one ``seq`` row are
-  contiguous.
-- ``shard_batch``: this rank's block of a global batch (the JAX
-  ``shard_batch`` / ``data_sharding``, ``PartitionSpec("data")``).  The JAX
+  n, axes)``: a 2-D mesh, ("data", "seq") by default, whose rank layout is
+  the JAX ``devices.reshape(dp, n)``, so the ranks of one row of the second
+  axis are contiguous.
+- ``shard_batch`` / ``local_rows``: this rank's block of a global batch
+  dict / array (the JAX ``shard_batch`` / ``data_sharding``,
+  ``PartitionSpec("data")``).  The JAX
   ``global_shard_batch`` is the loader's side here: each data rank's
   ``DataLoader(process_index, process_count)`` loads only its block, which
   the train step takes as it is.  ``replicate``: a broadcast of a module's
@@ -120,24 +121,26 @@ def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
                 {axis: dist.group.WORLD if n > 1 else None})
 
 
-def make_hybrid_mesh(dp: int, seq: int) -> Mesh:
-    """A ("data", "seq") mesh: rank r sits at (r // seq, r % seq), as the
-    JAX ``devices.reshape(dp, seq)``.  Every rank creates every group, in
-    one order, as ``new_group`` requires."""
-    r = _world(dp * seq, f"{dp}x{seq} ('data', 'seq')")
-    d, s = divmod(r, seq)
-    groups = {"data": None, "seq": None}
-    if seq > 1:
+def make_hybrid_mesh(dp: int, n: int, axes=("data", "seq")) -> Mesh:
+    """A 2-D mesh of ``axes`` (("data", "seq") by default; ("data",
+    "model") for tensor parallel, ("data", "pipe") for the pipeline): rank r
+    sits at (r // n, r % n), as the JAX ``devices.reshape(dp, n)``.  Every
+    rank creates every group, in one order, as ``new_group`` requires."""
+    outer, inner = axes
+    r = _world(dp * n, f"{dp}x{n} ({outer!r}, {inner!r})")
+    d, s = divmod(r, n)
+    groups = {outer: None, inner: None}
+    if n > 1:
         for row in range(dp):
-            g = dist.new_group([row * seq + c for c in range(seq)])
+            g = dist.new_group([row * n + c for c in range(n)])
             if row == d:
-                groups["seq"] = g
+                groups[inner] = g
     if dp > 1:
-        for col in range(seq):
-            g = dist.new_group([row * seq + col for row in range(dp)])
+        for col in range(n):
+            g = dist.new_group([row * n + col for row in range(dp)])
             if col == s:
-                groups["data"] = g
-    return Mesh({"data": dp, "seq": seq}, {"data": d, "seq": s}, groups)
+                groups[outer] = g
+    return Mesh({outer: dp, inner: n}, {outer: d, inner: s}, groups)
 
 
 def shard_batch(batch, mesh: Mesh | None, axis: str = "data",
@@ -148,17 +151,23 @@ def shard_batch(batch, mesh: Mesh | None, axis: str = "data",
     (``data.loader.block_rows``)."""
     if mesh is None or mesh.size(axis) == 1:
         return batch
-    index, count = mesh.index(axis), mesh.size(axis)
+    return {k: local_rows(v, mesh, axis, micro_batches)
+            if hasattr(v, "ndim") and v.ndim >= 1 else v
+            for k, v in batch.items()}
 
-    def take(x):
-        if not hasattr(x, "ndim") or x.ndim < 1:
-            return x
-        rows = block_rows(x.shape[0], index, count, micro_batches)
-        if isinstance(x, torch.Tensor):
-            return x[torch.as_tensor(rows, device=x.device)]
-        return x[rows]
 
-    return {k: take(v) for k, v in batch.items()}
+def local_rows(x, mesh: Mesh | None, axis: str | None,
+               micro_batches: int = 1):
+    """This rank's rows of ``x`` (an array or a tensor with a leading
+    batch dim) over ``axis``: all of them without that axis, else its block
+    of each micro-batch (``data.loader.block_rows``)."""
+    if mesh is None or axis is None or mesh.size(axis) == 1:
+        return x
+    rows = block_rows(x.shape[0], mesh.index(axis), mesh.size(axis),
+                      micro_batches)
+    if isinstance(x, torch.Tensor):
+        return x[torch.as_tensor(rows, device=x.device)]
+    return x[rows]
 
 
 def replicate(module: torch.nn.Module, mesh: Mesh | None):

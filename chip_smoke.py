@@ -147,7 +147,7 @@ Phases, each of which raises on failure (exit code != 0):
    two ranks on this card over gloo: tp2 (``lm_tp_forward`` from each
    rank's split: logits within 1e-3, each gradient slice within the
    one-device check's bounds of one device's, the replicated leaves'
-   gradients equal on both ranks; ``tp_generate``'s 32 greedy tokens
+   gradients equal on both ranks; ``tp_generate``'s 16 greedy tokens
    equal to one device's; ``bench_generation --tp_shards 2`` in fp32 and
    bf16, int8 refused) and pp2 (``lm_pp_forward`` at 2 microbatches from
    each rank's stage, checked as tp2), and both eval cores' scores of 4
@@ -156,7 +156,31 @@ Phases, each of which raises on failure (exit code != 0):
    and hops with their bytes, parameters held (a TP eval core: its split
    alone), peak memory and the second call's ms (2 ranks over gloo on one
    card, not a multi-card figure);
-12. print the kernels line, the card line and, last, the device line.
+12. the MoE-Mamba LM, SegFormer's own model and the int8 check: (a) the
+   MoE LM at mamba-130m width and depth (``MOE_CONFIG``: 24 layers,
+   d_model 768, vocab 50280, RMSNorm, an MoE block of 8 experts, d_ff 3072,
+   after every mixer; about 1.03 B parameters) seeded on the card, fp32,
+   tokens (2, 128): a scoring forward (24 K1) with logits within 1e-3, aux
+   within 1e-5 relative and every routing decision bit-equal to the same
+   model on the plain scan (the smallest top-1 minus top-2 gate printed;
+   the gaps of any differing token printed before the phase fails), then
+   a gradient step of next-token CE + 1e-2 aux (24 K1-training, 24 K2):
+   loss within 1e-5 relative, every gradient within rtol 1e-3 / atol 2e-3
+   and ``GRAD_REL`` of its leaf's largest |grad|, which every leaf halved
+   must fail; forward and forward + backward ms, peak, profiles; (b) ep2:
+   two ranks on this card over gloo, each building the same seeded weights,
+   computing the one-device forward and gradients, then keeping its 4 of 8
+   experts per block and running ``lm_ep_forward`` + backward twice: logits,
+   aux and every gradient under (a)'s bounds, the replicated leaves'
+   gradients bit-equal on both ranks, 24 K1-training and 24 K2 per run, 24
+   all_gathers of the (8, 40, 768) expert outputs forward and 24
+   all_reduces backward, ms and peak per rank; (c) SegFormer-b3 with 150
+   labels on one 512 px image: logits within 1e-3 of the CPU's, ms, peak;
+   (d) ``cli.int8_eval.main`` at its defaults (d_model 256, 4 layers, 400
+   AdamW steps of 32 x 64 tokens, 64 held-out pairs): 4 K1-training and 4 K2
+   per step, the trained NLL below ln 32, fp32 / bf16 / int8 NLLs finite,
+   their deltas and seconds printed;
+13. print the kernels line, the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3b (a
@@ -256,17 +280,30 @@ PAR_WALL_S = 300
 # phase 11: the LM's model-parallel paths at mamba-130m width: the batch,
 # prompt and microbatches of the gradient checks, the new tokens of
 # tp_generate and of the TP bench lines, the scored (context,
-# continuation) pairs, the wall limit of the ranks (s) and of a p2p probe
+# continuation) pairs, the wall limit of the ranks (s) and of a p2p probe;
+# 16 new tokens, not 32, since phase 12 took the script past 600 s
 LMP_BATCH = 2
 LMP_PROMPT = 128
 LMP_MICRO = 2
-LMP_GEN = 32
+LMP_GEN = 16
 LMP_PAIRS = 4
 LMP_WALL_S = 420
 P2P_WALL_S = 60
-# a gradient leaf's largest error over its largest |grad| (phase 11)
+# a gradient leaf's largest error over its largest |grad| (phases 11, 12)
 GRAD_REL = 1e-3
 LMP_LABEL = "2 ranks over gloo on one card, not a multi-card figure"
+# phase 12: the MoE-Mamba LM (moe-mamba130m-e8: state-spaces/mamba-130m's
+# widths and RMSNorm, MoEMambaLMConfig's own MoE defaults), its batch and
+# tokens, the wall limit of its two expert-parallel ranks (s); SegFormer's
+# image size and labels (ADE20k's 150)
+MOE_CONFIG = dict(vocab_size=50277, d_model=768, n_layer=24, d_state=16,
+                  rms_norm=True, moe_every=1, n_experts=8, d_ff=None,
+                  capacity_factor=1.25, top_k=1, aux_loss_weight=1e-2)
+MOE_BATCH = 2
+MOE_PROMPT = 128
+MOE_WALL_S = 300
+SEG_SIZE = 512
+SEG_LABELS = 150
 
 
 def nvidia_smi(query):
@@ -3199,6 +3236,463 @@ def phase_lm_parallel(peaks=None, dev="cuda", config=LM_CONFIG,
     return launched, summary
 
 
+def _moe_tokens(cfg, dev, batch=MOE_BATCH, prompt=MOE_PROMPT):
+    g = torch.Generator().manual_seed(31)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt),
+                         generator=g).to(dev)
+
+
+def moe_loss(cfg, logits, aux, toks):
+    """The MoE LM's training loss: next-token CE + aux_loss_weight x aux."""
+    return next_token_loss(logits, toks) + cfg.aux_loss_weight * aux
+
+
+@contextlib.contextmanager
+def recorded_routing(log):
+    """Append (dispatch, top-1 minus top-2 gate per token) of every
+    ``moe_dispatch`` call in the block to ``log`` (``moe_ffn`` calls it
+    through its module)."""
+    from vivim_tpu_torch.nn import moe
+
+    real = moe.moe_dispatch
+
+    def dispatch(probs, capacity, top_k=1):
+        out = real(probs, capacity, top_k)
+        top2 = probs.detach().topk(2, dim=-1).values
+        log.append((out[0].detach().clone(), top2[:, 0] - top2[:, 1]))
+        return out
+
+    moe.moe_dispatch = dispatch
+    try:
+        yield log
+    finally:
+        moe.moe_dispatch = real
+
+
+def _moe_grad_run(cfg, forward, params, toks):
+    """(loss, logits, aux, {name: grad}, launches) of one forward +
+    backward of the MoE loss from leaves cloned off ``params``."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    reset_counts()
+    logits, aux = forward(leaves)
+    loss = moe_loss(cfg, logits, aux, toks)
+    loss.backward()
+    return (loss.item(), logits.detach(), aux.item(),
+            {k: p.grad for k, p in leaves.items()}, counts())
+
+
+def phase_moe_lm(dev="cuda", config=None, batch=MOE_BATCH,
+                 prompt=MOE_PROMPT):
+    """Phase 12a: the MoE-Mamba LM at mamba-130m width and depth on one
+    device, seeded there (``nn.moe.init_moe_lm``).  A scoring forward and a
+    gradient step of the MoE loss through the kernels, each against the
+    same weights on the plain scan: logits, aux and loss, every routing
+    decision bit-equal, every gradient (and every leaf halved must fail
+    the bound); launches, ms, peak, profile.  ``dev="cpu"`` rehearses the
+    host side at a small ``config``.  Returns (launches, summary)."""
+    from vivim_tpu_torch.nn import moe
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = moe.MoEMambaLMConfig(**(config or MOE_CONFIG))
+    model = moe.init_moe_lm(cfg, seed=0, device=dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_experts = sum(p.numel() for k, p in model.named_parameters()
+                    if k.split(".")[-1] in ("wi", "wo"))
+    toks = _moe_tokens(cfg, dev, batch, prompt)
+    n_moe = sum(cfg.has_moe(i) for i in range(cfg.n_layer))
+    per = cfg.n_layer
+    print(f"moe lm: {cfg.n_layer} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size} -> {cfg.padded_vocab}, RMSNorm, {n_moe} MoE "
+          f"blocks of {cfg.n_experts} experts (d_ff "
+          f"{cfg.d_ff or 4 * cfg.d_model}, capacity factor "
+          f"{cfg.capacity_factor}, top-{cfg.top_k}); {n_params / 1e6:.2f} M "
+          f"parameters ({n_experts / 1e6:.2f} M in experts, "
+          f"{4 * n_params / 2**30:.2f} GiB fp32), seeded on {dev} in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+
+    def add(c):
+        for k in launched:
+            launched[k] += c[k]
+
+    # the scoring forward, through the kernels and on the plain scan
+    runs = {}
+    for name, impl in (("kernels", None), ("plain", "ref")):
+        model.scan_implementation = impl
+        with recorded_routing([]) as routes, torch.no_grad():
+            reset_counts()
+            logits, aux = model(toks)
+            c = counts()
+        runs[name] = dict(logits=logits, aux=aux.item(), routes=routes,
+                          launches=c)
+    got, want = runs["kernels"], runs["plain"]
+    add(got["launches"])
+    if on_card and got["launches"] != {"K1 inference": per,
+                                       "K1 training": 0, "K2": 0}:
+        raise AssertionError(f"MoE LM forward launched {got['launches']}")
+    logits_err = _max_err(got["logits"], want["logits"])
+    if not logits_err <= 1e-3:
+        raise AssertionError(f"MoE LM logits {logits_err:.3e} from the "
+                             "plain scan's")
+    if abs(got["aux"] - want["aux"]) > 1e-5 * abs(want["aux"]):
+        raise AssertionError(f"MoE LM aux {got['aux']} through the kernels, "
+                             f"{want['aux']} on the plain scan")
+    gaps = torch.cat([g for _, g in got["routes"]])
+    differ = []
+    for i, ((d, g), (d0, _)) in enumerate(zip(got["routes"],
+                                              want["routes"])):
+        if not torch.equal(d, d0):
+            rows = (d != d0).flatten(1).any(1).nonzero().flatten()
+            differ.append((i, [(int(t), g[t].item()) for t in rows[:8]]))
+    if len(got["routes"]) != n_moe or len(want["routes"]) != n_moe or differ:
+        raise AssertionError(
+            f"MoE routing differs from the plain scan's in "
+            f"{len(differ)} of {n_moe} blocks; (block, [(token, top-1 minus "
+            f"top-2 gate)]): {differ}; the smallest gap over all "
+            f"{gaps.numel()} decisions {gaps.min().item():.3e}")
+    kept = sum(int(d.sum().item()) for d, _ in got["routes"])
+    routing = dict(decisions=gaps.numel(), min_gap=gaps.min().item(),
+                   kept=kept, dropped=gaps.numel() - kept)
+    print(f"moe lm: forward of ({batch}, {prompt}) tokens: logits within "
+          f"{logits_err:.3e} and aux {got['aux']:.7f} within "
+          f"{abs(got['aux'] - want['aux']):.2e} of the plain scan's; every "
+          f"one of the {routing['decisions']} routing decisions bit-equal, "
+          f"the smallest top-1 minus top-2 gate {routing['min_gap']:.3e}; "
+          f"{routing['dropped']} tokens over capacity; launches "
+          f"{got['launches']}", flush=True)
+    del runs, got, want
+
+    # the gradient step, through the kernels and on the plain scan
+    params = dict(model.named_parameters())
+    fwd = lambda p: moe.moe_lm_forward(cfg, p, toks, model.scan_implementation)
+    model.scan_implementation = None
+    loss, _, _, grads, c = _moe_grad_run(cfg, fwd, params, toks)
+    add(c)
+    if on_card and c != {"K1 inference": 0, "K1 training": per, "K2": per}:
+        raise AssertionError(f"MoE LM gradient step launched {c}")
+    model.scan_implementation = "ref"
+    loss0, _, _, grads0, _ = _moe_grad_run(cfg, fwd, params, toks)
+    model.scan_implementation = None
+    if abs(loss - loss0) > 1e-5 * abs(loss0):
+        raise AssertionError(f"MoE LM loss {loss} through the kernels, "
+                             f"{loss0} on the plain scan")
+    grad_err = _check_grads(grads, grads0, "MoE LM")
+    passed = [k for k, g in grads.items()
+              if _leaf_err(0.5 * g, grads0[k])[1] <= GRAD_REL]
+    if passed:
+        raise AssertionError(f"the gradient check passes halved gradients "
+                             f"of {passed}")
+    print(f"moe lm: gradient step, next-token loss + "
+          f"{cfg.aux_loss_weight} x aux {loss:.7f} through K1-training + K2 "
+          f"vs {loss0:.7f} on the plain scan; every gradient within rtol "
+          f"1e-3 / atol 2e-3, {_grad_text(grad_err)}; every leaf halved "
+          f"fails the check; launches {c}", flush=True)
+    del grads, grads0
+    summary = dict(params_m=n_params / 1e6, expert_params_m=n_experts / 1e6,
+                   logits_err=logits_err, routing=routing, loss=loss,
+                   plain_loss=loss0, grad_err=grad_err)
+    if on_card:
+        def forward():
+            with torch.no_grad():
+                model(toks)
+
+        def step():
+            for p in params.values():
+                p.grad = None
+            logits, aux = model(toks)
+            moe_loss(cfg, logits, aux, toks).backward()
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        summary.update(fwd_ms=cuda_ms(forward, 5), step_ms=cuda_ms(step, 3))
+        add(counts())
+        summary["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        reset_counts()
+        summary["profile_fwd"] = phase_profile("moe lm forward", forward)
+        summary["profile_step"] = phase_profile("moe lm step", step)
+        add(counts())
+        print(f"moe lm: forward {summary['fwd_ms']:.3f} ms, forward + "
+              f"backward {summary['step_ms']:.3f} ms (CUDA events, median); "
+              f"peak {summary['peak_gib']:.2f} GiB", flush=True)
+    summary["secs"] = time.perf_counter() - t_phase
+    return launched, summary
+
+
+def _ep_rank(rank, world, port, out_dir, spec):
+    """One rank of phase 12b (a spawned process): the seeded MoE LM, its
+    one-device forward and gradients (the reference), then this rank's
+    expert split alone through ``lm_ep_forward`` twice (the second timed).
+    Writes ``rank<r>.json`` and the gradients' errors, or ``rank<r>.err``
+    with its traceback."""
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // (world + 1)))
+        from vivim_tpu_torch.nn import moe
+        from vivim_tpu_torch.parallel import comm, expert
+        from vivim_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh_lib.init_distributed("gloo", PAR_GROUP_TIMEOUT_S)
+        dev = torch.device(spec["dev"])
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.set_device(dev)
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        cfg = moe.MoEMambaLMConfig(**spec["config"])
+        mesh = mesh_lib.make_mesh(world, axis="expert")
+        toks = _moe_tokens(cfg, dev, spec["batch"], spec["prompt"])
+        model = moe.init_moe_lm(cfg, seed=0, device=dev)
+        full = {k: v.detach() for k, v in model.named_parameters()}
+        # the one-device reference, then only this rank's share of it
+        _, logits0, aux0, grads0, _ = _moe_grad_run(
+            cfg, lambda p: moe.moe_lm_forward(cfg, p, toks), full, toks)
+        grads0 = expert.split_ep_params(grads0, mesh)
+        local = expert.split_ep_params(full, mesh)
+        held_equal = all(
+            torch.equal(v, full[k].narrow(0, mesh.index("expert")
+                                          * v.shape[0], v.shape[0]))
+            for k, v in local.items() if v.shape != full[k].shape)
+        del model, full
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        res = {"held": sum(v.numel() for v in local.values()),
+               "held_equal": held_equal, "runs": []}
+        for _ in range(2):
+            leaves = logits = None  # the last run's copies and gradients
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in local.items()}
+            comm.reset_counters()
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            logits, aux = expert.lm_ep_forward(cfg, leaves, toks, mesh)
+            fwd_comm = dict(gathered=list(comm.GATHERED),
+                            reduced=list(comm.REDUCED))
+            comm.reset_counters()
+            moe_loss(cfg, logits, aux, toks).backward()
+            sync()
+            res["runs"].append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, launches=counts(),
+                comm_fwd=fwd_comm,
+                comm_bwd=dict(gathered=list(comm.GATHERED),
+                              reduced=list(comm.REDUCED))))
+        grads = {k: p.grad for k, p in leaves.items()}
+        res.update(
+            logits_err=_max_err(logits, logits0),
+            aux=aux.item(), aux0=aux0,
+            grad_err=_check_grads(grads, grads0, f"ep2 rank {rank}"),
+            replicated_equal=_replicas_equal(
+                [g for k, g in grads.items()
+                 if k.split(".")[-1] not in ("wi", "wo")], comm.world()),
+            peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if on_card else 0.0))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_moe_ep(dev="cuda", config=None, batch=MOE_BATCH,
+                 prompt=MOE_PROMPT):
+    """Phase 12b: ep2, two ranks on this device over gloo, each holding 4
+    of 8 experts per block, held against its own one-device forward and
+    gradients of the same seeded weights (``_ep_rank``).  Returns
+    (launches, summary)."""
+    t_phase = time.perf_counter()
+    cfg_kw = config or MOE_CONFIG
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    world = 2
+    spec = dict(dev=f"{dev.type}:0" if on_card else "cpu", config=cfg_kw,
+                batch=batch, prompt=prompt)
+    with tempfile.TemporaryDirectory() as out_dir:
+        secs = _spawn_ranks(_ep_rank, world, out_dir, spec, MOE_WALL_S)
+        ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+                 for r in range(world)]
+    from vivim_tpu_torch.nn import moe
+
+    cfg = moe.MoEMambaLMConfig(**cfg_kw)
+    n_moe = sum(cfg.has_moe(i) for i in range(cfg.n_layer))
+    per = cfg.n_layer
+    cap = moe.moe_capacity(batch * prompt, cfg.n_experts, cfg.capacity_factor)
+    block = cfg.n_experts * cap * cfg.d_model * 4  # (E, C, M) fp32 bytes
+    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+    for r, o in enumerate(ranks):
+        if not o["logits_err"] <= 1e-3:
+            raise AssertionError(f"ep2 rank {r}: logits {o['logits_err']:.3e}"
+                                 " from its one-device forward")
+        if abs(o["aux"] - o["aux0"]) > 1e-5 * abs(o["aux0"]):
+            raise AssertionError(f"ep2 rank {r}: aux {o['aux']}, one device "
+                                 f"{o['aux0']}")
+        if not (o["replicated_equal"] and o["held_equal"]):
+            raise AssertionError(f"ep2 rank {r}: replicated gradients equal "
+                                 f"{o['replicated_equal']}, held experts its "
+                                 f"split {o['held_equal']}")
+        for run in o["runs"]:
+            if on_card and run["launches"] != {
+                    "K1 inference": 0, "K1 training": per, "K2": per}:
+                raise AssertionError(f"ep2 rank {r} launched "
+                                     f"{run['launches']}")
+            want = dict(fwd_gathered=[n_moe, n_moe * block // world],
+                        fwd_reduced=[0, 0], bwd_gathered=[0, 0],
+                        bwd_reduced=[n_moe, n_moe * block])
+            seen = dict(fwd_gathered=run["comm_fwd"]["gathered"],
+                        fwd_reduced=run["comm_fwd"]["reduced"],
+                        bwd_gathered=run["comm_bwd"]["gathered"],
+                        bwd_reduced=run["comm_bwd"]["reduced"])
+            if seen != want:
+                raise AssertionError(f"ep2 rank {r}: collectives {seen}, "
+                                     f"expected {want}")
+            for k in launched:
+                launched[k] += run["launches"][k]
+        print(f"moe ep2 rank {r}: logits within {o['logits_err']:.3e} and "
+              f"aux within {abs(o['aux'] - o['aux0']):.2e} of its one-device "
+              f"run, gradients {_grad_text(o['grad_err'])}; replicated "
+              f"leaves' gradients bit-equal on both ranks; holds "
+              f"{o['held'] / 1e6:.2f} M parameters (its "
+              f"{cfg.n_experts // world} of {cfg.n_experts} experts per "
+              f"block, equal to its split); per forward + backward "
+              f"{o['runs'][0]['launches']} (both runs alike); {n_moe} "
+              f"all_gathers forward, each of an ({cfg.n_experts}, {cap}, "
+              f"{cfg.d_model}) fp32 block, {block / 2**20:.3f} MiB "
+              f"({block / world / 2**20:.3f} MiB sent per rank), {n_moe} "
+              f"all_reduces backward ({block / 2**20:.3f} MiB each); forward +"
+              f" backward {o['runs'][1]['ms']:.1f} ms, second call "
+              f"({LMP_LABEL}); peak {o['peak_gib']:.2f} GiB", flush=True)
+    summary = dict(timing=LMP_LABEL, spawn_s=secs, block_mib=block / 2**20,
+                   ranks=ranks, secs=time.perf_counter() - t_phase)
+    return launched, summary
+
+
+def phase_segformer(dev="cuda", size=SEG_SIZE, labels=SEG_LABELS,
+                    segformer="b3"):
+    """Phase 12c: ``SegformerForSemanticSegmentation`` (MiT-b3, the ADE
+    head's 150 labels; seeded weights) on one ``size`` px image: eval
+    logits on ``dev`` within 1e-3 of the same weights on the CPU; ms and
+    peak.  No scan kernel on this path."""
+    from vivim_tpu_torch.nn import segformer as sf
+    from vivim_tpu_torch.nn.layers import init_weights
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    base = sf.mit_b3() if segformer == "b3" else sf.mit_tiny_test()
+    cfg = dataclasses.replace(base, num_labels=labels)
+    model = init_weights(sf.SegformerForSemanticSegmentation(cfg),
+                         torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(1, size, size, 3, generator=torch.Generator()
+                    .manual_seed(2))
+    with torch.no_grad():
+        want = model(x)
+        model = model.to(dev)
+        xd = x.to(dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        got = model(xd)
+    err = _max_err(got, want)
+    if got.shape != (1, size // 4, size // 4, labels) or not err <= 1e-3:
+        raise AssertionError(f"SegFormer logits {tuple(got.shape)}, "
+                             f"{err:.3e} from the CPU's")
+    summary = dict(logits_err=err, shape=list(got.shape),
+                   params_m=sum(p.numel() for p in model.parameters()) / 1e6)
+    if on_card:
+        def forward():
+            with torch.no_grad():
+                model(xd)
+
+        summary["ms"] = cuda_ms(forward, 5)
+        summary["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"segformer: {segformer} ({summary['params_m']:.2f} M parameters, "
+          f"{labels} labels) on one {size} px image: logits "
+          f"{tuple(got.shape)} within {err:.3e} of the CPU's"
+          + (f"; {summary['ms']:.3f} ms per forward (CUDA events, median of "
+             f"5), peak {summary['peak_gib']:.2f} GiB" if on_card else ""),
+          flush=True)
+    summary["secs"] = time.perf_counter() - t_phase
+    return summary
+
+
+def phase_int8_eval(dev="cuda"):
+    """Phase 12d: ``cli.int8_eval.main`` at its defaults on ``dev`` (the
+    ``INT8_EVAL_*`` environment may shrink it): every training step must
+    launch K1-training and K2 once per layer, the trained NLL end below the
+    uniform ln 32, every variant's NLL be finite.  Returns (launches,
+    the result)."""
+    from vivim_tpu_torch.cli import int8_eval
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    steps = []
+    real = int8_eval.make_optimizer
+
+    def make_optimizer(model, n):
+        opt = real(model, n)
+        step = opt.step
+
+        def counted():
+            c = counts()
+            steps.append((c["K1 training"], c["K2"]))
+            return step()
+
+        opt.step = counted
+        return opt
+
+    _, n_layer, n_steps, n_eval = int8_eval.env_config()
+    int8_eval.make_optimizer = make_optimizer
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = int8_eval.main(["--device", str(dev), "--out",
+                                      os.path.join(tmp, "int8_eval.json")])
+            launched = counts()
+    finally:
+        int8_eval.make_optimizer = real
+    per_step = {(b[0] - a[0], b[1] - a[1])
+                for a, b in zip([(0, 0)] + steps[:-1], steps)}
+    if len(steps) != n_steps or (on_card and per_step != {(n_layer,
+                                                            n_layer)}):
+        raise AssertionError(f"int8 check: {len(steps)} steps launched "
+                             f"{per_step} (K1-training, K2) each")
+    if on_card and launched["K1 inference"] != 3 * n_eval * n_layer:
+        raise AssertionError(f"int8 check: scoring launched {launched}")
+    nlls = {k: v["nll_per_token"] for k, v in res["results"].items()}
+    if not (res["final_train_nll"] < res["uniform_nll"]
+            and all(math.isfinite(v) for v in nlls.values())):
+        raise AssertionError(f"int8 check: trained to "
+                             f"{res['final_train_nll']} (uniform "
+                             f"{res['uniform_nll']}), NLLs {nlls}")
+    print(f"int8 check: {res['config']}; train NLL {res['train_nll_curve']}"
+          f" -> {res['final_train_nll']:.4f} (uniform "
+          f"{res['uniform_nll']:.4f}); NLL per token fp32 "
+          f"{nlls['float32']:.5f}, bf16 {nlls['bfloat16']:.5f}, int8 "
+          f"{nlls['int8']:.5f}; deltas vs fp32 bf16 "
+          f"{res['nll_delta_bf16_vs_fp32']:+.5f}, int8 "
+          f"{res['nll_delta_int8_vs_fp32']:+.5f}; {res['seconds']:.1f} s "
+          f"({res['train_seconds']:.1f} s training); launches {launched}, "
+          f"(K1-training, K2) per step {sorted(per_step)} over "
+          f"{len(steps)} steps; {res['card']}", flush=True)
+    print(json.dumps(res), flush=True)
+    res["launches"] = launched
+    res["secs"] = time.perf_counter() - t_phase
+    return launched, res
+
+
 def lm_step_rows(rows):
     """The rows of one-device LM training's shape: (LMP_BATCH, LMP_PROMPT,
     d_inner)."""
@@ -3310,12 +3804,25 @@ def main():
     lmp_launched, lmp_perf = phase_lm_parallel(peaks)
     t0 = done("11 LM tensor parallel and pipeline (2 ranks over gloo on one "
               "card)", t0)
+    moe_launched, moe_perf = phase_moe_lm()
+    torch.cuda.empty_cache()
+    t0 = done("12a MoE LM", t0)
+    ep_launched, ep_perf = phase_moe_ep()
+    t0 = done("12b MoE LM expert parallel (2 ranks over gloo on one card)",
+              t0)
+    seg_perf = phase_segformer()
+    torch.cuda.empty_cache()
+    t0 = done("12c SegFormer-b3", t0)
+    int8_launched, int8_perf = phase_int8_eval()
+    t0 = done("12d int8 check", t0)
 
     paths = {"serve": serve_launched, "train": train_launched,
              "train_cli": cli_launched, "binary_edge": binary_launched,
              "lm": lm_launched, "remat": remat_launched,
              "infer_ckpt": infer_launched, "profile": tools_launched,
-             "parallel": par_launched, "lm_parallel": lmp_launched}
+             "parallel": par_launched, "lm_parallel": lmp_launched,
+             "moe_lm": moe_launched, "moe_ep": ep_launched,
+             "int8_eval": int8_launched}
     total = {k: sum(p[k] for p in paths.values())
              for k in ("K1 inference", "K1 training", "K2")}
     k1 = _kernel_entry(
@@ -3373,7 +3880,9 @@ def main():
                       "train_cli": cli_perf, "binary_edge": binary_perf,
                       "lm": lm_summary, "remat": remat_perf,
                       "infer_ckpt": infer_perf, "tools": tools_perf,
-                      "parallel": par_perf, "lm_parallel": lmp_summary}))
+                      "parallel": par_perf, "lm_parallel": lmp_summary,
+                      "moe_lm": moe_perf, "moe_ep": ep_perf,
+                      "segformer": seg_perf, "int8_eval": int8_perf}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,9 +3,11 @@ write phase 6's PNG tree (without phase 6's runs), and run
 ``chip_smoke.phase_parallel`` (two ranks over gloo sharing the card; it
 prints which collectives gloo runs on CUDA tensors, checked by value).
 With ``--lm``, run phase 11 alone instead (``chip_smoke.phase_lm_parallel``:
-the LM's tensor-parallel and pipeline paths, two ranks over gloo).
+the LM's tensor-parallel and pipeline paths, two ranks over gloo); with
+``--moe``, phase 12 (the MoE LM on one card and in two expert-parallel
+ranks over gloo, SegFormer-b3, the int8 check).
 
-    python3 scripts/probe_parallel.py [--lm]
+    python3 scripts/probe_parallel.py [--lm | --moe]
 """
 import json
 import os
@@ -35,6 +37,19 @@ if __name__ == "__main__":
         print(f"phase 11: {time.perf_counter() - t0:.1f} s; {launched}",
               flush=True)
         print(json.dumps(perf), flush=True)
+        sys.exit(0)
+    if "--moe" in sys.argv[1:]:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for name, phase in (("12a", cs.phase_moe_lm),
+                            ("12b", cs.phase_moe_ep),
+                            ("12c", cs.phase_segformer),
+                            ("12d", cs.phase_int8_eval)):
+            t0 = time.perf_counter()
+            phase()
+            torch.cuda.empty_cache()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
         sys.exit(0)
     if native.get_lib() is None:
         sys.exit("probe_parallel: the native host ops did not build")

@@ -91,6 +91,18 @@ def test_entry_points_need_cuda_by_default(tmp_path):
     bench_generation.main(tiny + ["--device", "cpu"])
     model, _ = lm_eval_harness.load_lm(None, 50, 16, 1, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+    from vivim_tpu_torch.cli import int8_eval
+    from vivim_tpu_torch.nn import moe
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        int8_eval.main(["--out", str(tmp_path / "int8.json")])
+    assert not (tmp_path / "int8.json").exists()
+    cfg = moe.MoEMambaLMConfig(vocab_size=50, d_model=16, n_layer=1,
+                               n_experts=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        moe.init_moe_lm(cfg)
+    model = moe.init_moe_lm(cfg, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def test_trainer_needs_cuda_by_default(tmp_path):

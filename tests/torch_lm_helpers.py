@@ -1,6 +1,7 @@
 """Shared set-up of the LM parity tests (``tests/test_torch_lm*.py``,
-``test_torch_quant.py``): a JAX ``MambaLM`` with weights from a seed and the
-port's ``MambaLM`` holding the same weights."""
+``test_torch_quant.py``, ``test_torch_moe.py``, ``test_torch_expert_
+parallel.py``): a JAX ``MambaLM`` (or ``MoEMambaLM``) with weights from a
+seed and the port's model holding the same weights."""
 
 import jax
 import jax.numpy as jnp
@@ -8,8 +9,10 @@ import numpy as np
 import torch
 
 from vivim_tpu.nn import lm as jlm
+from vivim_tpu.nn import moe as jmoe
 from vivim_tpu_torch.convert import from_jax
 from vivim_tpu_torch.nn import lm as tlm
+from vivim_tpu_torch.nn import moe as tmoe
 
 VOCAB, D_MODEL, N_LAYER = 50, 16, 2       # the vocabulary pads to 56
 
@@ -58,6 +61,26 @@ def make_pair(seed=0, vocab=VOCAB, d_model=D_MODEL, n_layer=N_LAYER,
     tmodel.load_state_dict(
         from_jax.mamba_lm_state_dict_from_jax(params, n_layer), strict=True)
     return jmodel, params, tmodel.eval()
+
+
+def moe_pair(cfg_kw, seed=11, router_scale=20.0):
+    """(JAX model, JAX params, port model, port config) of an MoE-Mamba LM
+    with the same weights: the JAX init, norms / dt biases / D perturbed,
+    the router kernels scaled so that routing is decisive (and capacity
+    drops tokens)."""
+    jmodel = jmoe.MoEMambaLM(jmoe.MoEMambaLMConfig(**cfg_kw),
+                             scan_implementation="ref")
+    params = jmodel.init(jax.random.PRNGKey(seed),
+                         jnp.zeros((1, 4), jnp.int32))["params"]
+    params = perturb(params, seed + 1)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, v: v * router_scale
+        if path[-1].key == "router_kernel" else v, params)
+    tcfg = tmoe.MoEMambaLMConfig(**cfg_kw)
+    tmodel = tmoe.MoEMambaLM(tcfg)
+    tmodel.load_state_dict(from_jax.moe_lm_state_dict_from_jax(params, tcfg),
+                           strict=True)
+    return jmodel, params, tmodel, tcfg
 
 
 def tokens(shape, seed=1, vocab=VOCAB):

@@ -1,14 +1,26 @@
 """Process groups for the port's parallel tests (``tests/test_torch_
 seq_scan.py``, ``test_torch_data_parallel.py``, ``test_torch_parallel_
-cli.py``): ``run_ranks`` spawns the ranks of one gloo group on the CPU and
-the rank bodies below run in them.  The ranks import torch and the port
-only; they hand numpy arrays back through ``.npz`` files in the test's
-directory, and the JAX oracle runs in the test process."""
+cli.py``, the LM's tensor-parallel, pipeline and expert-parallel files):
+``run_ranks`` spawns the ranks of one gloo group on the CPU and the rank
+bodies below run in them.  The ranks import torch and the port only; they
+hand numpy arrays back through ``.npz`` files in the test's directory, and
+the JAX oracle runs in the test process.
+
+The ranks meet through a ``file://`` store in the test's directory, not a
+TCP port: a port chosen free can be taken by another process before the
+store binds it, and many groups start at once under the test workers.  A
+rank whose body succeeded leaves through ``os._exit(0)`` once its group is
+destroyed: in the interpreter's own teardown after that, torch (2.13 on
+the CPU) now and then aborts the process ("terminate called without an
+active exception", SIGABRT), every result already written, which would
+fail the test."""
 
 from __future__ import annotations
 
+import datetime
+import itertools
 import os
-import socket
+import sys
 import time
 import traceback
 
@@ -22,21 +34,24 @@ WALL_S = 120
 GROUP_TIMEOUT_S = 30
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+# the store files of this process's groups, one per run_ranks call
+_STORES = itertools.count()
 
 
-def _rank_main(body, rank, world, port, out_dir, args):
+def _rank_main(body, rank, world, store, out_dir, args):
     try:
+        import torch.distributed as dist
+
         torch.set_num_threads(1)
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                          MASTER_PORT=str(port))
+                          LOCAL_RANK=str(rank))
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
         from vivim_tpu_torch.parallel import mesh
 
-        mesh.init_distributed("gloo", GROUP_TIMEOUT_S)
+        mesh.init_distributed("gloo", GROUP_TIMEOUT_S)  # finds the group
         body(rank, world, out_dir, *args)
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
@@ -47,6 +62,9 @@ def _rank_main(body, rank, world, port, out_dir, args):
 
         if dist.is_initialized():
             dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def run_ranks(body, world, out_dir, *args, wall_s=WALL_S):
@@ -58,9 +76,10 @@ def run_ranks(body, world, out_dir, *args, wall_s=WALL_S):
 
     ctx = multiprocessing.get_context("spawn")
     out_dir = str(out_dir)
-    port = free_port()
+    store = os.path.join(os.path.abspath(out_dir),
+                         f"store_{os.getpid()}_{next(_STORES)}")
     procs = [ctx.Process(target=_rank_main,
-                         args=(body, r, world, port, out_dir, args))
+                         args=(body, r, world, store, out_dir, args))
              for r in range(world)]
     t0 = time.monotonic()
     for p in procs:
@@ -546,3 +565,81 @@ def lm_cli_body(rank, world, out_dir, bench_argv, eval_argv):
         results = lm_eval_harness.main(eval_argv)
     with open(os.path.join(out_dir, f"lm_cli_rank{rank}.json"), "w") as f:
         json.dump({"bench": lines, "eval": results["results"]["pair"]}, f)
+
+
+# ------------------------------------------------ MoE expert-parallel bodies
+
+
+def _ep_ffn_run(params, x, mesh, batch_axis=None, capacity_factor=1.0):
+    """``ep_moe_ffn`` of this rank's rows of ``x`` (all of them without
+    ``batch_axis``) and the gradients of sum(y^2) + 1e-2 aux w.r.t. the
+    whole params and those rows; the comm counters of the forward and of
+    the backward."""
+    from vivim_tpu_torch.parallel import comm
+    from vivim_tpu_torch.parallel.expert import ep_moe_ffn
+    from vivim_tpu_torch.parallel.mesh import local_rows
+
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xr = local_rows(x, mesh, batch_axis).clone().requires_grad_(True)
+    comm.reset_counters()
+    y, aux = ep_moe_ffn(leaves, xr, mesh, capacity_factor=capacity_factor,
+                        batch_axis=batch_axis)
+    fwd = dict(gathered=list(comm.GATHERED), reduced=list(comm.REDUCED))
+    comm.reset_counters()
+    ((y ** 2).sum() + 1e-2 * aux).backward()
+    return dict(y=y, aux=aux, gx=xr.grad, fwd_gathered=fwd["gathered"],
+                fwd_reduced=fwd["reduced"], bwd_gathered=comm.GATHERED,
+                bwd_reduced=comm.REDUCED,
+                **{f"g:{k}": p.grad for k, p in leaves.items()})
+
+
+def _ep_lm_run(cfg, params, toks, mesh, batch_axis=None):
+    """``lm_ep_forward`` from this rank's ``split_ep_params`` and the
+    gradients of its rows' summed next-token CE + aux_loss_weight x aux;
+    the split's shapes and the comm counters as ``_ep_ffn_run``."""
+    from vivim_tpu_torch.parallel import comm
+    from vivim_tpu_torch.parallel.expert import lm_ep_forward, split_ep_params
+    from vivim_tpu_torch.parallel.mesh import local_rows
+
+    local = split_ep_params(params, mesh)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in local.items()}
+    comm.reset_counters()
+    logits, aux = lm_ep_forward(cfg, leaves, toks, mesh,
+                                batch_axis=batch_axis)
+    fwd = dict(gathered=list(comm.GATHERED), reduced=list(comm.REDUCED))
+    comm.reset_counters()
+    mine = local_rows(toks, mesh, batch_axis)
+    logp = torch.log_softmax(logits[:, :-1].float(), -1)
+    ce = -logp.gather(-1, mine[:, 1:, None]).sum()
+    (ce + cfg.aux_loss_weight * aux).backward()
+    return dict(logits=logits, aux=aux, fwd_gathered=fwd["gathered"],
+                fwd_reduced=fwd["reduced"], bwd_gathered=comm.GATHERED,
+                bwd_reduced=comm.REDUCED,
+                wi_shape=local["moe_0.wi"].shape,
+                **{f"g:{k}": p.grad for k, p in leaves.items()})
+
+
+def ep_body(rank, world, out_dir, lm_cfg, hybrid):
+    """Expert parallel over an "expert" axis of every rank: ``ep_moe_ffn``
+    and ``lm_ep_forward`` with their gradients; with ``hybrid`` (4 ranks)
+    also both on a 2 x 2 ("data", "expert") mesh, each rank its data
+    block's rows."""
+    from vivim_tpu_torch.nn import moe
+    from vivim_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+
+    cfg = moe.MoEMambaLMConfig(**lm_cfg)
+    ffn = _tensors(load(out_dir, "ffn"))
+    x = ffn.pop("x")
+    lm = _tensors(load(out_dir, "lm"))
+    toks = lm.pop("tokens").long()
+    meshes = [("ep", make_mesh(world, axis="expert"), None)]
+    if hybrid:
+        meshes.append(("dp_ep", make_hybrid_mesh(2, world // 2,
+                                                  ("data", "expert")),
+                       "data"))
+    for name, mesh, batch_axis in meshes:
+        save(out_dir, f"{name}_ffn_w{world}_rank{rank}",
+             **_ep_ffn_run(ffn, x, mesh, batch_axis))
+        save(out_dir, f"{name}_lm_w{world}_rank{rank}",
+             coords=[mesh.index("data"), mesh.index("expert")],
+             **_ep_lm_run(cfg, lm, toks, mesh, batch_axis))

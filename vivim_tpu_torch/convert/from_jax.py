@@ -9,7 +9,10 @@ the inverse of the JAX package's ``vivim_params_from_torch`` /
 ``mamba_params_from_torch`` (flax Dense kernels (in, out) -> torch (out,
 in); conv kernels HWIO -> OIHW, DHWIO -> OIDHW; LayerNorm scale -> weight).
 ``mamba_lm_state_dict_from_jax`` does the same for the Mamba LM, the inverse
-of the JAX package's ``mamba_lm_params_from_torch``.
+of the JAX package's ``mamba_lm_params_from_torch``;
+``moe_lm_state_dict_from_jax`` for the MoE-Mamba LM (whose names are the JAX
+ones) and ``segformer_state_dict_from_jax`` for the SegFormer model (HF's
+names).
 """
 
 from __future__ import annotations
@@ -91,6 +94,77 @@ def mamba_lm_state_dict_from_jax(params, n_layer):
     return sd
 
 
+def moe_lm_state_dict_from_jax(params, cfg):
+    """JAX ``MoEMambaLM`` params -> ``nn.moe.MoEMambaLM``'s state_dict: the
+    JAX names kept (``embedding``, ``norm_{i}``, ``moe_norm_{i}``,
+    ``norm_f`` with flax's scale as weight; ``moe_{i}.router_kernel`` (M,
+    E), ``wi`` (E, M, F), ``wo`` (E, F, M) as they are), each ``mixer_{i}``
+    under the reference Mamba keys."""
+    p = params.get("params", params)
+    sd = {"embedding": _t(p["embedding"])}
+    for i in range(cfg.n_layer):
+        _ln(sd, f"norm_{i}", p[f"norm_{i}"])
+        sd.update(mamba_state_dict_from_jax(p[f"mixer_{i}"], f"mixer_{i}"))
+        if cfg.has_moe(i):
+            _ln(sd, f"moe_norm_{i}", p[f"moe_norm_{i}"])
+            for leaf in ("router_kernel", "wi", "wo"):
+                sd[f"moe_{i}.{leaf}"] = _t(p[f"moe_{i}"][leaf])
+    _ln(sd, "norm_f", p["norm_f"])
+    return sd
+
+
+def _segformer_stage(sd, pre, st, seg, i):
+    """JAX ``SegformerStage`` ``i`` params -> the HF encoder keys of that
+    stage under ``pre`` (its patch embedding and layers)."""
+    _conv(sd, f"{pre}.patch_embeddings.{i}.proj", st["embed"]["proj"])
+    _ln(sd, f"{pre}.patch_embeddings.{i}.layer_norm", st["embed"]["norm"])
+    for j in range(seg.depths[i]):
+        lp = f"{pre}.block.{i}.{j}"
+        ly = st[f"layer_{j}"]
+        _ln(sd, f"{lp}.layer_norm_1", ly["norm1"])
+        _ln(sd, f"{lp}.layer_norm_2", ly["norm2"])
+        at = ly["attn"]
+        for name in ("query", "key", "value"):
+            _linear(sd, f"{lp}.attention.self.{name}", at[name])
+        _linear(sd, f"{lp}.attention.output.dense", at["proj"])
+        if seg.sr_ratios[i] > 1:
+            _conv(sd, f"{lp}.attention.self.sr", at["sr"])
+            _ln(sd, f"{lp}.attention.self.layer_norm", at["sr_norm"])
+        _linear(sd, f"{lp}.mlp.dense1", ly["ffn"]["dense1"])
+        _conv(sd, f"{lp}.mlp.dwconv.dwconv", ly["ffn"]["dwconv"])
+        _linear(sd, f"{lp}.mlp.dense2", ly["ffn"]["dense2"])
+
+
+def _decode_head(sd, pre, p, batch_stats, n_stages):
+    """The decode head's linear_c / linear_fuse / batch_norm (with its
+    running statistics) under ``pre``."""
+    for i in range(n_stages):
+        _linear(sd, f"{pre}.linear_c.{i}.proj", p[f"linear_c_{i}"])
+    _conv(sd, f"{pre}.linear_fuse", p["linear_fuse"])
+    _ln(sd, f"{pre}.batch_norm", p["batch_norm"])
+    sd[f"{pre}.batch_norm.running_mean"] = _t(batch_stats["mean"])
+    sd[f"{pre}.batch_norm.running_var"] = _t(batch_stats["var"])
+    sd[f"{pre}.batch_norm.num_batches_tracked"] = torch.tensor(0)
+
+
+def segformer_state_dict_from_jax(variables, cfg):
+    """JAX ``SegformerForSemanticSegmentation`` variables ({"params",
+    "batch_stats"}) -> ``nn.segformer.SegformerForSemanticSegmentation``'s
+    state_dict (HF's keys; loads with ``strict=True``)."""
+    sd = {}
+    enc = variables["params"]["encoder"]
+    pre = "segformer.encoder"
+    for i in range(cfg.num_stages):
+        _segformer_stage(sd, pre, enc[f"stage_{i}"], cfg, i)
+        _ln(sd, f"{pre}.layer_norm.{i}", enc[f"norm_{i}"])
+    head = variables["params"]["decode_head"]
+    _decode_head(sd, "decode_head", head,
+                 variables["batch_stats"]["decode_head"]["batch_norm"],
+                 cfg.num_stages)
+    _conv(sd, "decode_head.classifier", head["classifier"])
+    return sd
+
+
 def _mamba_layer(sd, prefix, p):
     """JAX ``MambaLayer`` params -> keys under ``prefix``."""
     _ln(sd, f"{prefix}.norm1", p["norm1"])
@@ -110,38 +184,15 @@ def vivim_state_dict_from_jax(variables, cfg):
     enc = variables["params"]["encoder"]
     pre = "encoder.downsample_layers"
     for i in range(seg.num_stages):
-        st = enc[f"stage_{i}"]
-        _conv(sd, f"{pre}.patch_embeddings.{i}.proj", st["embed"]["proj"])
-        _ln(sd, f"{pre}.patch_embeddings.{i}.layer_norm", st["embed"]["norm"])
-        for j in range(seg.depths[i]):
-            lp = f"{pre}.block.{i}.{j}"
-            ly = st[f"layer_{j}"]
-            _ln(sd, f"{lp}.layer_norm_1", ly["norm1"])
-            _ln(sd, f"{lp}.layer_norm_2", ly["norm2"])
-            at = ly["attn"]
-            for name in ("query", "key", "value"):
-                _linear(sd, f"{lp}.attention.self.{name}", at[name])
-            _linear(sd, f"{lp}.attention.output.dense", at["proj"])
-            if seg.sr_ratios[i] > 1:
-                _conv(sd, f"{lp}.attention.self.sr", at["sr"])
-                _ln(sd, f"{lp}.attention.self.layer_norm", at["sr_norm"])
-            _linear(sd, f"{lp}.mlp.dense1", ly["ffn"]["dense1"])
-            _conv(sd, f"{lp}.mlp.dwconv.dwconv", ly["ffn"]["dwconv"])
-            _linear(sd, f"{lp}.mlp.dense2", ly["ffn"]["dense2"])
+        _segformer_stage(sd, pre, enc[f"stage_{i}"], seg, i)
         sd[f"{pre}.layer_norm.{i}.weight"] = torch.ones(seg.hidden_sizes[i])
         sd[f"{pre}.layer_norm.{i}.bias"] = torch.zeros(seg.hidden_sizes[i])
         for j in range(cfg.depths[i]):
             _mamba_layer(sd, f"encoder.stages.{i}.{j}.0",
                          enc[f"mamba_{i}_{j}"])
     p = variables["params"]
-    for i in range(seg.num_stages):
-        _linear(sd, f"decoder.linear_c.{i}.proj", p[f"linear_c_{i}"])
-    _conv(sd, "decoder.linear_fuse", p["linear_fuse"])
-    _ln(sd, "decoder.batch_norm", p["batch_norm"])
-    bs = variables["batch_stats"]["batch_norm"]
-    sd["decoder.batch_norm.running_mean"] = _t(bs["mean"])
-    sd["decoder.batch_norm.running_var"] = _t(bs["var"])
-    sd["decoder.batch_norm.num_batches_tracked"] = torch.tensor(0)
+    _decode_head(sd, "decoder", p, variables["batch_stats"]["batch_norm"],
+                 seg.num_stages)
     _conv(sd, "out", p["out"])
     if "edge_head" in p:
         _conv(sd, "edgeocr_cls_head", p["edge_head"])

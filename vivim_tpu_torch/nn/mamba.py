@@ -105,7 +105,7 @@ class MambaV3(nn.Module):
             dt_proj = getattr(self, f"dt_proj{s}")
             nn.init.uniform_(dt_proj.weight, -dt_std, dt_std, generator=gen)
             dt = torch.exp(
-                torch.rand(self.d_inner, generator=gen)
+                torch.rand(self.d_inner, generator=gen, device=gen.device)
                 * (math.log(self.dt_max) - math.log(self.dt_min))
                 + math.log(self.dt_min)).clamp(min=self.dt_init_floor)
             dt_proj.bias.copy_(dt + torch.log(-torch.expm1(-dt)))

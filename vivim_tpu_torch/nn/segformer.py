@@ -1,11 +1,16 @@
-"""SegFormer (MiT) encoder, channels-last at its interfaces.
+"""SegFormer (MiT) encoder and decode head, channels-last at their
+interfaces.
 
 Port of the JAX package's ``nn/segformer.py`` (configs, ``OverlapPatchEmbed``,
 ``EfficientSelfAttention``, ``DepthwiseConv2d``, ``MixFFN``,
-``SegformerLayer``, the stage, ``drop_path_schedule``, ``resize_bilinear``).
-Keys follow HuggingFace's SegformerEncoder (``patch_embeddings.{i}``,
-``block.{i}.{j}``, ``layer_norm.{i}``), which the reference Vivim nests
-under ``encoder.downsample_layers``.
+``SegformerLayer``, the stage, ``drop_path_schedule``, ``resize_bilinear``,
+``SegformerEncoder``, ``SegformerDecodeHead``,
+``SegformerForSemanticSegmentation``).  Keys follow HuggingFace's
+(``patch_embeddings.{i}``, ``block.{i}.{j}``, ``layer_norm.{i}`` in the
+encoder; ``linear_c.{i}.proj``, ``linear_fuse``, ``batch_norm``,
+``classifier`` in the head), so an HF ``SegformerForSemanticSegmentation``
+state_dict loads strictly into the model here; the reference Vivim nests
+the encoder under ``encoder.downsample_layers``.
 
 Numerics follow the JAX package, not HF, where the two differ:
 - LayerNorm eps is 1e-6 (flax's default) where HF uses 1e-5;
@@ -19,6 +24,7 @@ import dataclasses
 import math
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -244,6 +250,16 @@ class SegformerEncoder(nn.Module):
         self.layer_norm = nn.ModuleList(
             nn.LayerNorm(h, eps=LN_EPS) for h in cfg.hidden_sizes)
 
+    def forward(self, x):
+        """x: (B, H, W, C_in) -> per stage (B, H_i, W_i, C_i) after the
+        stage's LayerNorm (the whole MiT encoder)."""
+        feats = []
+        for i in range(self.cfg.num_stages):
+            tokens, H, W = self.stage(i, x)
+            x = self.layer_norm[i](tokens).reshape(tokens.shape[0], H, W, -1)
+            feats.append(x)
+        return feats
+
     def stage(self, i: int, x):
         """x: (B, H, W, C_in) -> (tokens (B, H'*W', C_i), H', W')."""
         tokens, H, W = self.patch_embeddings[i](x)
@@ -261,3 +277,77 @@ def resize_bilinear(x, size):
     y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size),
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)
+
+
+class SegformerDecodeHead(nn.Module):
+    """All-MLP decode head in HF's op order: per scale a linear to
+    ``decoder_hidden_size`` and a bilinear resize to the first scale's
+    size, the reversed scales concatenated, the 1x1 ``linear_fuse`` conv,
+    BatchNorm, ReLU, dropout and the 1x1 ``classifier``.  ``fuse_only``
+    stops after the dropout and has no classifier (the reference Vivim
+    takes the head that far).
+
+    In training BatchNorm normalises by the batch statistics and updates
+    the running ones as flax does: the biased batch variance, momentum 0.9
+    (torch's 0.1; ROADMAP F3); the dropout draws from the generator of
+    ``nn.layers.use_generator``."""
+
+    def __init__(self, cfg: SegformerConfig, fuse_only: bool = False):
+        super().__init__()
+        hid = cfg.decoder_hidden_size
+        self.linear_c = nn.ModuleList(
+            nn.ModuleDict({"proj": nn.Linear(c, hid)})
+            for c in cfg.hidden_sizes)
+        self.linear_fuse = nn.Conv2d(cfg.num_stages * hid, hid, 1,
+                                     bias=False)
+        self.batch_norm = nn.BatchNorm2d(hid, eps=1e-5, momentum=0.1)
+        self.dropout = Dropout(cfg.classifier_dropout)
+        if not fuse_only:
+            self.classifier = nn.Conv2d(hid, cfg.num_labels, 1)
+
+    def forward(self, feats):
+        """feats: per stage (B, H_i, W_i, C_i) -> (B, H_0, W_0,
+        num_labels), or the (B, H_0, W_0, hidden) fused map with
+        ``fuse_only``."""
+        size = feats[0].shape[1:3]
+        unified = [resize_bilinear(lin["proj"](f), size)
+                   for lin, f in zip(self.linear_c, feats)]
+        x = torch.cat(unified[::-1], dim=-1) \
+            @ self.linear_fuse.weight[:, :, 0, 0].t()
+        x = self.dropout(torch.relu(self._batch_norm(x)))
+        if not hasattr(self, "classifier"):
+            return x
+        return x @ self.classifier.weight[:, :, 0, 0].t() \
+            + self.classifier.bias
+
+    def _batch_norm(self, x):
+        bn = self.batch_norm
+        if not self.training:
+            return ((x - bn.running_mean) * torch.rsqrt(bn.running_var
+                                                        + bn.eps)
+                    * bn.weight + bn.bias).to(x.dtype)
+        xf = x.float()
+        mean = xf.mean((0, 1, 2))
+        var = xf.var((0, 1, 2), unbiased=False)
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(var, bn.momentum)
+            bn.num_batches_tracked += 1
+        return ((xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight
+                + bn.bias).to(x.dtype)
+
+
+class SegformerForSemanticSegmentation(nn.Module):
+    """SegFormer semantic segmentation: (B, H, W, C_in) -> logits (B, H /
+    4, W / 4, num_labels), channels-last.  HF's keys
+    (``segformer.encoder.*``, ``decode_head.*``)."""
+
+    def __init__(self, cfg: SegformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.segformer = nn.Module()
+        self.segformer.encoder = SegformerEncoder(cfg)
+        self.decode_head = SegformerDecodeHead(cfg)
+
+    def forward(self, x):
+        return self.decode_head(self.segformer.encoder(x))

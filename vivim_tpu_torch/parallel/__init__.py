@@ -3,9 +3,10 @@
 Submodules: ``comm`` (the collectives, and their adjoint convention),
 ``mesh`` (process groups, the named mesh, the batch helpers), ``fsdp``
 (ZeRO sharding of the parameters and AdamW moments over ``data``),
-``seq_scan`` (the sequence-sharded selective scan over ``seq``), and the
+``seq_scan`` (the sequence-sharded selective scan over ``seq``), the
 Mamba LM's ``tensor_parallel`` (mixers split over ``model``) and
-``pipeline`` (GPipe stages over ``pipe``).
+``pipeline`` (GPipe stages over ``pipe``), and the MoE LM's ``expert``
+(experts split over ``expert``).
 """
 
 from vivim_tpu_torch.parallel.fsdp import (

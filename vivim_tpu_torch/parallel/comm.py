@@ -40,9 +40,14 @@ The adjoint convention of the parallel paths, stated once:
   copy of the loss then gives the whole cotangent (``reduce_from_model``,
   Megatron's g);
 - the adjoint of a replicated input that each rank's part of the model
-  reads (the tensor-parallel mixer's input, the pipeline's microbatches)
-  is the sum of the ranks' partial cotangents (``copy_to_model``,
-  Megatron's f).
+  reads (the tensor-parallel mixer's input, the pipeline's microbatches,
+  the expert-parallel dispatched tokens) is the sum of the ranks' partial
+  cotangents (``copy_to_model``, Megatron's f);
+- so gathering the expert-parallel outputs, which every rank combines
+  alike, takes this rank's block of the cotangent (``gather_replicated``);
+  gathering the rows of a data-sharded batch that every rank's own loss
+  then reads whole (the MoE routing over the global batch) sums the
+  ranks' cotangents of this rank's rows (``gather_rows``).
 """
 
 from __future__ import annotations
@@ -162,6 +167,53 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[rank(ctx.group)], None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = size(group)
+        return all_gather(x, group).reshape((n * x.shape[0],)
+                                            + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = size(ctx.group), rank(ctx.group)
+        return all_reduce_sum(g, ctx.group).view(
+            (n, -1) + tuple(g.shape[1:]))[r], None
+
+
+def gather_replicated(x, group):
+    """(n, *x.shape): every rank's ``x`` stacked in group-rank order; the
+    backward keeps this rank's block of the cotangent, for a gather that
+    every rank then uses in the same way (each rank's copy of the loss holds
+    the whole cotangent; a sum would count it n times)."""
+    if size(group) == 1:
+        return x[None]
+    return _GatherReplicated.apply(x, group)
+
+
+def gather_rows(x, group):
+    """Every rank's rows of ``x`` concatenated in group-rank order along
+    dim 0; the backward sums every rank's cotangent of this rank's rows
+    (one all_reduce of the whole cotangent): for a batch whose ranks each
+    hold their own rows and their own loss, where each loss reads every
+    row."""
+    if size(group) == 1:
+        return x
+    return _GatherRows.apply(x, group)
 
 
 def copy_to_model(x, group):

@@ -180,11 +180,32 @@ Phases, each of which raises on failure (exit code != 0):
    AdamW steps of 32 x 64 tokens, 64 held-out pairs): 4 K1-training and 4 K2
    per step, the trained NLL below ln 32, fp32 / bf16 / int8 NLLs finite,
    their deltas and seconds printed;
-13. print the kernels line, the card line and, last, the device line.
+13. d_state from 1 to 256 (the kernels take what the Pallas kernels take,
+   up to mamba_ssm's own limit): (a) K1 (both variants) and K2 at the LM's
+   shape (2, 128, 1536) at every d_state of ``DSTATE_NS`` (each family of
+   the kernels and the masked widths 12 and 24) in fp32, in bf16 at 8, 64
+   and 256, and at a long ragged (1, 2053, 256) at 4, 64 and 256, with an
+   initial state and a non-zero last-state cotangent, each against its
+   plain version (largest scaled error printed), the fp32 LM-shape cases
+   timed (device ms, eager ms, bound); (b) the mamba-130m-width LM with
+   ``ssm_cfg.d_state`` 8 and 64 from a seeded snapshot through ``load_lm``
+   at (2, 128): the prefill's logits within 1e-3, ``generate``'s 16 greedy
+   tokens equal to the plain scan's (24 K1 per call, 0 per decode token),
+   two eval-core scores within 1e-3 (24 K1 each), a gradient step of
+   next-token CE (24 K1-training, 24 K2) with phase 11's bounds, prefill,
+   decode and step ms; the MoE LM at d_state 64, one (2, 128) scoring
+   forward (24 K1): logits within 1e-3, every routing decision bit-equal;
+   (c) constant (dim, dstate) B or C, alone, together and beside a grouped
+   one, on the card (the sequential plain scan, as the JAX package routes
+   it; no launch): output, last state and 9 gradients against the CPU's;
+   d_state 257 refused;
+14. print the kernels line (every K1 / K2 row by d_state under
+   ``by_dstate``), the card line and, last, the device line.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3b (a
-quick check of the kernels on the card).
+quick check of the kernels on the card); ``--dstate-only`` runs phase 13
+alone after the build.
 """
 
 from __future__ import annotations
@@ -304,6 +325,19 @@ MOE_PROMPT = 128
 MOE_WALL_S = 300
 SEG_SIZE = 512
 SEG_LABELS = 150
+# phase 13: d_state other than 16.  (a) the kernels at every N family and
+# masked width at the LM's shape (batch 2, prompt 128, d_inner 1536) in
+# fp32, in bf16 at three N, and at a long ragged shape that takes several
+# chunks and segments; (b) the mamba-130m-width LM at two d_state and the
+# MoE LM at one, and the greedy tokens of generate; (c) constant B/C
+DSTATE_NS = (1, 2, 4, 8, 12, 16, 24, 32, 64, 128, 256)
+DSTATE_BF16 = (8, 64, 256)
+DSTATE_SHAPE = (2, 128, 1536)
+DSTATE_LONG = (1, 2053, 256)
+DSTATE_LONG_NS = (4, 64, 256)
+DSTATE_LM = (8, 64)
+DSTATE_MOE = 64
+DSTATE_GEN = 16
 
 
 def nvidia_smi(query):
@@ -342,34 +376,35 @@ def bound(work, peaks):
             term)
 
 
-def scan_work(batch, L, d, elem):
-    """(bytes, fp32 operations, exps) of K1's inference variant: it reads u,
-    delta, z, B, C and writes y; per state and step one exp and about six
-    other operations, per channel and step about eight."""
-    nbytes = (batch * L * (4 * d + 2 * N) * elem       # u, delta, z, y, B, C
-              + batch * d * (2 * N + 2) * 4)            # A, last, D, bias
-    return nbytes, batch * L * d * (6 * N + 8), batch * L * d * N
+def scan_work(batch, L, d, n, elem):
+    """(bytes, fp32 operations, exps) of K1's inference variant at d_state
+    ``n``: it reads u, delta, z, B, C and writes y; per state and step one
+    exp and about six other operations, per channel and step about
+    eight."""
+    nbytes = (batch * L * (4 * d + 2 * n) * elem       # u, delta, z, y, B, C
+              + batch * d * (2 * n + 2) * 4)            # A, last, D, bias
+    return nbytes, batch * L * d * (6 * n + 8), batch * L * d * n
 
 
-def train_fwd_work(batch, L, d, elem, chunk):
+def train_fwd_work(batch, L, d, n, elem, chunk):
     """K1, training variant: reads u, delta, B, C, writes y and the chunk
     states, and the last state; no z."""
-    nbytes = (batch * L * (3 * d + 2 * N) * elem
-              + batch * -(-L // chunk) * d * N * 4
-              + batch * d * (2 * N + 2) * 4)
-    return nbytes, batch * L * d * (6 * N + 4), batch * L * d * N
+    nbytes = (batch * L * (3 * d + 2 * n) * elem
+              + batch * -(-L // chunk) * d * n * 4
+              + batch * d * (2 * n + 2) * 4)
+    return nbytes, batch * L * d * (6 * n + 4), batch * L * d * n
 
 
-def bwd_work(batch, L, d, elem, chunk):
+def bwd_work(batch, L, d, n, elem, chunk):
     """K2, as the training step calls it (no dlast): reads u, delta, dy, B,
     C and the chunk states, writes ddelta, du, dB, dC and the per-batch
     parameter grads.  One exp per state and step: the recompute's h_t and
     the adjoint's g_{t-1} use the same exp(dt_t A); about 19 other
     operations per state and step and 20 per channel and step."""
-    nbytes = (batch * L * (5 * d + 4 * N) * elem
-              + batch * -(-L // chunk) * d * N * 4
-              + batch * d * (2 * N + 2 + 4) * 4)      # A, D, bias; grads
-    return nbytes, batch * L * d * (19 * N + 20), batch * L * d * N
+    nbytes = (batch * L * (5 * d + 4 * n) * elem
+              + batch * -(-L // chunk) * d * n * 4
+              + batch * d * (2 * n + 2 + 4) * 4)      # A, D, bias; grads
+    return nbytes, batch * L * d * (19 * n + 20), batch * L * d * n
 
 
 def cuda_ms(fn, repeats):
@@ -430,8 +465,11 @@ def kernel_split(fn, calls=3):
         if "selective_scan_fwd_carry" in name:
             key = "carry"
         elif "selective_scan_fwd_chunk" in name:
-            key = ("local" if re.search(r"chunk_kernel<[^,]+, 0,", name)
-                   else "out")
+            # the pass is the template argument after the dtype (and the
+            # d_state family)
+            key = ("local" if re.search(
+                r"chunk_kernel<[^,<]+, (?:[^<>]*Family<[^>]*>, )?0,", name)
+                else "out")
         elif "selective_scan_bwd_local" in name:
             key = "local"
         elif "selective_scan_bwd_carry" in name:
@@ -465,20 +503,20 @@ def once_ms(fn):
     return out, e0.elapsed_time(e1)
 
 
-def scan_inputs(batch, L, d, dtype, gen, strided=True):
-    """Main-path-like inputs: B/C are column slices of one x_proj output and
-    z is the second half of in_proj's output, as mamba_inner_grouped
-    passes them."""
+def scan_inputs(batch, L, d, dtype, gen, strided=True, n=N):
+    """Main-path-like inputs at d_state ``n``: B/C are column slices of one
+    x_proj output and z is the second half of in_proj's output, as
+    mamba_inner_grouped passes them."""
     dev = "cuda"
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
     u = rnd(batch, L, d).to(dtype)
     delta = (0.5 * rnd(batch, L, d)).to(dtype)
     rank = max(d // 32, 1)
-    x_dbl = rnd(batch, L, rank + 2 * N).to(dtype)
-    B, C = x_dbl[..., rank:rank + N], x_dbl[..., rank + N:]
+    x_dbl = rnd(batch, L, rank + 2 * n).to(dtype)
+    B, C = x_dbl[..., rank:rank + n], x_dbl[..., rank + n:]
     xz = rnd(batch, L, 2 * d).to(dtype)
     z = xz[..., d:]
-    A = -(0.5 + torch.rand(batch, d, N, generator=gen, device=dev))
+    A = -(0.5 + torch.rand(batch, d, n, generator=gen, device=dev))
     D = rnd(batch, d)
     bias = 0.1 * rnd(batch, d)
     if not strided:
@@ -494,20 +532,20 @@ def sm_count():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def picked_chunk(batch, L, d):
+def picked_chunk(batch, L, d, n=N):
     """(Lc, grid) K1's wrapper picks for a shape on this card."""
     from vivim_tpu_torch.kernels import selective_scan as ss
 
-    threads = ss.fwd_threads()
-    lc = ss.fwd_l_chunk(batch, L, d, sm_count(), threads)
-    return lc, ss.fwd_grid(batch, L, d, lc, threads)
+    channels = ss.fwd_channels(n)
+    lc = ss.fwd_l_chunk(batch, L, d, sm_count(), channels)
+    return lc, ss.fwd_grid(batch, L, d, lc, channels)
 
 
-def picked_segment(batch, L, d):
+def picked_segment(batch, L, d, n=N):
     """(Ls, grid) K2's wrapper picks for a shape on this card."""
     from vivim_tpu_torch.kernels import selective_scan as ss
 
-    channels = ss.bwd_channels()
+    channels = ss.bwd_channels(n)
     ls = ss.bwd_l_seg(batch, L, d, sm_count(), channels)
     return ls, ss.bwd_grid(batch, L, d, ls, channels)
 
@@ -566,7 +604,7 @@ def phase_kernels(peaks):
             call_ms = cuda_ms(run, 10 if L > 10000 else 30)
             ms = device_ms(run)
             split = kernel_split(run)
-            work = scan_work(SCAN_BATCH, L, d, got.element_size())
+            work = scan_work(SCAN_BATCH, L, d, N, got.element_size())
             bound_ms, bound_by, term = bound(work, peaks)
             row = dict(stage=si, L=L, d=d, dtype=dtype_name(dtype),
                        l_chunk=lc, grid=grid, max_abs_err=err, ms=ms,
@@ -691,7 +729,8 @@ def check_train_pair(u, delta, A, B, C, D, bias, h0, dout, dlast, dtype,
                                    atol=atol, msg=f"K2 {what} {name}")
     bwd_err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got_b, want_b))
-    return fwd_err, bwd_err, cs, fwd_plain, bwd_plain
+    return (fwd_err, bwd_err, cs, fwd_plain, bwd_plain,
+            scaled_err(got, want), scaled_err(got_b, want_b))
 
 
 def train_kernel_rows(peaks, shapes, b, gen, label, reps=20):
@@ -712,7 +751,7 @@ def train_kernel_rows(peaks, shapes, b, gen, label, reps=20):
                 dtype)
             fwd_err, bwd_err, cs, fwd_plain, bwd_plain = check_train_pair(
                 u, delta, A, B, C, D, bias, None, dout, None, dtype, None,
-                f"{label} {tag} {dtype_name(dtype)}")
+                f"{label} {tag} {dtype_name(dtype)}")[:5]
             fwd = lambda: ss.selective_scan_fwd_states_cuda(
                 u, delta, A, B, C, D, bias, True)
             bwd = lambda: ss.selective_scan_bwd_cuda(
@@ -721,11 +760,11 @@ def train_kernel_rows(peaks, shapes, b, gen, label, reps=20):
             elem = u.element_size()
             for rows, kind, err, run, plain, work, extra, text in (
                     (fwd_rows, "K1-train", fwd_err, fwd, fwd_plain,
-                     train_fwd_work(b, L, d, elem, ss.CHUNK),
+                     train_fwd_work(b, L, d, N, elem, ss.CHUNK),
                      dict(l_chunk=lc, grid=grid, split_us=kernel_split(fwd)),
                      grid_text(lc, grid)),
                     (bwd_rows, "K2", bwd_err, bwd, bwd_plain,
-                     bwd_work(b, L, d, elem, ss.CHUNK),
+                     bwd_work(b, L, d, N, elem, ss.CHUNK),
                      dict(l_seg=ls, grid=bgrid, split_us=kernel_split(bwd)),
                      grid_text(ls, bgrid, "Ls"))):
                 call_ms, ms = cuda_ms(run, n_reps), device_ms(run, calls=5)
@@ -1807,7 +1846,7 @@ def lm_scan_rows(peaks, d_inner):
                       for g, w in zip(got, want))
             call_ms = cuda_ms(run, 30)
             ms = device_ms(run)
-            work = scan_work(1, L, d_inner, got[0].element_size())
+            work = scan_work(1, L, d_inner, N, got[0].element_size())
             bound_ms, bound_by, term = bound(work, peaks)
             rows.append(dict(stage=f"lm L={L}", L=L, d=d_inner,
                              dtype=dtype_name(dtype), l_chunk=lc, grid=grid,
@@ -3693,6 +3732,430 @@ def phase_int8_eval(dev="cuda"):
     return launched, res
 
 
+def dstate_kernel_rows(peaks):
+    """(a) of phase 13: K1 (both variants) and K2 at every d_state of
+    ``DSTATE_NS`` at the LM's shape ``DSTATE_SHAPE`` in fp32, at
+    ``DSTATE_BF16`` in bf16, and at the long ragged ``DSTATE_LONG`` (several
+    chunks and segments) at ``DSTATE_LONG_NS``, each with an initial state
+    and a non-zero last-state cotangent against its plain version on the
+    card (K2 on the chunk states K1-training saved); the fp32 LM-shape
+    cases are timed as the LM calls them (no initial state or dlast).
+    Returns {"K1", "K1-train", "K2"}: rows."""
+    from vivim_tpu_torch.kernels import refs
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {"K1": [], "K1-train": [], "K2": []}
+    cases = ([(DSTATE_SHAPE, n, torch.float32) for n in DSTATE_NS]
+             + [(DSTATE_SHAPE, n, torch.bfloat16) for n in DSTATE_BF16]
+             + [(DSTATE_LONG, n, torch.float32) for n in DSTATE_LONG_NS])
+    for (b, L, d), n, dtype in cases:
+        u, delta, A, B, C, D, z, bias = scan_inputs(b, L, d, dtype, gen, n=n)
+        h0 = torch.randn(b, d, n, generator=gen, device="cuda")
+        dout = torch.randn(b, L, d, generator=gen, device="cuda").to(dtype)
+        dlast = torch.randn(b, d, n, generator=gen, device="cuda")
+        what = f"N={n} ({b}, {L}, {d}) {dtype_name(dtype)}"
+        got = ss.selective_scan_fwd_cuda(u, delta, A, B, C, D, z, bias, True,
+                                         h0)
+        torch.cuda.synchronize()
+        want, inf_plain = once_ms(lambda: refs.selective_scan_ref(
+            u, delta, A, B, C, D, z, bias, True, True, h0))
+        rtol, atol = TOL[dtype]
+        for name, g, w in zip(("y", "last"), got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                       atol=atol, msg=f"K1 {what} {name}")
+        inf_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+        inf_scaled = scaled_err(got, want)
+        (fwd_err, bwd_err, _, fwd_plain, bwd_plain, fwd_scaled,
+         bwd_scaled) = check_train_pair(u, delta, A, B, C, D, bias, h0, dout,
+                                        dlast, dtype, None, what)
+        lc, grid = picked_chunk(b, L, d, n)
+        ls, bgrid = picked_segment(b, L, d, n)
+        base = dict(stage=f"N={n}", n=n, batch=b, L=L, d=d,
+                    dtype=dtype_name(dtype))
+        kinds = {"K1": (inf_err, inf_scaled, inf_plain,
+                        dict(l_chunk=lc, grid=grid)),
+                 "K1-train": (fwd_err, fwd_scaled, fwd_plain,
+                              dict(l_chunk=lc, grid=grid)),
+                 "K2": (bwd_err, bwd_scaled, bwd_plain,
+                        dict(l_seg=ls, grid=bgrid))}
+        text = ""
+        if (b, L, d) == DSTATE_SHAPE and dtype == torch.float32:
+            # timed as the LM calls them: no initial state, no dlast
+            cs = ss.selective_scan_fwd_states_cuda(u, delta, A, B, C, D, bias,
+                                                   True)[1]
+            elem = u.element_size()
+            runs = {
+                "K1": (lambda: ss.selective_scan_fwd_cuda(
+                    u, delta, A, B, C, D, z, bias, True),
+                    scan_work(b, L, d, n, elem)),
+                "K1-train": (lambda: ss.selective_scan_fwd_states_cuda(
+                    u, delta, A, B, C, D, bias, True),
+                    train_fwd_work(b, L, d, n, elem, ss.CHUNK)),
+                "K2": (lambda: ss.selective_scan_bwd_cuda(
+                    u, delta, A, B, C, D, bias, cs, dout, None, True),
+                    bwd_work(b, L, d, n, elem, ss.CHUNK))}
+            timed = {}
+            for kind, (run, work) in runs.items():
+                bound_ms, bound_by, term = bound(work, peaks)
+                timed[kind] = dict(ms=device_ms(run, calls=5),
+                                   call_ms=cuda_ms(run, 10),
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   bound_term=term, mbytes=work[0] / 1e6)
+            text = "; ms (bound, term) " + ", ".join(
+                f"{k} {t['ms']:.4f} ({t['bound_ms']:.4f}, "
+                f"{t['bound_term']})" for k, t in timed.items())
+            del cs
+        for kind, (err, scaled, plain, extra) in kinds.items():
+            rows[kind].append(dict(base, max_abs_err=err, scaled_err=scaled,
+                                   plain_ms=plain, **extra,
+                                   **(timed[kind] if text else {})))
+        print(f"dstate N={n:3d} {dtype_name(dtype):8s} ({b}, {L:4d}, {d:4d}) "
+              f"{grid_text(lc, grid)} Ls={ls}: max_abs_err (scaled) K1 "
+              f"{inf_err:.3e} ({inf_scaled:.3e}), K1-train {fwd_err:.3e} "
+              f"({fwd_scaled:.3e}), K2 {bwd_err:.3e} ({bwd_scaled:.3e})"
+              + text, flush=True)
+        del u, delta, A, B, C, D, z, bias, h0, dout, dlast, got, want
+    for kind, rs in rows.items():
+        print(f"dstate {kind}: largest scaled error over the "
+              f"{len(rs)} cases {max(r['scaled_err'] for r in rs):.3e}",
+              flush=True)
+    return rows
+
+
+def phase_dstate_lm(d_state, dev="cuda", config=LM_CONFIG, batch=LMP_BATCH,
+                    prompt=LMP_PROMPT, gen_len=DSTATE_GEN):
+    """(b) of phase 13: the mamba-130m-width LM with ``ssm_cfg.d_state`` =
+    ``d_state``, from a seeded snapshot through ``load_lm``, at (batch,
+    prompt): the prefill's last logits and ``generate``'s greedy tokens
+    (24 K1 per call, 0 per decode token), the eval core's scores of two
+    pairs (24 K1 each) and one gradient step of next-token CE (24
+    K1-training, 24 K2), each against the same model on the plain scan;
+    prefill, decode and step ms.  ``dev="cpu"`` rehearses the host side at
+    a small ``config``.  Returns (launches, summary)."""
+    from vivim_tpu_torch.cli.lm_eval_harness import MambaEvalCore, load_lm
+    from vivim_tpu_torch.kernels import selective_scan as ss
+    from vivim_tpu_torch.nn import lm, streaming
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+
+    def add(c):
+        for k in launched:
+            launched[k] += c[k]
+
+    config = dict(config, ssm_cfg=dict(config.get("ssm_cfg") or {},
+                                       d_state=d_state))
+    with tempfile.TemporaryDirectory() as snap:
+        write_lm_snapshot(snap, config)
+        model, params = load_lm(None, 0, 0, 0, hf_dir=snap, device=dev)
+    cfg = model.cfg
+    if cfg.d_state != d_state:
+        raise AssertionError(f"loaded d_state {cfg.d_state}, want {d_state}")
+    per = cfg.n_layer
+    ref_model = lm.MambaLM(cfg, scan_implementation="ref")
+    ref_model.load_state_dict(model.state_dict())
+    ref_model = ref_model.to(dev).eval()
+    ref_params = lm.lm_params(ref_model)
+    toks = _lmp_tensors(dict(vocab=cfg.vocab_size, batch=batch,
+                             prompt=prompt), dev)
+    tag = f"dstate {d_state} lm"
+
+    # the prefill's last logits
+    parts, ref_parts = (lm.split_params(model, params),
+                        lm.split_params(ref_model, ref_params))
+    with torch.no_grad():
+        reset_counts()
+        got = lm.prefill(parts, toks)[0]
+        c = counts()
+        want = lm.prefill(ref_parts, toks)[0]
+    add(c)
+    prefill_err = _max_err(got, want)
+    if on_card and c != {"K1 inference": per, "K1 training": 0, "K2": 0}:
+        raise AssertionError(f"{tag}: prefill launched {c}")
+    if not prefill_err <= 1e-3:
+        raise AssertionError(f"{tag}: prefill logits {prefill_err:.3e} "
+                             "from the plain scan's")
+
+    # generate: greedy tokens as the plain scan's, no K1 per decode token
+    step_launches = []
+
+    def counting_step(mp, x, cs, ssm):
+        c0 = ss.LAUNCHES
+        out = streaming.mamba_step(mp, x, cs, ssm)
+        step_launches.append(ss.LAUNCHES - c0)
+        return out
+
+    reset_counts()
+    got_toks = lm.generate(
+        model, params, toks, gen_len, top_k=1, mixer_step=counting_step,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    c = counts()
+    add(c)
+    want_toks, want_scores = lm.generate(
+        ref_model, ref_params, toks, gen_len, top_k=1, output_scores=True,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    top2 = want_scores.float().topk(2, dim=-1).values
+    min_gap = (top2[..., 0] - top2[..., 1]).min().item()
+    if not torch.equal(got_toks, want_toks):
+        diff = (got_toks != want_toks).nonzero().tolist()
+        raise AssertionError(f"{tag}: generate's greedy tokens differ from "
+                             f"the plain scan's at {diff[:8]} (the plain "
+                             f"run's smallest top-1 minus top-2 logit "
+                             f"{min_gap:.3e})")
+    if on_card and (c["K1 inference"] != per
+                    or len(step_launches) != gen_len * per
+                    or any(step_launches)):
+        raise AssertionError(f"{tag}: generate launched {c}, "
+                             f"{sum(step_launches)} K1 in "
+                             f"{len(step_launches)} decode mixer steps")
+
+    # the eval core's teacher-forced scores
+    core = MambaEvalCore(model, params, CharTokenizer(cfg.vocab_size))
+    ref_core = MambaEvalCore(ref_model, ref_params,
+                             CharTokenizer(cfg.vocab_size))
+    score_err, pairs = 0.0, lmp_pairs(2, seed=13)
+    for ctx, cont in pairs:
+        reset_counts()
+        ll, greedy = core.loglikelihood_pair(ctx, cont)
+        c = counts()
+        add(c)
+        ll0, greedy0 = ref_core.loglikelihood_pair(ctx, cont)
+        if on_card and c["K1 inference"] != per:
+            raise AssertionError(f"{tag}: scoring forward launched {c}")
+        if not abs(ll - ll0) <= 1e-3 or greedy != greedy0:
+            raise AssertionError(f"{tag}: score {ll} ({greedy}) through the "
+                                 f"kernels, {ll0} ({greedy0}) on the plain "
+                                 "scan")
+        score_err = max(score_err, abs(ll - ll0))
+
+    # one gradient step of next-token CE
+    runs = {}
+    for name, m in (("kernels", model), ("plain", ref_model)):
+        m.zero_grad(set_to_none=True)
+        reset_counts()
+        logits = m(toks)
+        loss = next_token_loss(logits, toks)
+        loss.backward()
+        sync()
+        runs[name] = dict(logits=logits.detach(), loss=loss.item(),
+                          launches=counts(),
+                          grads={k: p.grad for k, p in m.named_parameters()})
+    got, want = runs["kernels"], runs["plain"]
+    add(got["launches"])
+    if on_card and got["launches"] != {"K1 inference": 0,
+                                       "K1 training": per, "K2": per}:
+        raise AssertionError(f"{tag}: gradient step launched "
+                             f"{got['launches']}")
+    if abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
+        raise AssertionError(f"{tag}: loss {got['loss']} through the "
+                             f"kernels, {want['loss']} on the plain scan")
+    logits_err = _max_err(got["logits"], want["logits"])
+    if not logits_err <= 1e-3:
+        raise AssertionError(f"{tag}: forward logits {logits_err:.3e} from "
+                             "the plain scan's")
+    grad_err = _check_grads(got["grads"], want["grads"], tag)
+    passed = [k for k, g in got["grads"].items()
+              if _leaf_err(0.5 * g, want["grads"][k])[1] <= GRAD_REL]
+    if passed:
+        raise AssertionError(f"{tag}: the gradient check passes halved "
+                             f"gradients of {passed}")
+    del runs, got, want, ref_model, ref_params, ref_parts, ref_core
+    model.zero_grad(set_to_none=True)
+    summary = dict(d_state=d_state, prefill_logits_err=prefill_err,
+                   min_top2_gap=min_gap, score_err=score_err,
+                   logits_err=logits_err, grad_err=grad_err)
+    print(f"{tag}: ({batch}, {prompt}) prefill logits within "
+          f"{prefill_err:.3e}, {gen_len} greedy tokens equal to the plain "
+          f"scan's (smallest top-1 minus top-2 logit {min_gap:.3e}), 0 K1 "
+          f"in {len(step_launches)} decode mixer steps, scores of "
+          f"{len(pairs)} pairs within {score_err:.3e}, step logits within "
+          f"{logits_err:.3e}, every gradient within rtol 1e-3 / atol 2e-3, "
+          f"{_grad_text(grad_err)}; every leaf halved fails the check",
+          flush=True)
+
+    if on_card:  # prefill, decode and step ms
+        def step():
+            model.zero_grad(set_to_none=True)
+            next_token_loss(model(toks), toks).backward()
+
+        with torch.no_grad():
+            _, cs, ssm = lm.prefill(parts, toks)
+            tok = toks[:, -1]
+            reset_counts()
+            summary["prefill_ms"] = cuda_ms(lambda: lm.prefill(parts, toks),
+                                            5)
+            summary["decode_ms_per_token"] = cuda_ms(
+                lambda: [lm.decode_step(parts, tok, cs, ssm)
+                         for _ in range(LM_DECODE_STEPS)], 3) / LM_DECODE_STEPS
+        summary["step_ms"] = cuda_ms(step, 3)
+        add(counts())
+        model.zero_grad(set_to_none=True)
+        print(f"{tag}: prefill {summary['prefill_ms']:.3f} ms ({batch}, "
+              f"{prompt}), decode {summary['decode_ms_per_token']:.3f} ms per "
+              f"token ({batch} rows), forward + backward "
+              f"{summary['step_ms']:.3f} ms (CUDA events, median)",
+              flush=True)
+    summary["secs"] = time.perf_counter() - t0
+    summary["launches"] = dict(launched)
+    return launched, summary
+
+
+def phase_dstate_moe(d_state=DSTATE_MOE, dev="cuda", config=None,
+                     batch=MOE_BATCH, prompt=MOE_PROMPT):
+    """(b) of phase 13, the MoE LM: ``MOE_CONFIG`` at ``d_state``, seeded
+    on the device, one scoring forward of (batch, prompt) tokens (24 K1)
+    against the same weights on the plain scan: logits within 1e-3 and
+    every routing decision bit-equal.  Returns (launches, summary)."""
+    from vivim_tpu_torch.nn import moe
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    cfg = moe.MoEMambaLMConfig(**dict(config or MOE_CONFIG, d_state=d_state))
+    model = moe.init_moe_lm(cfg, seed=0, device=dev).eval()
+    toks = _moe_tokens(cfg, dev, batch, prompt)
+    runs = {}
+    for name, impl in (("kernels", None), ("plain", "ref")):
+        model.scan_implementation = impl
+        with recorded_routing([]) as routes, torch.no_grad():
+            reset_counts()
+            logits, _ = model(toks)
+            c = counts()
+        runs[name] = dict(logits=logits, routes=routes, launches=c)
+    got, want = runs["kernels"], runs["plain"]
+    if on_card and got["launches"] != {"K1 inference": cfg.n_layer,
+                                       "K1 training": 0, "K2": 0}:
+        raise AssertionError(f"d_state {d_state} MoE LM forward launched "
+                             f"{got['launches']}")
+    logits_err = _max_err(got["logits"], want["logits"])
+    if not logits_err <= 1e-3:
+        raise AssertionError(f"d_state {d_state} MoE LM logits "
+                             f"{logits_err:.3e} from the plain scan's")
+    gaps = torch.cat([g for _, g in got["routes"]])
+    differ = [i for i, ((d, _), (d0, _)) in enumerate(
+        zip(got["routes"], want["routes"])) if not torch.equal(d, d0)]
+    if len(got["routes"]) != len(want["routes"]) or differ:
+        raise AssertionError(f"d_state {d_state} MoE LM routing differs from "
+                             f"the plain scan's in blocks {differ}; the "
+                             f"smallest top-1 minus top-2 gate "
+                             f"{gaps.min().item():.3e}")
+    summary = dict(d_state=d_state, logits_err=logits_err,
+                   decisions=gaps.numel(), min_gap=gaps.min().item(),
+                   launches=got["launches"])
+    print(f"dstate {d_state} moe lm: forward of ({batch}, {prompt}) tokens, "
+          f"logits within {logits_err:.3e} of the plain scan's, every one of "
+          f"the {gaps.numel()} routing decisions bit-equal (smallest top-1 "
+          f"minus top-2 gate {summary['min_gap']:.3e}); launches "
+          f"{got['launches']}", flush=True)
+    del runs, got, want, model
+    summary["secs"] = time.perf_counter() - t0
+    return summary["launches"], summary
+
+
+def phase_const_bc(dev="cuda", d_state=8):
+    """(c) of phase 13: constant (dim, dstate) B or C, alone, together and
+    beside a grouped one, through ``selective_scan`` on ``dev`` with every
+    leaf requiring a gradient: no kernel launches (the JAX package's
+    routing to the sequential plain scan), and the output, last state and
+    every gradient within the kernels' tolerances of the same call on the
+    CPU; then d_state 257 is refused on ``dev`` by the scan and by the LM's
+    config check, and 256 taken.  Returns the largest error."""
+    from vivim_tpu_torch.kernels import selective_scan as ss
+    from vivim_tpu_torch.nn import lm
+
+    g = torch.Generator().manual_seed(17)
+    b, L, d, n = 2, 48, 24, d_state
+    r = lambda *s: torch.randn(*s, generator=g)
+    base = dict(u=r(b, L, d), delta=0.5 * r(b, L, d),
+                A=-(0.5 + torch.rand(d, n, generator=g)), D=r(d), z=r(b, L, d),
+                delta_bias=0.1 * r(d), initial_state=r(b, d, n))
+    forms = {"constant B": (r(d, n), r(b, L, n)),
+             "constant C": (r(b, L, n), r(d, n)),
+             "constant B and C": (r(d, n), r(d, n)),
+             "constant B, grouped C": (r(d, n), r(b, L, 2, n))}
+    dout, dlast = r(b, L, d), r(b, d, n)
+    worst = 0.0
+    for form, (B, C) in forms.items():
+        outs = []
+        for where in (dev, "cpu"):
+            leaves = {k: v.detach().clone().to(where).requires_grad_(True)
+                      for k, v in dict(base, B=B, C=C).items()}
+            kw = dict(leaves)
+            reset_counts()
+            y, last = ss.selective_scan(
+                kw.pop("u"), kw.pop("delta"), kw.pop("A"), kw.pop("B"),
+                kw.pop("C"), delta_softplus=True, return_last_state=True,
+                **kw)
+            torch.autograd.backward((y, last), (dout.to(where),
+                                                dlast.to(where)))
+            if any(counts().values()):
+                raise AssertionError(f"{form} on {where} launched {counts()}")
+            outs.append(dict(y=y.detach().cpu(), last=last.detach().cpu(),
+                             **{f"d{k}": v.grad.cpu()
+                                for k, v in leaves.items()}))
+        for k, got in outs[0].items():
+            rtol, atol = (TOL if k in ("y", "last")
+                          else GRAD_TOL)[torch.float32]
+            torch.testing.assert_close(got, outs[1][k], rtol=rtol, atol=atol,
+                                       msg=f"{form} {k}")
+            worst = max(worst, (got - outs[1][k]).abs().max().item())
+    print(f"dstate const B/C: {len(forms)} forms ({', '.join(forms)}) on "
+          f"{dev}: no kernel launched, output, last state and 9 gradients "
+          f"within {worst:.3e} of the CPU's", flush=True)
+    if torch.device(dev).type != "cuda":  # the CPU takes any d_state
+        return worst
+    too_big = torch.zeros(1, 4, 8, device=dev)
+    try:
+        ss.selective_scan(too_big, too_big, torch.zeros(8, 257, device=dev),
+                          torch.zeros(1, 4, 257, device=dev),
+                          torch.zeros(1, 4, 257, device=dev))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"d_state 257 on {dev} was not refused")
+    lm.check_kernel_config(lm.MambaLMConfig(50, d_state=256), dev)
+    try:
+        lm.check_kernel_config(lm.MambaLMConfig(50, d_state=257), dev)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("check_kernel_config took d_state 257")
+    print(f"dstate 257 refused on {dev}: {refused}", flush=True)
+    return worst
+
+
+def phase_dstate(peaks):
+    """Phase 13: d_state from 1 to 256 on the card: (a) the kernels,
+    (b) the LM at d_state 8 and 64 and the MoE LM at 64, (c) constant and
+    mixed B/C.  Returns (launches by path, summary)."""
+    t0 = time.perf_counter()
+    summary = {"rows": dstate_kernel_rows(peaks)}
+    secs = {"kernels": time.perf_counter() - t0}
+    paths = {}
+    for n in DSTATE_LM:
+        paths[f"lm_dstate{n}"], summary[f"lm_dstate{n}"] = phase_dstate_lm(n)
+        secs[f"lm d_state {n}"] = summary[f"lm_dstate{n}"]["secs"]
+        torch.cuda.empty_cache()
+    paths[f"moe_dstate{DSTATE_MOE}"], summary[f"moe_dstate{DSTATE_MOE}"] = (
+        phase_dstate_moe())
+    secs[f"moe lm d_state {DSTATE_MOE}"] = summary[
+        f"moe_dstate{DSTATE_MOE}"]["secs"]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    summary["const_bc_err"] = phase_const_bc()
+    secs["constant B/C"] = time.perf_counter() - t1
+    summary["secs"] = dict(secs, phase=time.perf_counter() - t0)
+    print(f"dstate: phase {summary['secs']['phase']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")",
+          flush=True)
+    return paths, summary
+
+
 def lm_step_rows(rows):
     """The rows of one-device LM training's shape: (LMP_BATCH, LMP_PROMPT,
     d_inner)."""
@@ -3732,10 +4195,47 @@ def _kernel_entry(name, source, replaces, launches, rows, per,
         bound_term=term, library_ms=None, ok=True, shapes=rows, **extra)
 
 
+def dstate_entries(rows, paths):
+    """Phase 13's kernels-line entries: {"K1", "K1-train", "K2"}: {N: entry}
+    with N's rows, the launches of the paths at that d_state (the phase 13
+    paths at theirs, every other path at ``N``) and the fp32 LM-shape row's
+    times, ``n_layer`` launches each."""
+    at = {n: {"K1 inference": 0, "K1 training": 0, "K2": 0}
+          for n in DSTATE_NS}
+    for name, c in paths.items():
+        n = int(name.split("dstate")[1]) if "dstate" in name else N
+        for k in c:
+            at[n][k] += c[k]
+    b, L, d = DSTATE_SHAPE
+    source = "vivim_tpu_torch/kernels/csrc/selective_scan_{}.cu"
+    kinds = {"K1": ("selective_scan_fwd", "fwd", 174, ("K1 inference",)),
+             "K1-train": ("selective_scan_fwd (training variant)", "fwd", 174,
+                          ("K1 training",)),
+             "K2": ("selective_scan_bwd", "bwd", 227, ("K2",))}
+    out = {}
+    for kind, (name, src, line, keys) in kinds.items():
+        out[kind] = {}
+        for n in DSTATE_NS:
+            mine = [r for r in rows[kind] if r["n"] == n]
+            out[kind][str(n)] = _kernel_entry(
+                f"{name} (d_state {n})", source.format(src),
+                f"{JAX_PACKAGE}/kernels/selective_scan.py:{line}",
+                sum(at[n][k] for k in keys), mine,
+                f"LM shape ({b}, {L}, {d}) at d_state {n}: one launch per "
+                f"layer, {LM_CONFIG['n_layer']} per LM call, fp32, {TIMING}",
+                weight=LM_CONFIG["n_layer"],
+                timed=[r for r in mine if (r["batch"], r["L"], r["d"])
+                       == DSTATE_SHAPE])
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3b")
+    parser.add_argument("--dstate-only", action="store_true",
+                        help="run phase 13 (d_state 1 to 256) alone after "
+                             "the build")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3765,6 +4265,11 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
     peaks = card_peaks(kind)
+    if args.dstate_only:
+        phase_dstate(peaks)
+        print(f"total: {time.perf_counter() - t_start:.1f} s; "
+              "--dstate-only: phase 13 alone", flush=True)
+        return
 
     rows = phase_kernels(peaks)
     t0 = done("3 K1 inference", t0)
@@ -3815,6 +4320,8 @@ def main():
     t0 = done("12c SegFormer-b3", t0)
     int8_launched, int8_perf = phase_int8_eval()
     t0 = done("12d int8 check", t0)
+    dstate_launched, dstate_perf = phase_dstate(peaks)
+    t0 = done("13 d_state 1 to 256", t0)
 
     paths = {"serve": serve_launched, "train": train_launched,
              "train_cli": cli_launched, "binary_edge": binary_launched,
@@ -3822,9 +4329,10 @@ def main():
              "infer_ckpt": infer_launched, "profile": tools_launched,
              "parallel": par_launched, "lm_parallel": lmp_launched,
              "moe_lm": moe_launched, "moe_ep": ep_launched,
-             "int8_eval": int8_launched}
+             "int8_eval": int8_launched, **dstate_launched}
     total = {k: sum(p[k] for p in paths.values())
              for k in ("K1 inference", "K1 training", "K2")}
+    by_dstate = dstate_entries(dstate_perf["rows"], paths)
     k1 = _kernel_entry(
         "selective_scan_fwd",
         "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
@@ -3843,6 +4351,8 @@ def main():
             f"{LM_CONFIG['n_layer']} per generate, fp32, {TIMING}",
             weight=LM_CONFIG["n_layer"],
             timed=[r for r in lm_perf["scan_rows"] if r["L"] == LM_PROMPT]),
+        by_dstate=by_dstate["K1"],
+        training_by_dstate=by_dstate["K1-train"],
         training_variant=_kernel_entry(
             "selective_scan_fwd (training variant)",
             "vivim_tpu_torch/kernels/csrc/selective_scan_fwd.cu",
@@ -3865,6 +4375,7 @@ def main():
         f"train step: {LAYERS_PER_STAGE} launches at each stage shape "
         f"(scan batch {TRAIN_SCAN_BATCH}), fp32, {TIMING}",
         ragged_max_abs_err=ragged_err, launches_by_path=paths,
+        by_dstate=by_dstate["K2"],
         lm=_kernel_entry(
             "selective_scan_bwd (LM)",
             "vivim_tpu_torch/kernels/csrc/selective_scan_bwd.cu",
@@ -3882,7 +4393,9 @@ def main():
                       "infer_ckpt": infer_perf, "tools": tools_perf,
                       "parallel": par_perf, "lm_parallel": lmp_summary,
                       "moe_lm": moe_perf, "moe_ep": ep_perf,
-                      "segformer": seg_perf, "int8_eval": int8_perf}))
+                      "segformer": seg_perf, "int8_eval": int8_perf,
+                      "dstate": {k: v for k, v in dstate_perf.items()
+                                 if k != "rows"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,8 @@
 """The PyTorch port's CUDA kernels on the card, against their plain versions.
 
-Marked ``cuda``: each test skips without a CUDA device.  The file imports
+The kernel tests run at d_state N in ``NS`` (the kernels take 1 to 256; 16
+is the Vivim and mamba-130m width, 12 and 24 masked widths).  Marked
+``cuda``: each test skips without a CUDA device.  The file imports
 torch and the port only, so it runs on a machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -23,6 +25,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 GRAD_TOL = {torch.float32: (1e-3, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
+NS = (1, 8, 12, 16, 24, 64, 256)
 
 
 @pytest.fixture
@@ -56,10 +59,11 @@ def _scan(fn, t, dtype):
               **kw)
 
 
+@pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(cuda, dtype):
+def test_kernel_matches_plain_version(cuda, dtype, n):
     """Ragged L and d, per-batch A/D/bias, initial and last state."""
-    t = _inputs(cuda)
+    t = _inputs(cuda, n=n)
     with torch.no_grad():
         before = ss.LAUNCHES
         got = _scan(ss.selective_scan, t, dtype)
@@ -89,25 +93,37 @@ def test_grouped_bc_and_shared_params(cuda):
 
 
 def test_cuda_refuses_what_has_no_kernel(cuda):
+    """A constant (dim, dstate) B (no TPU kernel takes it: the sequential
+    plain scan, as in the JAX package) and d_state 8 (K1) give the CPU's
+    result on the card; d_state 257 (above the kernels' 256) is refused."""
     t = _inputs(cuda, b=1, L=16, d=8)
-    with pytest.raises(NotImplementedError, match="constant"):
+    B_const = torch.randn(8, 16, device=cuda)
+    for args in ((t["u"], t["delta"], t["A"][0], B_const, t["C"]),
+                 (t["u"], t["delta"], t["A"][..., :8], t["B"][..., :8],
+                  t["C"][..., :8])):
         with torch.no_grad():
-            ss.selective_scan(t["u"], t["delta"], t["A"][0],
-                              torch.randn(8, 16, device=cuda),
-                              t["C"])
-    with pytest.raises(ValueError, match="d_state"):
+            before = ss.LAUNCHES
+            got = ss.selective_scan(*args, delta_softplus=True)
+            launched = ss.LAUNCHES - before
+            want = ss.selective_scan(*[a.cpu() for a in args],
+                                     delta_softplus=True)
+        assert launched == (0 if args[3] is B_const else 1)
+        torch.testing.assert_close(got.cpu(), want, rtol=6e-4, atol=2e-3)
+    wide = torch.zeros(1, 16, 257, device=cuda)
+    with pytest.raises(ValueError, match="d_state 257"):
         with torch.no_grad():
-            ss.selective_scan(t["u"], t["delta"], t["A"][..., :8],
-                              t["B"][..., :8], t["C"][..., :8])
+            ss.selective_scan(t["u"], t["delta"],
+                              torch.zeros(8, 257, device=cuda), wide, wide)
 
 
+@pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_training_kernels_match_plain_versions(cuda, dtype):
+def test_training_kernels_match_plain_versions(cuda, dtype, n):
     """K1's training variant and K2 against their plain versions: ragged L,
-    d = 160 (ten K2 blocks), shared A / D / bias, an initial state and a
-    non-zero dlast.  K2 runs on K1's own chunk states, so each kernel is
+    d = 160 (several K2 blocks), shared A / D / bias, an initial state and
+    a non-zero dlast.  K2 runs on K1's own chunk states, so each kernel is
     held alone."""
-    t = _inputs(cuda)
+    t = _inputs(cuda, n=n)
     u, delta = t["u"].to(dtype), t["delta"].to(dtype)
     B, C = t["B"].to(dtype), t["C"].to(dtype)
     A, D, bias = t["A"][0], t["D"][0], t["delta_bias"][0]
@@ -141,15 +157,16 @@ def test_training_kernels_match_plain_versions(cuda, dtype):
                                    atol=atol, msg=name)
 
 
+@pytest.mark.parametrize("n", [16, 24])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L", [1, 17, 63, 65, 333])
-def test_forward_kernel_across_chunk_edges(cuda, L, dtype):
+def test_forward_kernel_across_chunk_edges(cuda, L, dtype, n):
     """K1's chunk-parallel passes at lengths that cross its chunk edges
     (Lc - 1 and Lc + 1 for a forced Lc = 64; the Lc the wrapper picks at
     these sizes is 16), d = 160 with an initial state: both variants, and
     K2 on the training variant's chunk states.  dt near 0.05, so the state
     carried from one chunk to the next still counts."""
-    t = _inputs(cuda, L=L, seed=L)
+    t = _inputs(cuda, L=L, n=n, seed=L)
     u, delta = t["u"].to(dtype), (t["delta"] - 3.0).to(dtype)
     B, C, z = t["B"].to(dtype), t["C"].to(dtype), t["z"].to(dtype)
     A, D, bias, h0 = t["A"], t["D"], t["delta_bias"], t["initial_state"]
@@ -211,15 +228,16 @@ def test_forward_kernel_small_dt(cuda, L):
                                        msg=f"Lc {l_chunk}")
 
 
-def test_cuda_call_with_grad_launches_k2(cuda):
+@pytest.mark.parametrize("n", NS)
+def test_cuda_call_with_grad_launches_k2(cuda, n):
     """A CUDA call that needs a gradient runs K1's training variant and K2
     (z gated outside the kernels), and its nine gradients match autograd
     through the sequential plain version."""
-    t = _inputs(cuda, b=2, L=77, d=40)
+    t = _inputs(cuda, b=2, L=77, d=40, n=n)
     rng = np.random.default_rng(4)
     dout = torch.from_numpy(rng.standard_normal((2, 77, 40)).astype(
         np.float32)).to(cuda)
-    dlast = torch.from_numpy(rng.standard_normal((2, 40, 16)).astype(
+    dlast = torch.from_numpy(rng.standard_normal((2, 40, n)).astype(
         np.float32)).to(cuda)
     grads = []
     for impl in (None, "ref"):
@@ -301,17 +319,18 @@ def test_tiny_vivim_train_step_kernel_vs_plain_scan(cuda):
         torch.testing.assert_close(g, g_r[n], rtol=1e-3, atol=2e-3, msg=n)
 
 
+@pytest.mark.parametrize("n", [16, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l_seg", [16, 64])
 @pytest.mark.parametrize("L", [1, 17, 333, 1000])
-def test_backward_kernel_across_segment_edges(cuda, L, l_seg, dtype):
+def test_backward_kernel_across_segment_edges(cuda, L, l_seg, dtype, n):
     """K2 with its segment length forced through the private seam
     ``_bwd_launch(l_seg=...)`` (which counts nothing), at lengths that
     cross the segment edges: d = 160, per-batch A / D / bias, an initial
     state, a non-zero dlast, dt near 0.05 so the carry from one segment to
     the next still counts.  K2 runs on K1-training's own chunk states and
     is held against the plain version on the same states."""
-    t = _inputs(cuda, L=L, seed=L + l_seg)
+    t = _inputs(cuda, L=L, n=n, seed=L + l_seg)
     u, delta = t["u"].to(dtype), (t["delta"] - 3.0).to(dtype)
     B, C = t["B"].to(dtype), t["C"].to(dtype)
     A, D, bias, h0 = t["A"], t["D"], t["delta_bias"], t["initial_state"]
@@ -348,8 +367,8 @@ def test_backward_kernel_in_a_cuda_graph(cuda):
                                                  True)
     assert ss.bwd_grid(3, 1000, 160, ss.bwd_l_seg(
         3, 1000, 160, torch.cuda.get_device_properties(
-            cuda).multi_processor_count, ss.bwd_channels()),
-        ss.bwd_channels())[1] > 1
+            cuda).multi_processor_count, ss.bwd_channels(16)),
+        ss.bwd_channels(16))[1] > 1
     rng = np.random.default_rng(6)
     dout = torch.from_numpy(rng.standard_normal(u.shape).astype(
         np.float32)).to(cuda)

@@ -281,8 +281,10 @@ def test_bf16_generate_matches_jax(pair):
 
 
 def test_any_d_state_on_cpu_and_ref():
-    """d_state 8: the CPU and implementation="ref" run it; on the card it
-    is refused (tests/test_torch_lm_cli.py holds the check)."""
+    """d_state 8: the CPU and implementation="ref" run it, and the card
+    takes it too (the kernels take 1 to 256: tests/test_torch_cuda.py and
+    chip_smoke.py's phase 13; tests/test_torch_lm_cli.py holds the
+    config check)."""
     jmodel, params, tmodel = make_pair(seed=2, d_state=8)
     toks = tokens((1, 6), seed=11)
     with torch.no_grad():
@@ -290,3 +292,4 @@ def test_any_d_state_on_cpu_and_ref():
     _close(got, jmodel.apply({"params": params}, jnp.asarray(toks)))
     tlm.check_kernel_config(tmodel.cfg, "cpu")
     tlm.check_kernel_config(tmodel.cfg, "cuda", implementation="ref")
+    tlm.check_kernel_config(tmodel.cfg, "cuda")

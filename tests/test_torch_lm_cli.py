@@ -166,19 +166,25 @@ def test_load_lm_from_hub_repo(tmp_path, monkeypatch):
 
 
 def test_d_state_other_than_16_is_refused_on_the_card(tmp_path):
-    """ROADMAP P3: the CUDA kernels take d_state 16 only.  ``device="cuda"``
-    refuses such a config before any weight is read (the check needs no
-    card); the CPU and ``implementation="ref"`` take it."""
-    cfg = tlm.MambaLMConfig(vocab_size=50, d_model=16, n_layer=2, d_state=8)
-    for dev in ("cuda", torch.device("cuda", 0)):
-        with pytest.raises(ValueError, match=r"d_state 16 only \(ROADMAP P3"):
+    """The CUDA kernels take d_state 1 to 256, the limit mamba_ssm's CUDA
+    scan has: ``device="cuda"`` takes every d_state in it and refuses 257
+    before any weight is read (the check needs no card); the CPU and
+    ``implementation="ref"`` take 257 too."""
+    for d_state in (1, 8, 12, 16, 64, 256):
+        cfg = tlm.MambaLMConfig(vocab_size=50, d_model=16, n_layer=2,
+                                d_state=d_state)
+        for dev in ("cuda", torch.device("cuda", 0)):
             tlm.check_kernel_config(cfg, dev)
-    tlm.check_kernel_config(cfg, "cpu")
-    tlm.check_kernel_config(cfg, "cuda", implementation="ref")
-    tlm.check_kernel_config(tlm.MambaLMConfig(50, 16, 2), "cuda")
-    _write_snapshot(tmp_path, 14, d_state=8)
+    wide = tlm.MambaLMConfig(vocab_size=50, d_model=16, n_layer=2,
+                             d_state=257)
+    for dev in ("cuda", torch.device("cuda", 0)):
+        with pytest.raises(ValueError, match=r"d_state 257: .* 1 to 256"):
+            tlm.check_kernel_config(wide, dev)
+    tlm.check_kernel_config(wide, "cpu")
+    tlm.check_kernel_config(wide, "cuda", implementation="ref")
+    _write_snapshot(tmp_path, 14, d_state=257)
     (tmp_path / "pytorch_model.bin").write_bytes(b"not read")
-    with pytest.raises(ValueError, match="ROADMAP P3"):
+    with pytest.raises(ValueError, match="d_state 257"):
         teval.load_lm(None, 0, 0, 0, hf_dir=str(tmp_path), device="cuda")
     model, _ = teval.load_lm(None, 50, 16, 2, device="cpu")
     assert model.cfg.d_state == 16

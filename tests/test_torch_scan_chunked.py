@@ -132,8 +132,8 @@ def test_wrapper_l_chunk_fills_the_card(batch, L, dim):
     """l_chunk is a multiple of CHUNK, gives at most MAX_CHUNKS chunks, and
     is the longest such chunk: the next shorter one would already give the
     grid FWD_BLOCKS_PER_SM blocks per SM (or exceed MAX_CHUNKS).  On the
-    card the thread count comes from the kernel's library (fwd_threads);
-    here it is the 128 channels per block the kernel is built with."""
+    card the channels per block come from the kernel's library
+    (fwd_channels); here they are the 128 it holds at d_state 16."""
     sms, threads = 132, 128
     lc = tss.fwd_l_chunk(batch, L, dim, sms, threads)
     tiles, n_chunks, b = tss.fwd_grid(batch, L, dim, lc, threads)

@@ -212,7 +212,7 @@ def load_lm(ckpt, vocab_size, d_model, n_layer, hf_dir=None, hf_repo=None,
     honoured, and ``pytorch_model.bin``), from the hub by repo id
     (``hf_repo``, needs the network), or a random init from ``seed`` when
     all are None.  On the card a config whose d_state the kernels do not
-    take raises before any weight is read (ROADMAP P3); without a card,
+    take (above 256) raises before any weight is read; without a card,
     ``device="cuda"`` raises.
     """
     from vivim_tpu_torch.cli.common import resolve_device

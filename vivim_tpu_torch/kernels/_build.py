@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
 a plain C interface, ``_build/<name>_<hash>.so``, keyed by the source's
 content hash (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
--Xcompiler -fPIC``).  ``build_all`` starts one nvcc per source at once, so a
-fresh checkout builds everything in the time of the slowest file.  A failed
-build raises: no kernel falls back to its plain version on the GPU.
+-Xcompiler -fPIC -split-compile=0``).  ``build_all`` starts one nvcc per
+source at once, so a fresh checkout builds everything in the time of the
+slowest file.  A failed build raises: no kernel falls back to its plain
+version on the GPU.
 """
 
 from __future__ import annotations
@@ -21,8 +22,11 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ("selective_scan_fwd", "selective_scan_bwd")
+# -split-compile=0: nvcc optimises a source's kernels on every core (each
+# source instantiates its kernels for every d_state family)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0",
+              "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register / spill report) of builds in this process

@@ -15,12 +15,15 @@ This module checks and lays out their arguments, allocates their outputs and
 scratch, launches them on PyTorch's current stream and counts the launches
 (one count per wrapper call, whatever number of CUDA kernels the call runs).
 
-K1 is a chunk-parallel scan with one thread per channel: L is cut into
-chunks of ``l_chunk`` steps (``fwd_l_chunk`` picks it per shape, a multiple
-of ``CHUNK``), every chunk but the last is scanned from a zero state, a carry
-pass chains the chunks' end states, and every chunk is then re-walked from
-its true start state to write the output.  ``refs.selective_scan_chunked_ref``
-models those passes in plain PyTorch for the tests.  K2 walks ``CHUNK``-step
+Both kernels take d_state N from 1 to ``MAX_DSTATE`` = 256, as mamba_ssm's
+CUDA scan does; a channel's states sit in the registers of one thread or of
+a few lanes of a warp, by N (see the sources).  K1 is a chunk-parallel
+scan: L is cut into chunks of ``l_chunk`` steps (``fwd_l_chunk`` picks it
+per shape, a multiple of ``CHUNK``), every chunk but the last is scanned
+from a zero state, a carry pass chains the chunks' end states, and every
+chunk is then re-walked from its true start state to write the output.
+``refs.selective_scan_chunked_ref`` models those passes in plain PyTorch for
+the tests.  K2 walks ``CHUNK``-step
 chunks right to left from the states K1's training variant saves, in
 segments of ``l_seg`` steps (``bwd_l_seg`` picks it per shape, a multiple of
 ``CHUNK``) that run in parallel: every segment but the first walks its steps
@@ -40,8 +43,12 @@ Dispatch (``implementation=None``):
   versions of those two kernels, ``refs.selective_scan_fwd_states_ref`` and
   ``refs.selective_scan_bwd_ref``, so the CPU exercises the same glue.
 ``implementation="ref"`` runs the sequential plain version on any device,
-with autograd through it.  A CUDA tensor never falls back to a plain
-version: a failed build or launch raises.
+with autograd through it, and so does a constant (dim, dstate) B or C, alone
+or beside a grouped one, on any device, as the JAX package routes it: no
+TPU kernel takes it, so there is no kernel to port.  That routing is decided
+by the inputs' form before any launch; otherwise a CUDA tensor never falls
+back to a plain version: a d_state above 256, a failed build or a failed
+launch raises.
 
 Layout is time-major: ``u/delta/z: (B, L, D)``, ``B/C: (B, L, N)``,
 ``A: (D, N)`` or per batch ``(B, D, N)``.
@@ -65,7 +72,9 @@ LAUNCHES = 0
 TRAIN_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-DSTATE = 16  # the kernels' d_state: K1 holds a channel's states in registers
+# the largest d_state the kernels take (mamba_ssm's CUDA scan checks
+# dstate <= 256 too; the Pallas kernels take any)
+MAX_DSTATE = 256
 # Steps between two saved chunk-start states (kChunk of both sources): the
 # spacing of K1-training's saved states and K2's chunk.  K1's parallel chunk
 # ``l_chunk`` is a multiple of it.
@@ -88,17 +97,17 @@ def _lib(name):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         if name == "selective_scan_fwd":
             lib.vivim_selective_scan_fwd.argtypes = (
-                [ptr] * 14 + [i32] * 5 + [i64] * 16 + [i32, i32, ptr])
+                [ptr] * 14 + [i32] * 6 + [i64] * 16 + [i32, i32, ptr])
             lib.vivim_selective_scan_fwd.restype = i32
-            lib.vivim_selective_scan_fwd_threads.argtypes = []
-            lib.vivim_selective_scan_fwd_threads.restype = i32
+            lib.vivim_selective_scan_fwd_channels.argtypes = [i32]
+            lib.vivim_selective_scan_fwd_channels.restype = i32
         else:
             lib.vivim_selective_scan_bwd.argtypes = (
-                [ptr] * 19 + [i32] * 5 + [i64] * 13 + [i32, i32, ptr])
+                [ptr] * 19 + [i32] * 6 + [i64] * 13 + [i32, i32, ptr])
             lib.vivim_selective_scan_bwd.restype = i32
-            lib.vivim_selective_scan_bwd_scratch.argtypes = [i32] * 4
+            lib.vivim_selective_scan_bwd_scratch.argtypes = [i32] * 5
             lib.vivim_selective_scan_bwd_scratch.restype = i64
-            lib.vivim_selective_scan_bwd_channels.argtypes = []
+            lib.vivim_selective_scan_bwd_channels.argtypes = [i32]
             lib.vivim_selective_scan_bwd_channels.restype = i32
         lib.vivim_cuda_error_string.argtypes = [i32]
         lib.vivim_cuda_error_string.restype = ctypes.c_char_p
@@ -143,17 +152,26 @@ def _state(x, batch, dim, dstate, dev, what):
     return x.to(device=dev, dtype=torch.float32).contiguous()
 
 
+def check_dstate(dstate):
+    """Raise for a d_state the CUDA kernels do not take: 1 to
+    ``MAX_DSTATE``."""
+    if not 1 <= dstate <= MAX_DSTATE:
+        raise ValueError(
+            f"d_state {dstate}: the CUDA selective-scan kernels take d_state "
+            f"1 to {MAX_DSTATE}, the limit mamba_ssm's CUDA scan has too")
+
+
 def _check(u, A, name):
+    """Raise for what the kernels do not take; returns d_state."""
     if u.device.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors")
     if u.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {u.dtype} (fp32 or bf16)")
     dstate = A.shape[-1]
-    if dstate != DSTATE:
-        raise ValueError(f"the CUDA kernel takes d_state {DSTATE}, "
-                         f"got {dstate}")
+    check_dstate(dstate)
     if u.shape[0] > 65535:
         raise ValueError(f"batch {u.shape[0]} exceeds the kernel grid")
+    return dstate
 
 
 def _raise_if(err, lib, what):
@@ -166,31 +184,35 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_threads():
-    """Channels per block of K1, as its library was built."""
-    return _lib("selective_scan_fwd").vivim_selective_scan_fwd_threads()
+def fwd_channels(dstate):
+    """Channels per block of K1 at ``dstate``, as its library was built."""
+    check_dstate(dstate)
+    return _lib("selective_scan_fwd").vivim_selective_scan_fwd_channels(
+        dstate)
 
 
-def fwd_l_chunk(batch, L, dim, sms, threads):
-    """K1's parallel chunk for a shape, on ``sms`` SMs with ``threads``
-    channels per block: the longest multiple of ``CHUNK`` that still cuts L
-    into enough chunks for the grid (channel tiles x chunks x batch) to hold
-    about ``FWD_BLOCKS_PER_SM`` blocks per SM, and into at most
-    ``MAX_CHUNKS``."""
-    tiles = batch * -(-dim // threads)
+def fwd_l_chunk(batch, L, dim, sms, channels):
+    """K1's parallel chunk for a shape, on ``sms`` SMs with ``channels``
+    channels per block (``fwd_channels``): the longest multiple of
+    ``CHUNK`` that still cuts L into enough chunks for the grid (channel
+    tiles x chunks x batch) to hold about ``FWD_BLOCKS_PER_SM`` blocks per
+    SM, and into at most ``MAX_CHUNKS``."""
+    tiles = batch * -(-dim // channels)
     chunks = max(1, -(-FWD_BLOCKS_PER_SM * sms // tiles))
     steps = max(-(-L // chunks), -(-L // MAX_CHUNKS), 1)
     return -(-steps // CHUNK) * CHUNK
 
 
-def fwd_grid(batch, L, dim, l_chunk, threads):
+def fwd_grid(batch, L, dim, l_chunk, channels):
     """(channel tiles, chunks, batch): the grid of K1's output pass."""
-    return (-(-dim // threads), max(1, -(-L // l_chunk)), batch)
+    return (-(-dim // channels), max(1, -(-L // l_chunk)), batch)
 
 
-def bwd_channels():
-    """Channels per block of K2, as its library was built."""
-    return _lib("selective_scan_bwd").vivim_selective_scan_bwd_channels()
+def bwd_channels(dstate):
+    """Channels per block of K2 at ``dstate``, as its library was built."""
+    check_dstate(dstate)
+    return _lib("selective_scan_bwd").vivim_selective_scan_bwd_channels(
+        dstate)
 
 
 def bwd_l_seg(batch, L, dim, sms, channels):
@@ -230,42 +252,42 @@ def _fwd_launch(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
     ``l_chunk`` (a multiple of ``CHUNK``) overrides the parallel chunk
     ``fwd_l_chunk`` picks; the card checks use it to cross chunk edges.
     Counts nothing: the public wrappers count their calls."""
-    _check(u, A, "selective_scan_fwd_cuda")
+    N = _check(u, A, "selective_scan_fwd_cuda")
     batch, L, dim = u.shape
     dev = u.device
     u = _seq(u, (batch, L, dim), u)
     delta = _seq(delta, (batch, L, dim), u)
-    B = _seq(B, (batch, L, DSTATE), u)
-    C = _seq(C, (batch, L, DSTATE), u)
+    B = _seq(B, (batch, L, N), u)
+    C = _seq(C, (batch, L, N), u)
     if z is not None:
         z = _seq(z, (batch, L, dim), u)
-    A, a_sb = _param(A, batch, dim, DSTATE, dev)
+    A, a_sb = _param(A, batch, dim, N, dev)
     if D is None:
         D = torch.zeros(dim, device=dev)
     D, d_sb = _param(D, batch, dim, None, dev)
     if delta_bias is None:
         delta_bias = torch.zeros(dim, device=dev)
     bias, b_sb = _param(delta_bias, batch, dim, None, dev)
-    h0 = _state(initial_state, batch, dim, DSTATE, dev, "initial_state")
+    h0 = _state(initial_state, batch, dim, N, dev, "initial_state")
     lib = _lib("selective_scan_fwd")
     if l_chunk is None:
-        l_chunk = fwd_l_chunk(batch, L, dim, _sm_count(dev), fwd_threads())
+        l_chunk = fwd_l_chunk(batch, L, dim, _sm_count(dev), fwd_channels(N))
     if l_chunk <= 0 or l_chunk % CHUNK or -(-L // l_chunk) > MAX_CHUNKS:
         raise ValueError(f"l_chunk {l_chunk} must be a positive multiple of "
                          f"{CHUNK} giving at most {MAX_CHUNKS} chunks")
     n_chunks = max(1, -(-L // l_chunk))
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     y = torch.empty((batch, L, dim), dtype=u.dtype, device=dev)
-    last = f32(batch, dim, DSTATE)
-    cs = f32(batch, -(-L // CHUNK), dim, DSTATE) if save_states else None
+    last = f32(batch, dim, N)
+    cs = f32(batch, -(-L // CHUNK), dim, N) if save_states else None
     # the carry's scratch: chunk end states, then chunk start states
-    hbuf = f32(batch, n_chunks - 1, dim, DSTATE) if n_chunks > 1 else None
+    hbuf = f32(batch, n_chunks - 1, dim, N) if n_chunks > 1 else None
     sbuf = f32(batch, n_chunks - 1, dim) if n_chunks > 1 else None
     with torch.cuda.device(dev):
         err = lib.vivim_selective_scan_fwd(
             _ptr(u), _ptr(delta), _ptr(z), _ptr(B), _ptr(C), _ptr(A),
             _ptr(D), _ptr(bias), _ptr(h0), _ptr(y), _ptr(last), _ptr(cs),
-            _ptr(hbuf), _ptr(sbuf), CHUNK, l_chunk, batch, L, dim,
+            _ptr(hbuf), _ptr(sbuf), CHUNK, l_chunk, batch, L, dim, N,
             u.stride(0), u.stride(1), delta.stride(0), delta.stride(1),
             z.stride(0) if z is not None else 0,
             z.stride(1) if z is not None else 0,
@@ -315,45 +337,46 @@ def _bwd_launch(u, delta, A, B, C, D, delta_bias, chunk_states, dout,
     multiple of ``CHUNK``) overrides the segment length ``bwd_l_seg``
     picks; the card checks use it to cross segment edges.  Counts nothing:
     the public wrapper counts its calls."""
-    _check(u, A, "selective_scan_bwd_cuda")
+    N = _check(u, A, "selective_scan_bwd_cuda")
     batch, L, dim = u.shape
     dev = u.device
     u = _seq(u, (batch, L, dim), u)
     delta = _seq(delta, (batch, L, dim), u)
-    B = _seq(B, (batch, L, DSTATE), u)
-    C = _seq(C, (batch, L, DSTATE), u)
+    B = _seq(B, (batch, L, N), u)
+    C = _seq(C, (batch, L, N), u)
     dout = _seq(dout, (batch, L, dim), u)
-    A, a_sb = _param(A, batch, dim, DSTATE, dev)
+    A, a_sb = _param(A, batch, dim, N, dev)
     D, d_sb = _param(torch.zeros(dim, device=dev) if D is None else D,
                      batch, dim, None, dev)
     bias, b_sb = _param(
         torch.zeros(dim, device=dev) if delta_bias is None else delta_bias,
         batch, dim, None, dev)
-    if tuple(chunk_states.shape) != (batch, -(-L // CHUNK), dim, DSTATE) \
+    if tuple(chunk_states.shape) != (batch, -(-L // CHUNK), dim, N) \
             or chunk_states.dtype != torch.float32:
         raise ValueError("chunk_states must be fp32 (batch, ceil(L / "
                          f"{CHUNK}), dim, dstate)")
     cs = chunk_states.contiguous()
-    dlast = _state(dlast, batch, dim, DSTATE, dev, "dlast")
+    dlast = _state(dlast, batch, dim, N, dev, "dlast")
     lib = _lib("selective_scan_bwd")
-    channels = bwd_channels()
+    channels = bwd_channels(N)
     if l_seg is None:
         l_seg = bwd_l_seg(batch, L, dim, _sm_count(dev), channels)
     bwd_grid(batch, L, dim, l_seg, channels)  # raises for what K2 refuses
     seq = lambda *s: torch.empty(s, dtype=u.dtype, device=dev)
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     ddelta, du = seq(batch, L, dim), seq(batch, L, dim)
-    dB, dC = seq(batch, L, DSTATE), seq(batch, L, DSTATE)
-    dA, dh0 = f32(batch, dim, DSTATE), f32(batch, dim, DSTATE)
+    dB, dC = seq(batch, L, N), seq(batch, L, N)
+    dA, dh0 = f32(batch, dim, N), f32(batch, dim, N)
     dD, dbias = f32(batch, dim), f32(batch, dim)
     # dB / dC partials, segment carries and parameter-grad partials
-    scratch = f32(lib.vivim_selective_scan_bwd_scratch(batch, L, dim, l_seg))
+    scratch = f32(lib.vivim_selective_scan_bwd_scratch(batch, L, dim, N,
+                                                       l_seg))
     with torch.cuda.device(dev):
         err = lib.vivim_selective_scan_bwd(
             _ptr(u), _ptr(delta), _ptr(B), _ptr(C), _ptr(dout), _ptr(A),
             _ptr(D), _ptr(bias), _ptr(cs), _ptr(dlast), _ptr(ddelta),
             _ptr(du), _ptr(dB), _ptr(dC), _ptr(dA), _ptr(dD), _ptr(dbias),
-            _ptr(dh0), _ptr(scratch), CHUNK, l_seg, batch, L, dim,
+            _ptr(dh0), _ptr(scratch), CHUNK, l_seg, batch, L, dim, N,
             u.stride(0), u.stride(1), delta.stride(0), delta.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1),
             dout.stride(0), dout.stride(1), a_sb, d_sb, b_sb,
@@ -464,8 +487,10 @@ def selective_scan(
     plain versions on CPU tensors; see the module docstring) or "ref" (the
     sequential plain version).  Grouped 4-D (batch, L, groups, dstate) B/C
     fold the groups into the batch axis (``_grouped_selective_scan``).  On
-    CUDA the kernels take variable B/C with d_state 16; constant (dim,
-    dstate) B or C, alone or beside grouped ones, raise there.
+    CUDA the kernels take variable B/C with d_state 1 to ``MAX_DSTATE`` and
+    raise for a larger one; a constant (dim, dstate) B or C, alone or beside
+    a grouped one, runs the sequential plain version on any device, with
+    autograd through it and one log line, as the JAX package routes it.
 
     ``seq_axis`` + ``mesh`` (a ``parallel.mesh.Mesh``): shard L over the
     ranks of that axis and run the sequence-parallel scan
@@ -511,11 +536,12 @@ def selective_scan(
             u, delta, A, B, C, D, z, delta_bias, delta_softplus,
             return_last_state, initial_state, implementation)
     if B.dim() != 3 or C.dim() != 3:
-        if u.device.type == "cpu":
-            return ref()
-        raise NotImplementedError(
-            "constant (dim, dstate) B or C has no CUDA kernel; pass "
-            "implementation='ref'")
+        # no TPU kernel takes a constant (dim, dstate) B or C: the JAX
+        # package runs its sequential reference for it, and so does the port
+        _log.info("constant B/C: B %s, C %s -> sequential plain scan "
+                  "(shape %s)", tuple(B.shape), tuple(C.shape),
+                  tuple(u.shape))
+        return ref()
     if _needs_grad(u, delta, A, B, C, D, z, delta_bias, initial_state):
         y, last = SelectiveScanFn.apply(u, delta, A, B, C, D, z, delta_bias,
                                         initial_state, delta_softplus)

@@ -82,14 +82,15 @@ def config_from_mamba_json(d: dict, **overrides) -> MambaLMConfig:
 
 def check_kernel_config(cfg, device, implementation=None):
     """Raise for a config the card's kernels cannot run: both CUDA
-    selective-scan kernels hold d_state 16 (ROADMAP P3).  The CPU and
-    ``implementation="ref"`` take any d_state."""
-    if (torch.device(device).type == "cuda" and implementation != "ref"
-            and cfg.d_state != _scan.DSTATE):
-        raise ValueError(
-            f"d_state {cfg.d_state}: the CUDA selective-scan kernels take "
-            f"d_state {_scan.DSTATE} only (ROADMAP P3); run this config "
-            "with implementation='ref' or on the CPU")
+    selective-scan kernels take d_state 1 to ``MAX_DSTATE`` = 256, as
+    mamba_ssm's CUDA scan does.  The CPU and ``implementation="ref"`` take
+    any d_state."""
+    if torch.device(device).type == "cuda" and implementation != "ref":
+        try:
+            _scan.check_dstate(cfg.d_state)
+        except ValueError as e:
+            raise ValueError(f"{e}; run this config with "
+                             "implementation='ref' or on the CPU") from None
 
 
 def layer_norm(np_, h, eps=1e-5):

@@ -289,13 +289,15 @@ REMAT_STEPS = 4
 REMAT_BIG_BATCH = 12
 REMAT_BIG_STEPS = 3
 # phase 10: the global batch of each mode's step, the clips per video of
-# the two train_folds runs (3 steps of fold 0), the runs' flags (the seq
-# run skips its validation, for time: (a) holds the sharded forward), the
-# gloo timeout of the ranks and their wall limit (s)
+# the train_folds runs (3 steps of fold 0), the runs' ranks and flags (the
+# seq runs skip their validation, for time: (a) holds the sharded
+# forward), the gloo timeout of the ranks and their wall limit (s)
 PAR_BATCH = 4
 PAR_CLI_CLIPS = 4
-PAR_CLI_RUNS = {"zero2": ["-n_devices", "2", "-zero", "true"],
-                "seq2": ["-seq_shards", "2", "-val_freq", "2"]}
+PAR_CLI_RUNS = {"zero2": (2, ["-n_devices", "2", "-zero", "true"]),
+                "seq2": (2, ["-seq_shards", "2", "-val_freq", "2"]),
+                "dp2_seq2": (4, ["-n_devices", "2", "-seq_shards", "2",
+                                 "-val_freq", "2"])}
 PAR_GROUP_TIMEOUT_S = 60
 PAR_WALL_S = 300
 # phase 11: the LM's model-parallel paths at mamba-130m width: the batch,
@@ -2260,8 +2262,8 @@ def phase_tools(workdir, dev="cuda", segformer="b3", size=256, clip_len=5,
 
 def _par_model(segformer, dev, mesh=None, base=None):
     """The CLI-built Vivim (seed 0) with every dropout and drop-path at 0,
-    or a copy of ``base`` (config and weights), its scans sharded over
-    ``mesh``'s seq axis when it has one."""
+    or a copy of ``base`` (config and weights), its Mamba layers sharded
+    over ``mesh``'s seq axis when it has one."""
     from vivim_tpu_torch.cli.common import build_model
     from vivim_tpu_torch.nn.vivim import Vivim
 
@@ -2285,34 +2287,87 @@ def _par_step_inputs(size, clip_len, batch):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
+def _par_init(rank, world, port, spec):
+    """A phase 10 rank's process group, card and threads; returns the
+    device."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the host's cores shared between the ranks and this script
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (world + 1)))
+    from vivim_tpu_torch.parallel import fsdp
+    from vivim_tpu_torch.parallel import mesh as mesh_lib
+
+    if spec.get("min_shard_elems"):  # the CPU rehearsal's tiny leaves
+        fsdp.MIN_SHARD_ELEMS = spec["min_shard_elems"]
+    mesh_lib.init_distributed("gloo", PAR_GROUP_TIMEOUT_S)
+    dev = torch.device(spec["dev"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _seq_counters():
+    """{exchange: [calls, bytes sent]} of ``comm.SEQ``, a copy, and the
+    conv halos' ``comm.HOPPED`` (the one ``ppermute`` of a Vivim step)."""
+    from vivim_tpu_torch.parallel import comm
+
+    return dict({k: list(v) for k, v in comm.SEQ.items()},
+                halo=list(comm.HOPPED))
+
+
+def _par_cli(spec, name):
+    """``train_folds.main`` of the run ``name`` (``PAR_CLI_RUNS``) on this
+    rank: its seconds, launches, all_gathers and sequence exchanges."""
+    from vivim_tpu_torch.cli import train_folds
+    from vivim_tpu_torch.parallel import comm
+
+    reset_counts()
+    comm.reset_counters()
+    t0 = time.perf_counter()
+    train_folds.main(spec["cli_argv"] + ["-exp_name", name]
+                     + PAR_CLI_RUNS[name][1])
+    return dict(secs=time.perf_counter() - t0, launches=counts(),
+                gathered=list(comm.GATHERED), seq=_seq_counters())
+
+
+def _par_cli_rank(rank, world, port, out_dir, spec):
+    """One rank of a phase 10 ``train_folds`` run of its own group
+    (``spec["run"]``): writes ``cli<r>.json`` or ``rank<r>.err``."""
+    try:
+        _par_init(rank, world, port, spec)
+        res = _par_cli(spec, spec["run"])
+        with open(os.path.join(out_dir, f"cli{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
 def _par_rank(rank, world, port, out_dir, spec):
     """One rank of phase 10 (a spawned process): (a) one step per mode
     (dp2, zero2, seq2) from the seeded state (seq2 first runs its sharded
-    eval forward of that state), then one more; (b) ``train_folds.main`` with
-    ``-n_devices 2 -zero true``, then with ``-seq_shards 2``.  Writes
-    ``rank<r>.json`` (and rank 0 the states after the first step), or
-    ``rank<r>.err`` with its traceback."""
+    eval forward of that state), then one more; (b) ``train_folds.main`` of
+    each 2-rank run of ``PAR_CLI_RUNS``.  Writes ``rank<r>.json`` (and
+    rank 0 the states after the first step), or ``rank<r>.err`` with its
+    traceback."""
     try:
-        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                          MASTER_PORT=str(port))
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        # the host's cores shared between the ranks and this script
-        torch.set_num_threads(max(1, (os.cpu_count() or 2) // (world + 1)))
-        from vivim_tpu_torch.cli import train_folds
+        from vivim_tpu_torch.nn.mamba import MambaLayer
         from vivim_tpu_torch.parallel import comm, fsdp
         from vivim_tpu_torch.parallel import mesh as mesh_lib
 
         from vivim_tpu_torch.train import loop
 
-        if spec.get("min_shard_elems"):  # the CPU rehearsal's tiny leaves
-            fsdp.MIN_SHARD_ELEMS = spec["min_shard_elems"]
-        mesh_lib.init_distributed("gloo", PAR_GROUP_TIMEOUT_S)
-        dev = torch.device(spec["dev"])
+        dev = _par_init(rank, world, port, spec)
         on_card = dev.type == "cuda"
-        if on_card:
-            torch.cuda.set_device(dev)
         sync = torch.cuda.synchronize if on_card else (lambda: None)
         seg, size, clip_len = spec["segformer"], spec["size"], spec["clip_len"]
         batch = _par_step_inputs(size, clip_len, PAR_BATCH)
@@ -2322,6 +2377,7 @@ def _par_rank(rank, world, port, out_dir, spec):
         for mode in ("dp2", "zero2", "seq2"):
             mesh = mesh_lib.make_mesh(world, "seq" if mode == "seq2"
                                       else "data")
+            base = torch.cuda.memory_allocated() if on_card else 0
             model = _par_model(seg, dev, mesh, init)
             state = loop.create_train_state(model, 1e-4, 1e-2, 2,
                                             seed=mesh.fold_seed(1))
@@ -2333,7 +2389,7 @@ def _par_rank(rank, world, port, out_dir, spec):
             local = {k: v.to(dev) for k, v in
                      mesh_lib.shard_batch(batch, mesh).items()}
             out = {"clips": int(local["clip"].shape[0]), "ms": [],
-                   "launches": [], "gathered": []}
+                   "launches": [], "gathered": [], "seq": []}
             if mode == "seq2":  # the sharded forward of the seeded state
                 model.eval()
                 reset_counts()
@@ -2356,6 +2412,7 @@ def _par_rank(rank, world, port, out_dir, spec):
                 out["ms"].append((time.perf_counter() - t0) * 1e3)
                 out["launches"].append(counts())
                 out["gathered"].append(list(comm.GATHERED))
+                out["seq"].append(_seq_counters())
                 if i == 0:
                     out.update(loss=float(m["loss"]),
                                grad_norm=float(m["grad_norm"]))
@@ -2372,6 +2429,12 @@ def _par_rank(rank, world, port, out_dir, spec):
                                        if v.is_floating_point()]
             out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                                if on_card else 0.0)
+            # over what the process held before it built the model
+            out["peak_over_base_gib"] = out["peak_gib"] - base / 2**30
+            layers = [m for m in model.modules()
+                      if isinstance(m, MambaLayer)]
+            out["sharded_layers"] = [sum(m.ran_sharded for m in layers),
+                                     len(layers)]
             out["state_bytes"] = fsdp.state_bytes_per_device(state)
             out["dp_state_bytes"] = dp_bytes
             if mode == "zero2":
@@ -2387,15 +2450,8 @@ def _par_rank(rank, world, port, out_dir, spec):
             del model, state, step, local
             if on_card:
                 torch.cuda.empty_cache()
-        res["cli"] = {}
-        for name, flags in PAR_CLI_RUNS.items():
-            reset_counts()
-            comm.reset_counters()
-            t0 = time.perf_counter()
-            train_folds.main(spec["cli_argv"] + ["-exp_name", name] + flags)
-            res["cli"][name] = dict(secs=time.perf_counter() - t0,
-                                    launches=counts(),
-                                    gathered=list(comm.GATHERED))
+        res["cli"] = {name: _par_cli(spec, name)
+                      for name, (n, _) in PAR_CLI_RUNS.items() if n == world}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     except BaseException:
@@ -2493,26 +2549,34 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
                    clip_len=5, min_shard_elems=None):
     """Phase 10: the multi-rank training path with two ranks on one card
     over gloo.  (a) one step of each mode against the one-device step of
-    the same seeded state on the whole batch; (b) ``train_folds.main`` in
-    the two ranks on phase 6's tree, with ``-n_devices 2 -zero true`` and
-    with ``-seq_shards 2``, and ``cli.infer.main`` on each run's
-    checkpoints in this process.  ``min_shard_elems`` lowers ZeRO's
-    threshold (a CPU rehearsal's tiny model).  Returns (launches,
-    summary)."""
+    the same seeded state on the whole batch (seq2 with its Mamba layers on
+    each rank's token shard: its peak per rank must stay below the
+    one-device step's); (b) ``train_folds.main`` on phase 6's tree in the
+    ranks of each ``PAR_CLI_RUNS`` run (``-n_devices 2 -zero true`` and
+    ``-seq_shards 2`` in the two, ``-n_devices 2 -seq_shards 2`` in four),
+    and ``cli.infer.main`` on each run's checkpoints in this process.
+    ``min_shard_elems`` lowers ZeRO's threshold (a CPU rehearsal's tiny
+    model).  Returns (launches, summary)."""
     from vivim_tpu_torch.train import loop
 
     dev = torch.device(dev)
     on_card = dev.type == "cuda"
     per_pass = LAYERS_PER_STAGE * len(STAGES)
     t_phase = time.perf_counter()
-    # the reference: one device, the whole batch, the same seeded state
+    # the reference: one device, the whole batch, the same seeded state;
+    # its peak over what this process held before, as the ranks' seq2 peak
     batch = _par_step_inputs(size, clip_len, PAR_BATCH)
+    base = torch.cuda.memory_allocated() if on_card else 0
     model = _par_model(segformer, dev).eval()
     with torch.no_grad():
         ref_logits = model(batch["clip"][:1].to(dev)).cpu()
     state = loop.create_train_state(model, 1e-4, 1e-2, 2, seed=1)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     _, m = loop.make_train_step(model, "recall_focused", 3)(
         state, {k: v.to(dev) for k, v in batch.items()})
+    one_peak = ((torch.cuda.max_memory_allocated() - base) / 2**30
+                if on_card else 0.0)
     ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                sd={k: v.cpu() for k, v in model.state_dict().items()})
     del model, state
@@ -2538,6 +2602,20 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
     secs = _spawn_ranks(_par_rank, 2, out_dir, spec, PAR_WALL_S)
     ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
              for r in range(2)]
+    cli_ranks = {name: [r["cli"][name] for r in ranks]
+                 for name, (n, _) in PAR_CLI_RUNS.items() if n == 2}
+    for name, (n, _) in PAR_CLI_RUNS.items():
+        if n == 2:
+            continue
+        run_dir = os.path.join(out_dir, name)
+        os.makedirs(run_dir)
+        print(f"parallel: {n} ranks over gloo, all on {spec['dev']}: "
+              f"train_folds {' '.join(PAR_CLI_RUNS[name][1])}", flush=True)
+        secs += _spawn_ranks(_par_cli_rank, n, run_dir, dict(spec, run=name),
+                             PAR_WALL_S)
+        cli_ranks[name] = [json.load(open(os.path.join(run_dir,
+                                                       f"cli{r}.json")))
+                           for r in range(n)]
     summary = {"backend": ranks[0]["backend"], "ranks": 2,
                "device": spec["dev"], "spawn_s": secs, "modes": {},
                "probe": ranks[0]["probe"]}
@@ -2580,6 +2658,8 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
             launches_per_step=per[0]["launches"][0],
             replica_sum_max_diff=drift,
             gathered_per_step=[o["gathered"][1] for o in per],
+            seq_exchanges_per_step=[o["seq"][1] for o in per],
+            peak_over_base_gib=[o["peak_over_base_gib"] for o in per],
             state_bytes=[o["state_bytes"] for o in per],
             clips_per_rank=per[0]["clips"], timing=label)
         print(f"parallel {mode}: loss {per[0]['loss']:.7f} vs "
@@ -2624,6 +2704,28 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
                   f"parameters hold {per[0]['at_rest_elems']} elements "
                   "(the slices live in the optimizer)", flush=True)
         if mode == "seq2":
+            for r, o in enumerate(per):
+                sharded, total = o["sharded_layers"]
+                if on_card and sharded != total:
+                    raise AssertionError(
+                        f"seq2 rank {r}: {sharded} of {total} MambaLayers "
+                        "ran on the token shard")
+                if on_card and not o["peak_over_base_gib"] < one_peak:
+                    raise AssertionError(
+                        f"seq2 rank {r} peaks at "
+                        f"{o['peak_over_base_gib']:.2f} GiB, not below the "
+                        f"one-device step's {one_peak:.2f} GiB")
+                card = nvidia_smi("name,power.limit") if on_card else "cpu"
+                print(f"parallel seq2 rank {r}: peak {o['peak_gib']:.2f} GiB "
+                      f"({o['peak_over_base_gib']:.2f} GiB over the process's "
+                      f"base) vs the one-device step's {one_peak:.2f} GiB at "
+                      f"the same {PAR_BATCH} clips; exchanges per step: "
+                      + ", ".join(f"{k} {c} calls {b / 2**20:.1f} MiB"
+                                  for k, (c, b) in o["seq"][1].items())
+                      + f" ({label}; {card})", flush=True)
+            summary["modes"]["seq2"].update(
+                one_device_peak_gib=one_peak,
+                sharded_layers=per[0]["sharded_layers"])
             logits = torch.load(os.path.join(out_dir, "seq2_logits.pt"),
                                 weights_only=True)
             err = (logits - ref_logits).abs().max().item()
@@ -2642,8 +2744,8 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
                   f"{err:.3e} of one device's; launches per forward and rank "
                   f"{per[0]['eval_launches']}", flush=True)
     summary["cli"] = {}
-    for name in PAR_CLI_RUNS:
-        runs = [r["cli"][name] for r in ranks]
+    for name, (n_ranks, flags) in PAR_CLI_RUNS.items():
+        runs = cli_ranks[name]
         for r, c in enumerate(runs):
             n = c["launches"]
             if on_card and (n["K1 training"] != n["K2"]
@@ -2651,12 +2753,16 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
                             or n["K1 inference"] % per_pass
                             or not n["K1 training"]):
                 raise AssertionError(f"cli {name} rank {r} launched {n}")
+            # a -seq_shards run exchanges a halo per sharded MambaLayer
+            if ("-seq_shards" in flags) != (c["seq"]["halo"][0] > 0):
+                raise AssertionError(f"cli {name} rank {r}: sequence "
+                                     f"exchanges {c['seq']}")
             for k in launched:
                 launched[k] += n[k]
         run = os.path.join("par_runs", name, "fold_0")
         recs = [json.loads(x) for x in open(os.path.join(
             workdir, run, "metrics.jsonl"))]
-        validated = "-val_freq" not in PAR_CLI_RUNS[name]
+        validated = "-val_freq" not in flags
         if sum("config" in x for x in recs) != 1 or validated != any(
                 "val/dice" in x for x in recs):
             raise AssertionError(f"cli {name}: metrics.jsonl holds "
@@ -2669,8 +2775,9 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
         summary["cli"][name] = dict(
             secs=[c["secs"] for c in runs], launches=[c["launches"]
                                                      for c in runs],
-            gathered=[c["gathered"] for c in runs], infer_fps=perf["fps"])
-        print(f"parallel cli {name}: train_folds in 2 ranks "
+            gathered=[c["gathered"] for c in runs],
+            seq_exchanges=[c["seq"] for c in runs], infer_fps=perf["fps"])
+        print(f"parallel cli {name}: train_folds in {n_ranks} ranks "
               f"{runs[0]['secs']:.1f} s, launches per rank "
               f"{[c['launches'] for c in runs]}; cli.infer read its "
               "checkpoint on one card", flush=True)

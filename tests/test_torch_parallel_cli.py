@@ -4,8 +4,10 @@ gloo process groups of the CPU (``-dist_backend gloo -device cpu``).
 ``train_folds`` in 2 ranks with ``-n_devices 2 -zero true`` (ZeRO's
 threshold lowered for the tiny model's leaves to shard) writes, from rank 0
 alone, a checkpoint of whole tensors that ``cli.infer`` reads in one
-process; ``-seq_shards 2`` trains the same fold with every scan sharded;
-``train_binary`` runs with ``-n_devices 2``.  The errors of a run that is
+process; ``-seq_shards 2``, alone and with ``-n_devices 2``, trains the
+same fold with the Mamba layers of every stage whose tokens divide over
+the ranks sharded (the others whole, with the scan's FALLBACK line);
+``train_binary`` runs with ``-n_devices 2`` and with ``-seq_shards 2``.  The errors of a run that is
 set up wrong are the JAX package's where it has them, and name the fix.
 """
 
@@ -53,16 +55,33 @@ def _records(path):
         return [json.loads(line) for line in f]
 
 
-def _fold_run(tmp_path, fold_tree, flags):
+def _fold_run(tmp_path, fold_tree, flags, world=2):
     save = tmp_path / "runs"
-    H.run_ranks(H.cli_body, 2, tmp_path, "train_folds",
+    H.run_ranks(H.cli_body, world, tmp_path, "train_folds",
                 ["-data_path", str(fold_tree), "-num_folds", "1",
                  "-train_bs", "2", "-save_path", str(save),
                  "-exp_name", "cv"] + TINY + flags, H.MIN_ELEMS)
     results = [json.load(open(tmp_path / f"cli_rank{r}.json"))
-               for r in range(2)]
-    assert results[0] == results[1]  # the pick, in lockstep
+               for r in range(world)]
+    assert all(r == results[0] for r in results)  # the pick, in lockstep
     return save / "cv" / "fold_0", results[0]
+
+
+def _assert_sharded_layers(tmp_path, world):
+    """Every rank sharded the Mamba layers of the tiny model's first three
+    stages (3 frames of 8x8, 4x4 and 2x2 tokens) over 2 seq ranks and ran
+    the last (3 tokens) whole, with the scan's FALLBACK line."""
+    for r in range(world):
+        lines = json.load(open(tmp_path / f"cli_log_rank{r}.json"))
+        sharded = [x for x in lines if x.startswith("seq-sharded Mamba")]
+        assert sorted({x.split(":")[0] for x in sharded}) == [
+            f"seq-sharded Mamba stage {i}" for i in range(3)]
+        for x in sharded:
+            L = (192, 48, 12)[int(x.split(":")[0].split()[-1])]
+            assert f"L={L} over 2 'seq' ranks, {L // 2} tokens each" in x
+        fallback = [x for x in lines if "FALLBACK" in x]
+        assert fallback and all(x.startswith("seq-shard FALLBACK: L=3 % 2")
+                                for x in fallback)
 
 
 def _check_run(run, fold_tree, tmp_path):
@@ -108,6 +127,17 @@ def test_train_folds_seq_shards(tmp_path, fold_tree):
     run, result = _fold_run(tmp_path, fold_tree, ["-seq_shards", "2"])
     assert 0.0 <= result["0"] <= 1.0
     _check_run(run, fold_tree, tmp_path)
+    _assert_sharded_layers(tmp_path, 2)
+
+
+def test_train_folds_hybrid_seq_shards(tmp_path, fold_tree):
+    """``-n_devices 2 -seq_shards 2``: 4 ranks, each data rank's clip with
+    its Mamba layers sharded over its seq row."""
+    run, result = _fold_run(tmp_path, fold_tree,
+                            ["-n_devices", "2", "-seq_shards", "2"], world=4)
+    assert 0.0 <= result["0"] <= 1.0
+    _check_run(run, fold_tree, tmp_path)
+    _assert_sharded_layers(tmp_path, 4)
 
 
 def test_train_binary_data_parallel(tmp_path, fold_tree):
@@ -127,6 +157,23 @@ def test_train_binary_data_parallel(tmp_path, fold_tree):
     assert sum("config" in r for r in _records(run / "metrics.jsonl")) == 1
     assert sorted(os.listdir(run / "ckpt")) == ["best_2.pt", "last_2.pt",
                                                 "manager.json"]
+
+
+def test_train_binary_seq_shards(tmp_path, fold_tree):
+    """``train_binary -seq_shards 2``: the binary step sums the sharded
+    layers' gradients over the seq row like the multiclass one."""
+    gathered = tmp_path / "gathered"
+    gather_multiclass_frames(str(fold_tree / "fold_0" / "train"),
+                             str(gathered), copy=True)
+    H.run_ranks(H.cli_body, 2, tmp_path, "train_binary",
+                ["-data_path", str(gathered), "-train_bs", "2",
+                 "-val_bs", "2", "-save_path", str(tmp_path / "runs"),
+                 "-exp_name", "b", "-seq_shards", "2"] + TINY)
+    results = [json.load(open(tmp_path / f"cli_rank{r}.json"))
+               for r in range(2)]
+    assert results[0] == results[1]
+    assert {"val/dice", "val/Smeasure", "val/MAE"} <= set(results[0])
+    _assert_sharded_layers(tmp_path, 2)
 
 
 @pytest.mark.parametrize("cli", [train_folds, train_final, train_binary,

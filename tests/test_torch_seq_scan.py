@@ -8,11 +8,18 @@ sum(last ** 2)`` w.r.t. all eight inputs, at rtol / atol 2e-3
 (``tests/test_seq_scan.py``), at S = 2 and 4 shards, with shared and
 per-batch A / D / bias; an L that does not divide takes the one-device scan
 with the JAX package's log line.  Once, the JAX ``seq_sharded_selective_
-scan`` on a 2-device ``seq`` mesh of the CPU devices.  The micro Vivim with
-its scans sharded over 2 ranks: eval logits against the JAX forward at
+scan`` on a 2-device ``seq`` mesh of the CPU devices.  The body on a rank's
+shards, ``seq_sharded_selective_scan_local``, against the JAX body of that
+name under ``shard_map`` on an S-device ``seq`` mesh of the CPU devices
+(each rank's output, last state and gradients).  The micro Vivim with its
+Mamba layers sharded over 2 ranks: eval logits against the JAX forward at
 1e-3, and one train step against the JAX ``make_train_step`` at
-``test_torch_train_step.py``'s tolerances.
+``test_torch_train_step.py``'s tolerances (``test_torch_seq_layer.py``
+holds S = 4, the hybrid mesh and the layer's parts).
 """
+
+import functools
+
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +32,15 @@ from vivim_tpu.convert.torch_to_jax import vivim_params_from_torch
 from vivim_tpu.kernels import refs as jrefs
 from vivim_tpu.nn.vivim import Vivim as JVivim
 from vivim_tpu.nn.vivim import VivimConfig as JConfig
+from jax.sharding import PartitionSpec as P
+
 from vivim_tpu.parallel.mesh import make_mesh as jmake_mesh
+from vivim_tpu.parallel.mesh import shard_map_compat
 from vivim_tpu.parallel.seq_scan import (
     seq_sharded_selective_scan as jseq_scan,
+)
+from vivim_tpu.parallel.seq_scan import (
+    seq_sharded_selective_scan_local as jseq_local,
 )
 from vivim_tpu.train import loop as jloop
 from vivim_tpu_torch.kernels.selective_scan import selective_scan
@@ -151,6 +164,55 @@ def test_matches_the_jax_seq_mesh(tmp_path_factory):
         np.testing.assert_allclose(got["last"], np.asarray(last), **TOL)
 
 
+def _jax_local(x, S):
+    """The JAX body under ``shard_map`` on an S-device ``seq`` mesh: the
+    whole y, last and the eight gradients of sum(y * w) + sum(last ** 2)."""
+    seq, rep = P(None, "seq", None), P()
+    body = functools.partial(jseq_local, axis_name="seq",
+                             implementation="ref")
+
+    def wrapped(u, delta, A, B, C, D, z, bias):
+        return body(u, delta, A, B, C, D=D, z=z, delta_bias=bias)
+
+    fn = shard_map_compat(wrapped, jmake_mesh(S, axis="seq"),
+                          (seq, seq, rep, seq, seq, rep, seq, rep),
+                          (seq, rep))
+    w = jnp.asarray(x["w"])
+
+    def loss(*a):
+        y, last = fn(*a)
+        return jnp.sum(y * w) + jnp.sum(last ** 2), (y, last)
+
+    grads, (y, last) = jax.grad(loss, argnums=tuple(range(8)), has_aux=True)(
+        *(jnp.asarray(x[k]) for k in H.SCAN_NAMES))
+    return np.asarray(y), np.asarray(last), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("case", ["shared", "per_batch"])
+def test_local_body_matches_the_jax_body(seq_run, case):
+    """Each rank's shard of the output, the global last state, its shards'
+    gradients of u, delta, B, C and z and the group's of A, D and bias,
+    against the JAX ``seq_sharded_selective_scan_local`` in ``shard_map``
+    over as many CPU devices, and against the one-device oracle."""
+    S, out = seq_run
+    x = H.scan_inputs(**_cases(S)[case])
+    ls = x["u"].shape[1] // S
+    jy, jlast, jgrads = _jax_local(x, S)
+    y, last, grads = _jax_oracle(x)
+    np.testing.assert_allclose(jy, y, **TOL)
+    for name, jg, g in zip(H.SCAN_NAMES, jgrads, grads):
+        np.testing.assert_allclose(jg, g, **TOL, err_msg=f"JAX d{name}")
+    for r in range(S):
+        got = H.load(out, f"{case}_local_rank{r}")
+        mine = lambda a: a[:, r * ls:(r + 1) * ls]
+        np.testing.assert_allclose(got["y"], mine(jy), **TOL)
+        np.testing.assert_allclose(got["last"], jlast, **TOL)
+        for name, g in zip(H.SCAN_NAMES, jgrads):
+            want = mine(g) if name in H.SEQ_SHARDED else g
+            np.testing.assert_allclose(got[f"d{name}"], want, **TOL,
+                                       err_msg=f"d{name}, rank {r}")
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(delta_softplus=False), "delta_softplus=True"),
     (dict(delta_softplus=True, initial_state=torch.zeros(2, 8, 4)),
@@ -189,7 +251,7 @@ def test_vivim_forward_with_sharded_scans_matches_jax(seq_model_run):
     want = np.asarray(jax.jit(
         lambda v, c: jmodel.apply(v, c, deterministic=True))(variables, clip))
     for r in range(2):
-        got = H.load(seq_model_run, f"seq_rank{r}")["logits"]
+        got = H.load(seq_model_run, f"seq2_rank{r}")["logits"]
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
@@ -207,7 +269,7 @@ def test_vivim_train_step_with_sharded_scans_matches_jax(seq_model_run):
         jstate, {k: jnp.asarray(v) for k, v in H.batch(0, B=2).items()})
     want = _flat_state(jstate)
     for r in range(2):
-        got = H.load(seq_model_run, f"seq_rank{r}")
+        got = H.load(seq_model_run, f"seq2_rank{r}")
         np.testing.assert_allclose(got["loss"], float(jm["loss"]),
                                    rtol=1e-4)
         np.testing.assert_allclose(got["grad_norm"], float(jm["grad_norm"]),
@@ -235,7 +297,8 @@ ZERO_GRAD = ("['linear_c_0']['bias']", "['linear_c_1']['bias']",
 def _assert_state_close(got, jcfg, want):
     """A rank's saved state_dict against the JAX state after the step."""
     sd = {k: v for k, v in got.items()
-          if k not in ("loss", "jaccard", "grad_norm", "coords")}
+          if k not in ("loss", "jaccard", "grad_norm", "coords", "log",
+                       "in_proj_tokens", "exchanges", "logits")}
     conv = vivim_params_from_torch(sd, jcfg)
     for what, tol in (("params", dict(rtol=1e-4, atol=2e-5)),
                       ("batch_stats", dict(rtol=1e-3, atol=1e-4))):

@@ -140,16 +140,23 @@ def scan_inputs(seed, b, L, d, n, per_batch):
 
 
 SCAN_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "bias")
+# the inputs with an L axis, which the body takes as shards
+SEQ_SHARDED = ("u", "delta", "B", "C", "z", "w")
 
 
 def seq_scan_body(rank, world, out_dir, cases):
     """Each case: the sharded scan's output, last state and the grads of
     sum(y * w) + sum(last ** 2) w.r.t. the eight inputs; then a forward
-    without autograd.  Launch-free on the CPU: the plain versions run."""
+    without autograd; then (L divisible) the same through the body on
+    this rank's shards.  Launch-free on the CPU: the plain versions
+    run."""
     import logging
 
     from vivim_tpu_torch.kernels.selective_scan import selective_scan
     from vivim_tpu_torch.parallel.mesh import make_mesh
+    from vivim_tpu_torch.parallel.seq_scan import (
+        seq_sharded_selective_scan_local,
+    )
 
     mesh = make_mesh(world, axis="seq")
     for name, kw in cases.items():
@@ -178,6 +185,21 @@ def seq_scan_body(rank, world, out_dir, cases):
         save(out_dir, f"{name}_rank{rank}", y=y, last=last, y_ng=y_ng,
              last_ng=last_ng, log=np.array([r.getMessage() for r in records]),
              **{f"d{k}": ts[k].grad for k in SCAN_NAMES})
+        if name == "indivisible":
+            continue
+        # the body on this rank's shards
+        ls = kw["L"] // world
+        mine = lambda k: (x[k][:, rank * ls:(rank + 1) * ls]
+                          if k in SEQ_SHARDED else x[k])
+        loc = {k: torch.tensor(mine(k), requires_grad=True)
+               for k in SCAN_NAMES}
+        y, last = seq_sharded_selective_scan_local(
+            *(loc[k] for k in SCAN_NAMES[:5]), D=loc["D"], z=loc["z"],
+            delta_bias=loc["bias"], group=mesh.group("seq"))
+        ((y * torch.from_numpy(mine("w"))).sum()
+         + (last ** 2).sum()).backward()
+        save(out_dir, f"{name}_local_rank{rank}", y=y, last=last,
+             **{f"d{k}": loc[k].grad for k in SCAN_NAMES})
 
 
 def no_dropout(cfg):
@@ -189,17 +211,23 @@ def no_dropout(cfg):
                                       classifier_dropout=0.0))
 
 
-def port_model(seed=0, mesh=None, with_edge=False):
+def port_model(seed=0, mesh=None, with_edge=False, dropout=False,
+               remat="none"):
     """The micro Vivim of the step tests (``test_torch_train_step.py``):
-    seeded weights, random BatchNorm statistics, no dropout; a ``mesh``
-    with a ``seq`` axis shards its scans."""
+    seeded weights, random BatchNorm statistics, no dropout unless
+    ``dropout`` (the config's rates), ``remat`` as the CLIs' flag; a
+    ``mesh`` with a ``seq`` axis shards its Mamba layers."""
     import dataclasses
 
     from vivim_tpu_torch.nn.layers import init_weights
     from vivim_tpu_torch.nn.vivim import Vivim, VivimConfig
 
-    cfg = no_dropout(VivimConfig.micro_test(scan_implementation=None,
-                                            with_edge=with_edge))
+    cfg = VivimConfig.micro_test(scan_implementation=None,
+                                 with_edge=with_edge,
+                                 remat_pre_scan=remat == "pre_scan",
+                                 remat_blocks=remat == "blocks")
+    if not dropout:
+        cfg = no_dropout(cfg)
     if mesh is not None and mesh.size("seq") > 1:
         cfg = dataclasses.replace(cfg, seq_axis="seq", mesh=mesh)
     model = init_weights(Vivim(cfg), torch.Generator().manual_seed(seed))
@@ -238,18 +266,24 @@ MIN_ELEMS = 64
 
 
 def train_run(mesh, n_steps, grad_accum=1, zero=False, lr=1e-3, wd=5.0,
-              B=4, seed=0, loss="recall_focused", with_edge=False):
+              B=4, seed=0, loss="recall_focused", with_edge=False,
+              dropout=False, remat="none", clip=True):
     """``n_steps`` of ``make_train_step`` on this rank's blocks of
-    ``batch(i, B)``; with ``with_edge`` the micro Vivim's edge head and the
-    multiclass edge criterion.  Returns (metrics per step, the state)."""
+    ``batch(i, B)`` (``mesh`` None: one device, the whole batch); with
+    ``with_edge`` the micro Vivim's edge head and the multiclass edge
+    criterion; ``dropout`` and ``remat`` as ``port_model``; without
+    ``clip`` the gradients stay as the reduction left them.  Returns
+    (metrics per step, the state)."""
     from vivim_tpu_torch.parallel.fsdp import shard_state_fsdp
     from vivim_tpu_torch.parallel.mesh import shard_batch
     from vivim_tpu_torch.train import loop
     from vivim_tpu_torch.train.edge_loss import make_multiclass_edge_criterion
 
-    model = port_model(seed, mesh, with_edge)
-    state = loop.create_train_state(model, lr, wd, n_steps,
-                                    seed=mesh.fold_seed(0))
+    model = port_model(seed, mesh, with_edge, dropout, remat)
+    state = loop.create_train_state(
+        model, lr, wd, n_steps, seed=0 if mesh is None else mesh.fold_seed(0))
+    if not clip:
+        state.opt.clip_norm = None
     if zero:
         shard_state_fsdp(state, mesh, min_shard_elems=MIN_ELEMS)
     step = loop.make_train_step(
@@ -260,7 +294,7 @@ def train_run(mesh, n_steps, grad_accum=1, zero=False, lr=1e-3, wd=5.0,
         b = shard_batch(_torch_batch(batch(i, B, edges=with_edge)), mesh,
                         micro_batches=grad_accum)
         state, m = step(state, b)
-        out.append({k: float(v) for k, v in m.items()})
+        out.append({k: float(v) for k, v in m.items() if v is not None})
     return out, state
 
 
@@ -311,7 +345,7 @@ def dp_body(rank, world, out_dir):
 
 def hybrid_body(rank, world, out_dir):
     """One step on a 2 x 2 ("data", "seq") mesh: the batch's blocks over
-    data, the scans sharded over seq."""
+    data, the Mamba layers sharded over seq."""
     from vivim_tpu_torch.parallel.mesh import make_hybrid_mesh
 
     mesh = make_hybrid_mesh(2, 2)
@@ -320,19 +354,183 @@ def hybrid_body(rank, world, out_dir):
         mesh.index("data"), mesh.index("seq")], **_state_arrays(state.model))
 
 
-def seq_model_body(rank, world, out_dir):
-    """2 ranks on a "seq" mesh: an eval forward of the micro Vivim with
-    its scans sharded, and one train step on the whole batch (every rank
-    holds it)."""
+# the sequence-parallel layouts of the tests: (data ranks, seq ranks);
+# the global batch of a step is 2 clips per data rank
+SEQ_LAYOUTS = {"seq2": (1, 2), "seq4": (1, 4), "hybrid": (2, 2)}
+
+
+def layout_batch(layout):
+    return 2 * SEQ_LAYOUTS[layout][0]
+
+
+def layout_mesh(layout):
+    from vivim_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+
+    dp, n = SEQ_LAYOUTS[layout]
+    return make_mesh(n, axis="seq") if dp == 1 else make_hybrid_mesh(dp, n)
+
+
+def grads_of(model):
+    return {f"g:{k}": p.grad for k, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _logged_forward(model, clip):
+    """An eval forward of ``clip``: (logits, the port's log lines, the
+    token count of every MambaLayer's in_proj output, each stage's calls
+    of each sequence exchange)."""
+    import logging
+
+    from vivim_tpu_torch.nn.mamba import MambaLayer
+    from vivim_tpu_torch.parallel import comm
+
+    records, tokens = [], []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("vivim_tpu_torch")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    hooks = [m.mamba.in_proj.register_forward_hook(
+        lambda mod, inp, out: tokens.append(out.shape[1]))
+        for m in model.modules() if isinstance(m, MambaLayer)]
+    comm.reset_counters()
+    try:
+        with torch.no_grad():
+            logits = model(torch.from_numpy(clip))
+    finally:
+        log.removeHandler(handler)
+        for h in hooks:
+            h.remove()
+    return logits, dict(
+        log=np.array([r.getMessage() for r in records]),
+        in_proj_tokens=np.array(tokens),
+        exchanges=np.array([comm.SEQ[k][0] for k in sorted(comm.SEQ)]),
+        hops=comm.HOPPED[0])
+
+
+def seq_model_body(rank, world, out_dir, layout="seq2", extras=False):
+    """One sequence-parallel ``layout`` (``SEQ_LAYOUTS``) of the micro
+    Vivim: an eval forward of the seeded weights with its Mamba layers
+    sharded (its log lines, in_proj's token counts and the exchanges'
+    calls); one train step on this rank's data block of the global batch
+    (``layout_batch``); one without clipping, for the reduced gradients.
+    With ``extras``, for ``seq2`` also the step under each remat level and
+    one with every dropout on, for ``seq4`` the forward of a clip whose
+    second stage's tokens do not divide over 4, for ``hybrid`` the step
+    with ZeRO over data."""
+    mesh = layout_mesh(layout)
+    B = layout_batch(layout)
+    model = port_model(0, mesh).eval()
+    logits, fwd = _logged_forward(model, batch(5, B=2)["clip"])
+    ms, state = train_run(mesh, 1, B=B)
+    step_state = state
+    save(out_dir, f"{layout}_rank{rank}", logits=logits, **fwd, **ms[0],
+         coords=[mesh.index("data"), mesh.index("seq")],
+         **_state_arrays(state.model))
+    ms, state = train_run(mesh, 1, B=B, clip=False)
+    save(out_dir, f"{layout}_grads_rank{rank}", **ms[0],
+         **grads_of(state.model))
+    if not extras:
+        return
+    if layout == "seq2":
+        for remat in ("pre_scan", "blocks"):
+            ms, state = train_run(mesh, 1, B=B, remat=remat)
+            save(out_dir, f"{layout}_{remat}_rank{rank}", **ms[0],
+                 **_state_arrays(state.model))
+        ms, state = train_run(mesh, 1, B=B, dropout=True)
+        save(out_dir, f"{layout}_dropout_rank{rank}", **ms[0],
+             generator=state.generator.get_state(),
+             seed=mesh.fold_seed(0), **_state_arrays(state.model))
+    if layout == "seq4":
+        logits, fwd = _logged_forward(port_model(0, mesh).eval(),
+                                      batch(5, B=2, S=24)["clip"])
+        save(out_dir, f"{layout}_odd_rank{rank}", logits=logits, **fwd)
+    if layout == "hybrid":
+        # the first moments after one step: 0.1 x the clipped gradients
+        mus = lambda st: {f"mu:{k}": m for k, m in zip(st.opt.names,
+                                                      st.opt.mu)}
+        save(out_dir, f"{layout}_mu_rank{rank}", **mus(step_state))
+        ms, state = train_run(mesh, 1, B=B, zero=True)
+        with state.zero.full():
+            save(out_dir, f"{layout}_zero_rank{rank}", **ms[0],
+                 **_state_arrays(state.model), **mus(state))
+
+
+def seq_exchange_body(rank, world, out_dir):
+    """Each sequence exchange of ``comm`` on this rank's shards of
+    ``exchange_inputs``: its output and the gradient of this rank's loss
+    ``exchange_loss`` w.r.t. its input."""
+    from vivim_tpu_torch.parallel import comm
     from vivim_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(world, axis="seq")
-    model = port_model(0, mesh).eval()
-    with torch.no_grad():
-        logits = model(torch.from_numpy(batch(5, B=2)["clip"]))
-    ms, state = train_run(mesh, 1, B=2)
-    save(out_dir, f"seq_rank{rank}", logits=logits, **ms[0],
-         **_state_arrays(state.model))
+    group = make_mesh(world, axis="seq").group("seq")
+    x = exchange_inputs(world)
+    for name in EXCHANGES:
+        leaves = {k: torch.from_numpy(v).requires_grad_(True)
+                  for k, v in x[name].items()}
+        mine = {k: (v if name == "shard" else
+                    v.narrow(-2, rank * (v.shape[-2] // world),
+                             v.shape[-2] // world).detach()
+                    .requires_grad_(True))
+                for k, v in leaves.items()}
+        out = exchange_apply(comm, name, mine, group, rank, world)
+        exchange_loss(name, out, x["w"], rank).backward()
+        save(out_dir, f"x_{name}_rank{rank}",
+             **{f"out{i}": o for i, o in enumerate(out)},
+             **{f"g:{k}": v.grad for k, v in mine.items()})
+
+
+EXCHANGES = ("halo", "permute", "permute_each", "gather_partial",
+             "gather_replicated", "shard")
+# (N, Ls, C) of a shard in the exchange tests, the halo's k, frames
+X_SHAPE, X_HALO, X_FRAMES = (2, 6, 3), 3, 3
+
+
+def exchange_inputs(world, seed=0):
+    """The whole inputs of each exchange's test, numpy fp32 from a seed,
+    and a bank of loss weights."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    n, ls, c = X_SHAPE
+    L = world * ls
+    return {"halo": {"x": f(n, L, c)}, "permute": {"x": f(1, n, L, c)},
+            "permute_each": {"x": f(2, n, L, c)},
+            "gather_partial": {"x": f(n, L, c)},
+            "gather_replicated": {"x": f(n, L, c)},
+            "shard": {"a": f(n, L, c), "b": f(n, L, 2 * c)},
+            "w": f(8, 2, n, L, 2 * c)}
+
+
+def exchange_apply(comm, name, x, group, rank, world):
+    """The exchange ``name`` on this rank's tensors ``x``: a tuple of
+    outputs (with ``group`` None and world 1, its one-device meaning)."""
+    from vivim_tpu_torch.nn.mamba import direction_index
+
+    L = world * X_SHAPE[1]
+    into, back = direction_index(L, X_FRAMES, torch.device("cpu"))
+    if name == "halo":
+        return (comm.seq_halo(x["x"], X_HALO, group),)
+    if name in ("permute", "permute_each"):
+        return (comm.seq_permute(x["x"], into if name == "permute" else back,
+                                 group),)
+    if name == "gather_partial":
+        # an op every rank computes whole, of which it keeps its slice
+        whole = torch.cumsum(comm.seq_gather_partial(x["x"], group), 1) ** 2
+        ls = whole.shape[1] // world
+        return (whole[:, rank * ls:(rank + 1) * ls],)
+    if name == "gather_replicated":
+        # replicated layers after it: every rank computes the same
+        return (torch.tanh(comm.seq_gather_replicated(x["x"], group)),)
+    return comm.seq_shard(group, x["a"], x["b"])
+
+
+def exchange_loss(name, outs, w, rank):
+    """This rank's loss: its outputs weighted by its own weights (the
+    replicated output of ``gather_replicated`` by weights every rank
+    shares: every rank holds the same copy of that loss)."""
+    w = torch.from_numpy(w)[0 if name == "gather_replicated" else rank]
+    return sum((o * w[i].reshape(-1)[:o.numel()].reshape(o.shape)).sum()
+               for i, o in enumerate(outs))
 
 
 def failing_body(rank, world, out_dir):
@@ -350,15 +548,28 @@ def cli_body(rank, world, out_dir, cli, argv, min_shard_elems=None):
     lowers ZeRO's threshold, for the tiny model's leaves to shard."""
     import importlib
     import json
+    import logging
 
     from vivim_tpu_torch.parallel import fsdp
 
     if min_shard_elems is not None:
         fsdp.MIN_SHARD_ELEMS = min_shard_elems
     mod = importlib.import_module(f"vivim_tpu_torch.cli.{cli}")
-    res = mod.main(argv)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("vivim_tpu_torch")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        res = mod.main(argv)
+    finally:
+        log.removeHandler(handler)
     with open(os.path.join(out_dir, f"cli_rank{rank}.json"), "w") as f:
         json.dump(res, f, default=float)
+    seq = sorted({r.getMessage() for r in records if "seq-s" in r.getMessage()})
+    with open(os.path.join(out_dir, f"cli_log_rank{rank}.json"), "w") as f:
+        json.dump(seq, f)
 
 
 # ------------------------------------------------- LM model-parallel bodies

@@ -180,7 +180,7 @@ def build_model(args, device="cuda", seed: int = 0, out_chans=None,
     weights from ``seed``, in eval mode on ``device``.  ``out_chans``
     overrides ``num_classes`` (1 for the binary CLIs).  A ``mesh`` with a
     ``seq`` axis (``init_parallel``, ``-seq_shards``) shards the Mamba
-    scans over it.  Returns (model, cfg).
+    layers' tokens over it.  Returns (model, cfg).
 
     GELU is the tanh form unless ``args.exact_gelu`` is true, as in the JAX
     package; args without the flag (the infer CLI's) get the exact erf.

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from vivim_tpu_torch.parallel import comm
+
 
 class Stochastic(nn.Module):
     """Base of the layers that draw random numbers in training, from
@@ -117,22 +119,29 @@ def fast_keep_mask(generator, keep: float, shape, device):
 class Dropout(Stochastic):
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
     by 1/(1 - rate).  ``broadcast_dims`` share one draw along those axes
-    (``(1, 2)`` on (N, H, W, C) is channelwise Dropout2d)."""
+    (``(1, 2)`` on (N, H, W, C) is channelwise Dropout2d).  With
+    ``seq_group``, x is this rank's shard of dim 1 of that group's tensor:
+    the mask is drawn whole, as one device draws it, and this rank keeps
+    its slice."""
 
     def __init__(self, rate: float, broadcast_dims=()):
         super().__init__(rate)
         self.broadcast_dims = tuple(broadcast_dims)
 
-    def forward(self, x):
+    def forward(self, x, seq_group=None):
         if not self.active():
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        shape = [1 if i in self.broadcast_dims else s
+        n = comm.size(seq_group)
+        shape = [1 if i in self.broadcast_dims else s * (n if i == 1 else 1)
                  for i, s in enumerate(x.shape)]
         mask = torch.rand(shape, generator=self.generator,
                           device=x.device) < keep
+        if n > 1 and 1 not in self.broadcast_dims:
+            ls = x.shape[1]
+            mask = mask.narrow(1, comm.rank(seq_group) * ls, ls)
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -177,7 +186,15 @@ class DWConv3d(nn.Module):
         super().__init__()
         self.dwconv = nn.Conv3d(dim, dim, 3, padding=1, groups=dim)
 
-    def forward(self, x, nframes: int, H: int, W: int):
+    def forward(self, x, nframes: int, H: int, W: int, seq_group=None):
+        """x: (B, N, C) tokens, or with ``seq_group`` this rank's shard of
+        them: the conv then runs on the whole sequence, gathered
+        (``comm.seq_gather_partial``), and returns this rank's slice."""
+        if seq_group is not None:
+            ls = x.shape[1]
+            whole = self(comm.seq_gather_partial(x, seq_group), nframes, H,
+                         W)
+            return whole.narrow(1, comm.rank(seq_group) * ls, ls)
         B, N, C = x.shape
         if N != nframes * H * W:
             raise ValueError(f"{N} tokens != {nframes}x{H}x{W}")
@@ -203,11 +220,12 @@ class Mlp(nn.Module):
         self.drop = Dropout(dropout_rate)
         self.approximate = "tanh" if gelu_approximate else "none"
 
-    def forward(self, x, nframes: int, H: int, W: int):
+    def forward(self, x, nframes: int, H: int, W: int, seq_group=None):
+        """x: (B, N, C) tokens, or with ``seq_group`` this rank's shard."""
         x = self.fc1(x)
-        x = self.dwconv(x, nframes, H, W)
-        x = self.drop(F.gelu(x, approximate=self.approximate))
-        return self.drop(self.fc2(x))
+        x = self.dwconv(x, nframes, H, W, seq_group)
+        x = self.drop(F.gelu(x, approximate=self.approximate), seq_group)
+        return self.drop(self.fc2(x), seq_group)
 
     def init_parameters(self, gen):
         for lin in (self.fc1, self.fc2):  # trunc-normal(0.02), vivim.py:84-97

@@ -13,14 +13,37 @@ suffix s in {"", "_b", "_s"}, ``conv1d{s}`` (depthwise, (d, 1, width)),
 - ``"none"``: forward only.
 
 ``remat_pre_scan`` recomputes the conv + projection chain of every
-direction in the backward (``mamba_inner(remat=True)``).  ``seq_axis`` +
-``mesh`` shard the scan's tokens over that mesh axis
-(``parallel/seq_scan.py``); the flips, permutes and projections around it
-run whole on every rank of the axis.
+direction in the backward (``mamba_inner(remat=True)``).
+
+Sequence parallel (``seq_axis`` + ``mesh``, the JAX package's
+``P(batch, "seq", None)`` tokens): ``MambaLayer`` and ``MambaV3`` called
+with ``seq_group`` take and return this rank's (B, L/S, C) token shard of
+that group's sequence (``nn/vivim.py`` slices a stage's tokens before its
+first layer and gathers them after its last).  Every op is per token on
+the shard but these exchanges (``parallel/comm.py``):
+- the time-flipped and position-major directions are the shards of
+  permutations of the whole sequence (``comm.seq_permute``: one gather of
+  xz for both, one of the two outputs for their inverses);
+- the causal conv reads the left neighbour's last ``d_conv - 1`` tokens
+  (``comm.seq_halo``) and the scan carries its state across the ranks
+  (``parallel/seq_scan.py``);
+- the Mix-FFN's 3-D conv runs on the whole sequence, gathered
+  (``comm.seq_gather_partial``), and each rank keeps its slice, as GSPMD
+  places it in the JAX package.
+The dropout masks are the slices of the masks one device draws, and the
+drop-path masks one device's, so a step does not depend on S.  After a
+sharded forward the gradient of every parameter of the layer but the
+scan's A_log, D and dt bias (which the scan sums itself) is this rank's
+part, summed over the group by the train step
+(``MambaLayer.seq_partial_parameters``).  A layer called without
+``seq_group`` takes the whole sequence, and its scan shards L over
+``seq_axis`` itself when it divides (``selective_scan``), or logs the
+JAX package's FALLBACK line and runs whole.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -31,8 +54,14 @@ from vivim_tpu_torch.kernels.mamba_inner import (
     mamba_inner_grouped,
 )
 from vivim_tpu_torch.nn.layers import DropPath, Mlp
+from vivim_tpu_torch.parallel import comm
 
 _SUFFIXES = {"v3": ("", "_b", "_s"), "v2": ("", "_b"), "none": ("",)}
+# the parameters only the scan reads: its backward sums their gradients
+# over the seq group itself
+_SCAN_PARAMS = tuple(f"mamba.{p}{s}{q}" for s in _SUFFIXES["v3"]
+                     for p, q in (("A", "_log"), ("D", ""),
+                                  ("dt_proj", ".bias")))
 
 
 def frame_to_position_major(x, nframes: int):
@@ -48,6 +77,21 @@ def position_to_frame_major(x, nframes: int):
     B, L, C = x.shape
     return x.reshape(B, L // nframes, nframes, C).transpose(1, 2).reshape(
         B, L, C)
+
+
+@functools.lru_cache(maxsize=64)
+def direction_index(L: int, nframes: int, device: torch.device):
+    """(into the directions, out of them): two (2, L) maps of global token
+    positions for ``comm.seq_permute``.  The first takes the frame-major
+    sequence to the time-flipped and the position-major ones, the second
+    takes those two back to frame-major."""
+    pos = torch.arange(L, device=device)
+    col = pos[None, :, None]
+    flip = pos.flip(0)
+    return (torch.stack([flip, frame_to_position_major(col, nframes)
+                         .flatten()]),
+            torch.stack([flip, position_to_frame_major(col, nframes)
+                         .flatten()]))
 
 
 class MambaV3(nn.Module):
@@ -133,9 +177,12 @@ class MambaV3(nn.Module):
             remat=self.remat_pre_scan, seq_axis=self.seq_axis,
             mesh=self.mesh)
 
-    def forward(self, x, nframes: int = 1):
-        """x: (B, L, d_model) frame-major tokens, L = nframes * H * W."""
+    def forward(self, x, nframes: int = 1, seq_group=None):
+        """x: (B, L, d_model) frame-major tokens, L = nframes * H * W, or
+        with ``seq_group`` this rank's (B, L/S, d_model) shard of them
+        (v3 only; module docstring)."""
         B, L, _ = x.shape
+        L *= comm.size(seq_group)
         xz = self.in_proj(x)
         if self.bimamba_type == "v3":
             if L % nframes:
@@ -144,18 +191,31 @@ class MambaV3(nn.Module):
             ps = [self._direction(s) for s in _SUFFIXES["v3"]]
             stack = lambda key: (None if ps[0][key] is None else
                                  torch.stack([p[key] for p in ps]))
-            xz_all = torch.cat([xz, xz.flip(1),
-                                frame_to_position_major(xz, nframes)])
+            if seq_group is None:
+                xz_all = torch.cat([xz, xz.flip(1),
+                                    frame_to_position_major(xz, nframes)])
+            else:
+                into, back = direction_index(L, nframes, x.device)
+                xz_all = torch.cat([xz, *comm.seq_permute(
+                    xz[None], into, seq_group)])
             out_all = mamba_inner_grouped(
                 xz_all, stack("conv_w"), stack("conv_b"), stack("x_proj"),
                 stack("dt_proj"), stack("A_log"), stack("D"),
                 stack("dt_bias"), nb=B,
                 implementation=self.scan_implementation,
                 remat=self.remat_pre_scan, seq_axis=self.seq_axis,
-                mesh=self.mesh)
+                mesh=self.mesh, seq_group=seq_group)
             out_f, out_b, out_s = out_all.split(B)
-            out = (out_f + out_b.flip(1)
-                   + position_to_frame_major(out_s, nframes)) / 3.0
+            if seq_group is None:
+                out = (out_f + out_b.flip(1)
+                       + position_to_frame_major(out_s, nframes)) / 3.0
+            else:
+                out_b, out_s = comm.seq_permute(
+                    torch.stack([out_b, out_s]), back, seq_group)
+                out = (out_f + out_b + out_s) / 3.0
+        elif seq_group is not None:
+            raise ValueError("a sequence-sharded mixer is bimamba v3 only, "
+                             f"not {self.bimamba_type!r}")
         else:
             out = self._scan(xz, "")
             if self.bimamba_type == "v2":
@@ -187,7 +247,24 @@ class MambaLayer(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate=dropout_rate,
                        gelu_approximate=gelu_approximate)
         self.drop_path = DropPath(drop_path)
+        # whether the last forward took a token shard
+        self.ran_sharded = False
 
-    def forward(self, x, nframes: int, H: int, W: int):
-        x = x + self.drop_path(self.mamba(self.norm1(x), nframes=nframes))
-        return x + self.drop_path(self.mlp(self.norm2(x), nframes, H, W))
+    def forward(self, x, nframes: int, H: int, W: int, seq_group=None):
+        """x: (B, L, C) tokens, L = nframes * H * W, or with ``seq_group``
+        this rank's (B, L/S, C) shard of them (module docstring)."""
+        self.ran_sharded = seq_group is not None
+        x = x + self.drop_path(self.mamba(self.norm1(x), nframes=nframes,
+                                          seq_group=seq_group))
+        return x + self.drop_path(self.mlp(self.norm2(x), nframes, H, W,
+                                           seq_group))
+
+    def seq_partial_parameters(self):
+        """The parameters whose gradient on this rank is only its token
+        shard's part after the last forward, to be summed over the seq
+        group: all but the scan's (``_SCAN_PARAMS``) after a sharded
+        forward, none after a whole one."""
+        if not self.ran_sharded:
+            return []
+        return [p for n, p in self.named_parameters()
+                if n not in _SCAN_PARAMS]

@@ -33,11 +33,21 @@ Remat (``remat_pre_scan``, ``remat_blocks`` and the SegFormer's
 ``remat_layers``) recomputes in the backward what it does not keep; the
 state-dict keys do not change with it, and the decode, which holds the
 BatchNorm, is never recomputed.
+
+Sequence parallel (``seq_axis`` + ``mesh``): a stage whose T*H*W tokens
+divide over the axis takes this rank's shard of them before its first
+MambaLayer (``comm.seq_shard``) and gathers them after its last
+(``comm.seq_gather_replicated``), so the Mamba layers hold L/S tokens
+(``nn/mamba.py``); the SegFormer stages, the decode and the loss stay
+whole on every rank, as in the JAX package's compiled graph.  A stage
+whose tokens do not divide runs its layers whole (the scan logs the JAX
+package's FALLBACK line).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Sequence
 
 import torch
@@ -52,7 +62,10 @@ from vivim_tpu_torch.nn.layers import (
     fast_keep_mask,
 )
 from vivim_tpu_torch.nn.mamba import MambaLayer
+from vivim_tpu_torch.parallel import comm
 from vivim_tpu_torch.parallel.comm import AllReduceSum
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +86,8 @@ class VivimConfig:
     # recompute each whole MambaLayer in the backward (keep only its
     # input); with segformer.remat_layers, the coarsest memory profile
     remat_blocks: bool = False
-    # long-clip mode: shard the Mamba tokens over this axis of ``mesh`` (a
-    # parallel.mesh.Mesh; the sequence-parallel scan, parallel/seq_scan.py)
+    # long-clip mode: shard the Mamba layers' tokens over this axis of
+    # ``mesh`` (a parallel.mesh.Mesh; the module docstring)
     seq_axis: str | None = None
     mesh: object = None
 
@@ -116,6 +129,18 @@ class VivimEncoder(nn.Module):
                     seq_axis=cfg.seq_axis, mesh=cfg.mesh))
                 for _ in range(cfg.depths[i])))
 
+    def seq_group(self, L: int):
+        """The process group over which a stage of L tokens shards its
+        Mamba layers, or None (no seq axis, or L does not divide over it:
+        the JAX package's ``x.shape[1] % n_shards`` test)."""
+        cfg = self.cfg
+        if cfg.seq_axis is None or cfg.mesh is None:
+            return None
+        n = cfg.mesh.size(cfg.seq_axis)
+        if n == 1 or L % n:
+            return None
+        return cfg.mesh.group(cfg.seq_axis)
+
     def forward(self, x):
         """x: (B, T, H, W, 3) -> list of per-stage (B*T, H_i, W_i, C_i)."""
         B, T, H, W, C = x.shape
@@ -125,9 +150,20 @@ class VivimEncoder(nn.Module):
             tokens, Hi, Wi = self.downsample_layers.stage(i, h)
             dim = tokens.shape[-1]
             t5 = tokens.reshape(B, T * Hi * Wi, dim)
+            group = self.seq_group(t5.shape[1]) if len(stage) else None
+            if group is not None:
+                n = comm.size(group)
+                _log.info("seq-sharded Mamba stage %d: L=%d over %d '%s' "
+                          "ranks, %d tokens each (shape %s)", i, t5.shape[1],
+                          n, self.cfg.seq_axis, t5.shape[1] // n,
+                          tuple(t5.shape))
+                t5, = comm.seq_shard(group, t5)
             for block in stage:
-                t5 = (checkpoint(block[0], t5, T, Hi, Wi)
-                      if self.cfg.remat_blocks else block[0](t5, T, Hi, Wi))
+                t5 = (checkpoint(block[0], t5, T, Hi, Wi, group)
+                      if self.cfg.remat_blocks
+                      else block[0](t5, T, Hi, Wi, group))
+            if group is not None:
+                t5 = comm.seq_gather_replicated(t5, group)
             h = t5.reshape(B * T, Hi, Wi, dim)
             feats.append(h)
         return feats

@@ -14,18 +14,23 @@ nothing here copies to the host by hand.  gloo's point-to-point calls do
 not take CUDA tensors: on the H100 (torch 2.11) ``send`` / ``recv`` and
 ``batch_isend_irecv`` of them each fail with "writev: Bad address" or
 abort the process (``chip_smoke.py`` probes both, each in its own
-processes), so ``ppermute`` takes a gather on that pair (its docstring).  The counters,
+processes), so ``ppermute`` takes a gather on that pair (its docstring),
+and so does every exchange of the sequence-sharded layers.  The counters,
 which ``chip_smoke.py`` prints per step and per token: ``GATHERED``
 (all_gather calls and the bytes each rank sent), ``REDUCED`` (all_reduce
-calls and bytes) and ``HOPPED`` (``ppermute`` calls and the bytes this
-rank sent).
+calls and bytes), ``HOPPED`` (``ppermute`` calls and the bytes this
+rank sent; the sequence-sharded layers' conv halos) and ``SEQ`` (each
+other exchange of those layers, forward and backward: calls and the bytes
+this rank sent; those bytes are counted in ``GATHERED`` or ``REDUCED``
+too).
 
 The adjoint convention of the parallel paths, stated once:
-- every rank backpropagates its own copy of the loss, and the gradients
-  are then averaged over the ``data`` axis, never summed over ``seq`` (the
-  ranks of one ``seq`` row hold equal copies; the steps average over them
-  too, which changes nothing in exact arithmetic and keeps the copies
-  bitwise equal);
+- every rank backpropagates its own copy of the loss; a gradient that
+  every rank holds whole (a replicated layer's, or one a collective
+  already summed) is averaged over the ranks that hold it, and one that a
+  rank holds only its token shard's part of (a sequence-sharded layer's)
+  is summed over its ``seq`` row, then averaged over ``data``
+  (``train/loop.py::average_grads``);
 - the adjoint of gathering an activation that every rank of the group goes
   on to use in the same way (a replicated activation) is this rank's own
   slice of the cotangent, not a sum over the ranks; the adjoint of taking
@@ -61,10 +66,14 @@ GATHERED = [0, 0]
 REDUCED = [0, 0]
 # ppermute calls of this process and the bytes this rank sent
 HOPPED = [0, 0]
+# the sequence-sharded layers' exchanges (``seq_*`` below), forward and
+# backward: calls of this process and the bytes this rank sent
+SEQ = {"shard": [0, 0], "permute": [0, 0], "gather_partial": [0, 0],
+       "gather_replicated": [0, 0]}
 
 
 def reset_counters():
-    for c in (GATHERED, REDUCED, HOPPED):
+    for c in (GATHERED, REDUCED, HOPPED, *SEQ.values()):
         c[0] = c[1] = 0
 
 
@@ -110,19 +119,21 @@ def all_reduce_sum(x, group):
     return out
 
 
-def all_reduce_mean_(tensors, group):
-    """Average a list of tensors over the group in place, through one flat
-    fp32 buffer (one collective, whatever the number of tensors)."""
+def all_reduce_mean_(tensors, group, divisors=None):
+    """Sum a list of tensors over the group in place, through one flat
+    fp32 buffer (one collective, whatever the number of tensors), and
+    divide each by its entry of ``divisors`` (default: the group's size,
+    the mean)."""
     n = size(group)
-    if n == 1 or not tensors:
+    if not tensors or (n == 1 and divisors is None):
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=group)
-    _count(REDUCED, flat.numel() * flat.element_size())
-    flat /= n
+    if n > 1:
+        dist.all_reduce(flat, group=group)
+        _count(REDUCED, flat.numel() * flat.element_size())
     i = 0
-    for t in tensors:
-        t.copy_(flat[i:i + t.numel()].view_as(t))
+    for t, d in zip(tensors, divisors or [n] * len(tensors)):
+        t.copy_(flat[i:i + t.numel()].view_as(t) / d)
         i += t.numel()
 
 
@@ -290,3 +301,142 @@ def ppermute(x, perm, group):
     point-to-point calls take host memory only).  ``HOPPED`` counts the
     call and the bytes this rank sends to its destinations."""
     return _PPermute.apply(x, tuple(perm), group)
+
+
+# ------------------------------------------- sequence-sharded layers
+#
+# A rank of a ``seq`` group of S holds the tokens [r Ls, (r+1) Ls) of a
+# (N, L, C) sequence, Ls = L / S (dim 1 is the token axis).  Each exchange
+# below is one all_gather and a local select (gloo's point-to-point calls
+# do not take CUDA tensors), the halo a ``ppermute`` (which takes that
+# route on gloo with CUDA tensors), and each backward is the exact adjoint
+# under the convention of the module docstring.
+
+
+def _count_seq(what, x):
+    _count(SEQ[what], x.numel() * x.element_size())
+
+
+def _seq_whole(parts):
+    """(S, N, Ls, *rest) gathered shards -> (N, S * Ls, *rest)."""
+    return parts.transpose(0, 1).reshape(
+        (parts.shape[1], -1) + tuple(parts.shape[3:]))
+
+
+class _SeqShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        n, r = size(group), rank(group)
+        return tuple(x.narrow(1, r * (x.shape[1] // n), x.shape[1] // n)
+                     .clone() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # every slice's cotangent, in one collective
+        dtype = gs[0].dtype
+        for g in gs[1:]:
+            dtype = torch.promote_types(dtype, g.dtype)
+        widths = [g.shape[-1] for g in gs]
+        flat = torch.cat([g.to(dtype) for g in gs], -1)
+        _count_seq("shard", flat)
+        whole = _seq_whole(all_gather(flat, ctx.group)).split(widths, -1)
+        return (None,) + tuple(w.to(g.dtype) for w, g in zip(whole, gs))
+
+
+def seq_shard(group, *xs):
+    """This rank's token shard of each replicated (N, L, ·) tensor in
+    ``xs`` (a tuple).  Backward: the shards' cotangents gathered to the
+    whole L (one all_gather for all of them), since every rank's replicated
+    layers before it consume the whole."""
+    return _SeqShard.apply(group, *xs)
+
+
+def seq_gather_replicated(x, group):
+    """The whole (N, L, ·) sequence from every rank's (N, Ls, ·) shard, for
+    replicated layers after a sharded stack.  Backward: this rank's slice of
+    the cotangent (``gather_replicated``: every rank's copy of the loss
+    gives the whole one)."""
+    _count_seq("gather_replicated", x)
+    return _seq_whole(gather_replicated(x, group))
+
+
+class _SeqGatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        _count_seq("gather_partial", x)
+        return _seq_whole(all_gather(x, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = size(ctx.group), rank(ctx.group)
+        _count_seq("gather_partial", g)
+        ls = g.shape[1] // n
+        return all_reduce_sum(g, ctx.group).narrow(1, r * ls, ls), None
+
+
+def seq_gather_partial(x, group):
+    """The whole (N, L, ·) sequence from every rank's shard, for an op that
+    every rank computes whole and of whose result each rank keeps only its
+    own slice (the Mix-FFN's 3-D conv).  Backward: each rank's cotangent of
+    the whole is the part its slice of the result gives, so they are summed
+    (one all_reduce) before this rank takes its slice."""
+    return _SeqGatherPartial.apply(x, group)
+
+
+def seq_halo(x, k, group):
+    """The k tokens before this rank's (N, Ls, C) shard: the left
+    neighbour's last k, zeros on rank 0 (a causal conv's left padding);
+    k <= Ls.  A ``ppermute`` of every rank's last k tokens to its right
+    neighbour (counted in ``HOPPED``): the backward sends the halo's
+    cotangent back, where it adds to the neighbour's last k tokens'."""
+    if k > x.shape[1]:
+        raise ValueError(f"a halo of {k} tokens needs shards of at least "
+                         f"{k}, not {x.shape[1]}")
+    n = size(group)
+    return ppermute(x[:, x.shape[1] - k:], [(r, r + 1) for r in range(n - 1)],
+                    group)
+
+
+def _permute_local(x, index, group, what):
+    """out[p] = this rank's slice of the whole x[p or 0] taken at
+    ``index[p]``: x (Pin, N, Ls, C), index (P, L) -> (P, N, Ls, C)."""
+    n, r = size(group), rank(group)
+    ls = x.shape[2]
+    _count_seq(what, x)
+    parts = all_gather(x, group).movedim(0, 2)           # (Pin, N, S, Ls, C)
+    mine = index[:, r * ls:(r + 1) * ls]
+    src, pos = mine // ls, mine % ls
+    return torch.stack([parts[p if x.shape[0] > 1 else 0][:, src[p], pos[p]]
+                        for p in range(index.shape[0])])
+
+
+class _SeqPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index, group):
+        ctx.group, ctx.n_in = group, x.shape[0]
+        ctx.save_for_backward(index)
+        return _permute_local(x, index, group, "permute")
+
+    @staticmethod
+    def backward(ctx, g):
+        index, = ctx.saved_tensors
+        inverse = torch.empty_like(index).scatter_(
+            1, index, torch.arange(index.shape[1], device=index.device)
+            .expand_as(index))
+        gx = _permute_local(g.contiguous(), inverse, ctx.group, "permute")
+        if ctx.n_in == 1:
+            gx = gx.sum(0, keepdim=True)
+        return gx, None, None
+
+
+def seq_permute(x, index, group):
+    """Re-order a sequence-sharded sequence: ``index`` (P, L) holds P
+    permutations of the L global positions, and output p is this rank's
+    shard of the whole sequence taken at ``index[p]`` (``whole[:,
+    index[p]]``).  x is (Pin, N, Ls, C), Pin 1 (each permutation of the same
+    sequence) or P (each its own); returns (P, N, Ls, C).  Backward: the
+    inverse permutations of the cotangents, summed over p when Pin is 1.
+    Any permutation, so a shard need not align with frames."""
+    return _SeqPermute.apply(x, index, group)

@@ -151,16 +151,20 @@ class Zero:
             off += s.numel()
         return out
 
-    def reduce_grads(self, group):
-        """Average every gradient over ``group`` (the axis, or every rank
-        of the mesh: the seq ranks of a data rank hold equal copies) in one
-        all_reduce (the bytes of data parallel's), and keep the sharded
-        ones' slices of this rank (``opt.params[i].grad``)."""
+    def reduce_grads(self, group, divisor=None):
+        """Sum every gradient over ``group`` (the axis, or every rank of
+        the mesh) in one all_reduce (the bytes of data parallel's) and
+        divide it by ``divisor(parameter)`` (default: the group's size, the
+        mean; ``train/loop.py::average_grads``), and keep the sharded ones'
+        slices of this rank (``opt.params[i].grad``)."""
         idx = {i for i, _, _ in self.leaves}
-        whole = [p.grad for j, p in enumerate(self.opt.params)
+        whole = [p for j, p in enumerate(self.opt.params)
                  if j not in idx and p.grad is not None]
         live = [(i, p, d) for i, p, d in self.leaves if p.grad is not None]
-        comm.all_reduce_mean_(whole + [p.grad for _, p, _ in live], group)
+        params = whole + [p for _, p, _ in live]
+        comm.all_reduce_mean_([p.grad for p in params], group,
+                              None if divisor is None
+                              else [divisor(p) for p in params])
         for i, _, _ in self.leaves:
             self.opt.params[i].grad = None
         for i, p, d in live:

@@ -1,12 +1,16 @@
 """Sequence-sharded selective scan over the ``seq`` axis of a mesh.
 
 Port of the JAX package's ``parallel/seq_scan.py``, the SSM analogue of
-ring attention: the L axis of a scan is cut into S contiguous shards, one
-per rank of the ``seq`` group, and the (batch, dim, dstate) scan state is
-carried across ranks.  Every rank holds the whole (replicated) inputs, as
-the replicated layers before the scan made them, scans its own shard and
-returns the whole output, gathered; ``delta_softplus`` is always on (the
-only mode Vivim uses).
+ring attention, for clips too long for one card: the L axis of a scan is
+cut into S contiguous shards, one per rank of the ``seq`` group, and the
+(batch, dim, dstate) scan state is carried across ranks.
+``seq_sharded_selective_scan_local`` is the body (the JAX function of that
+name): each rank holds only its (batch, L/S, ·) shards of u, delta, B, C
+and z, as the sequence-sharded Mamba layers before it made them
+(``nn/mamba.py``), and gets its shard of the output back.
+``seq_sharded_selective_scan`` is the whole-in / whole-out wrapper (the
+JAX ``shard_map`` island): slice, the body, gather.  ``delta_softplus`` is
+always on (the only mode Vivim uses).
 
 Forward, with the carry of shard k ``(a_k, h_k)``: ``a_k = exp(A * sum_t
 softplus(delta_t + bias))`` over the shard, ``h_k`` its last state scanned
@@ -19,12 +23,10 @@ from zero; the true state at the end of shard k is ``H_k = a_k * H_{k-1}
 2. one all_gather of the (S, 2, batch, dim, dstate) carries, and an
    exclusive prefix gives shard k its initial state ``H_{k-1}``;
 3. every shard but the first scans again from ``H_{k-1}``: its true scan;
-   the global last state is the last shard's, broadcast when asked for;
-4. the local outputs are gathered to the whole L.
+   the global last state is the last shard's, broadcast when asked for.
 
-Backward, in one ``torch.autograd.Function``: the cotangent of the
-gathered output is this rank's slice (the convention of
-``parallel/comm.py``).  K2's adjoint of the initial state is linear in the
+Backward, in one ``torch.autograd.Function``, from the cotangent of this
+rank's output shard.  K2's adjoint of the initial state is linear in the
 adjoint ``G_k`` of the shard's last state: ``dh0 = dh0|_{G=0} + a_k G_k``.
 So:
 a. every shard but the first runs K2 for the adjoint it sends left: the
@@ -34,16 +36,16 @@ a. every shard but the first runs K2 for the adjoint it sends left: the
 b. one all_gather of those (S, batch, dim, dstate) adjoints; shard k sums
    ``G_k`` right to left, ``G_{j-1} = dh0_j + a_j G_j``;
 c. every shard but the last runs K2 from ``G_k``: its true gradients.
-The gradients of A, D and delta_bias are summed over the ``seq`` group;
-those of u, delta, B, C and z are gathered back to the whole L that the
-replicated layers before the scan consumed.  Launches per scan and rank:
+The gradients of A, D and delta_bias are summed over the ``seq`` group
+(the JAX ``shard_map`` transpose of a replicated input); those of u,
+delta, B, C and z are this rank's shards'.  Launches per scan and rank:
 with S = 2, one K1-training and one K2 on each rank (one inference K1 in a
 forward without autograd); a middle shard (S > 2) adds one inference K1
 and one K2.
 
 The JAX module picks a batch axis inside its island on a hybrid ("data",
 "seq") mesh; here a data rank holds its own block of the batch already, so
-the island sees that block, and the ``seq`` group is the one collective
+the body sees that block, and the ``seq`` group is the one collective
 group of the scan.
 """
 
@@ -94,36 +96,25 @@ def _scan_bwd(plain, u, delta, A, B, C, D, bias, cs, dout, dlast):
                                       dlast, True)
 
 
-def _gather_seq(x, group):
-    """(batch, L/S, X) local -> (batch, L, X) in shard order."""
-    parts = comm.all_gather(x, group)                    # (S, batch, Ls, X)
-    n, b, ls = parts.shape[:3]
-    return parts.transpose(0, 1).reshape(b, n * ls, *parts.shape[3:])
-
-
 def _shard_forward(u, delta, A, B, C, D, z, bias, group, plain, train,
                    want_last):
-    """Steps 1-4 of the forward; returns (y, last or None, saved), where
-    ``saved`` holds what the backward needs under autograd."""
+    """Steps 1-3 of the forward on this rank's shards; returns (y, last or
+    None, saved), where ``saved`` holds what the backward needs under
+    autograd."""
     n, k = comm.size(group), comm.rank(group)
-    ls = u.shape[1] // n
-    part = slice(k * ls, (k + 1) * ls)
-    ul, dl, Bl, Cl = (x[:, part] for x in (u, delta, B, C))
-    zl = None if z is None else z[:, part]
     first, last_shard = k == 0, k == n - 1
 
     h_loc = cs = y_pre = y = last = None
     if first:
         if train:
-            y_pre, cs, last = _scan_train(plain, ul, dl, A, Bl, Cl, D, bias,
+            y_pre, cs, last = _scan_train(plain, u, delta, A, B, C, D, bias,
                                           None)
         else:
-            y, last = _scan_infer(plain, ul, dl, A, Bl, Cl, D, zl, bias,
-                                  None)
+            y, last = _scan_infer(plain, u, delta, A, B, C, D, z, bias, None)
         h_loc = last
     elif not last_shard:
-        _, h_loc = _scan_infer(plain, ul, dl, A, Bl, Cl, D, None, bias, None)
-    a_loc = _carry_decay(dl, A, bias)
+        _, h_loc = _scan_infer(plain, u, delta, A, B, C, D, None, bias, None)
+    a_loc = _carry_decay(delta, A, bias)
     carries = comm.all_gather(torch.stack(
         [a_loc, torch.zeros_like(a_loc) if h_loc is None
          else h_loc.float()]), group)                    # (S, 2, b, d, N)
@@ -132,25 +123,25 @@ def _shard_forward(u, delta, A, B, C, D, z, bias, group, plain, train,
         for j in range(1, k):
             h_in = carries[j, 0] * h_in + carries[j, 1]
         if train:
-            y_pre, cs, last = _scan_train(plain, ul, dl, A, Bl, Cl, D, bias,
+            y_pre, cs, last = _scan_train(plain, u, delta, A, B, C, D, bias,
                                           h_in)
         else:
-            y, last = _scan_infer(plain, ul, dl, A, Bl, Cl, D, zl, bias,
-                                  h_in)
+            y, last = _scan_infer(plain, u, delta, A, B, C, D, z, bias, h_in)
     if train:
         y = y_pre
-        if zl is not None:
-            y = (y_pre.float() * F.silu(zl.float())).to(y_pre.dtype)
+        if z is not None:
+            y = (y_pre.float() * F.silu(z.float())).to(y_pre.dtype)
     glob = None
     if want_last:
         glob = comm.broadcast_(last.float().contiguous(), n - 1, group)
     saved = (cs, y_pre, carries[:, 0]) if train else None
-    return _gather_seq(y, group), glob, saved
+    return y, glob, saved
 
 
 class SeqShardedScanFn(torch.autograd.Function):
-    """The sharded scan under autograd: forward steps 1-4, backward a-c of
-    the module docstring.  Returns (y, global last state or None)."""
+    """The sharded scan under autograd on this rank's shards: forward steps
+    1-3, backward a-c of the module docstring.  Returns (this rank's y,
+    global last state or None)."""
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D, z, delta_bias, group, plain,
@@ -169,13 +160,10 @@ class SeqShardedScanFn(torch.autograd.Function):
         u, delta, A, B, C, D, z, bias, cs, y_pre, decays = ctx.saved_tensors
         group, plain = ctx.group, ctx.plain
         n, k = comm.size(group), comm.rank(group)
-        ls = u.shape[1] // n
-        part = slice(k * ls, (k + 1) * ls)
-        ul, dl, Bl, Cl = (x[:, part] for x in (u, delta, B, C))
-        dout = (torch.zeros_like(y_pre) if dy is None else dy[:, part])
+        dout = torch.zeros_like(y_pre) if dy is None else dy
         dz = None
         if z is not None:  # the gate's grads; K2 sees the pre-gate cotangent
-            zf = z[:, part].float()
+            zf = z.float()
             sig = torch.sigmoid(zf)
             silu = zf * sig
             doutf = dout.float()
@@ -183,7 +171,7 @@ class SeqShardedScanFn(torch.autograd.Function):
                 z.dtype)
             dout = doutf * silu
         dout = dout.to(u.dtype)
-        bwd = lambda g: _scan_bwd(plain, ul, dl, A, Bl, Cl, D, bias, cs,
+        bwd = lambda g: _scan_bwd(plain, u, delta, A, B, C, D, bias, cs,
                                   dout, g)
         grads = None
         sent = torch.zeros_like(decays[0])
@@ -218,31 +206,23 @@ class SeqShardedScanFn(torch.autograd.Function):
         dA = out[0].to(A.dtype)
         dD = out[1].to(D.dtype) if D is not None else None
         dbias = out[-1].to(bias.dtype) if bias is not None else None
-        # activation grads: gathered back to the whole L, in one collective
-        acts = [du, ddelta, dB, dC] + ([dz] if dz is not None else [])
-        widths = [g.shape[-1] for g in acts]
-        full = _gather_seq(torch.cat([g.to(u.dtype) for g in acts], -1),
-                           group).split(widths, -1)
-        du, ddelta, dB, dC = (full[0].to(u.dtype), full[1].to(delta.dtype),
-                              full[2].to(B.dtype), full[3].to(C.dtype))
-        dz = full[4].to(z.dtype) if z is not None else None
-        return (du, ddelta, dA, dB, dC, dD, dz, dbias, None, None, None)
+        # activation grads: this rank's shard's, as its inputs are
+        return (du.to(u.dtype), ddelta.to(delta.dtype), dA, dB.to(B.dtype),
+                dC.to(C.dtype), dD, dz, dbias, None, None, None)
 
 
-def seq_sharded_selective_scan(
-    u, delta, A, B, C, D=None, z=None, delta_bias=None, mesh=None,
-    axis_name: str = "seq", implementation=None, return_last_state=True,
+def seq_sharded_selective_scan_local(
+    u, delta, A, B, C, D=None, z=None, delta_bias=None, group=None,
+    implementation=None, return_last_state=True,
 ):
-    """The whole (batch, L, dim) output and the global last state (None
-    unless ``return_last_state``) of the scan with L sharded over
-    ``mesh``'s ``axis_name`` group; L divides by the group's size.  The
-    kernels run on CUDA tensors, their plain versions on CPU ones or with
-    ``implementation="ref"``.  A is (dim, dstate) or per batch
-    (batch, dim, dstate); D and delta_bias (dim,) or (batch, dim)."""
-    group = mesh.group(axis_name)
-    n = comm.size(group)
-    if u.shape[1] % n:
-        raise ValueError(f"L={u.shape[1]} does not divide over {n} shards")
+    """The body: u, delta, B, C and z are this rank's (batch, L/S, ·)
+    shards of the ``group``'s sequence; returns this rank's (batch, L/S,
+    dim) output and the global last state (None unless
+    ``return_last_state``).  The gradients of u, delta, B, C and z are this
+    rank's shards'; those of A, D and delta_bias are summed over the group.
+    The kernels run on CUDA tensors, their plain versions on CPU ones or
+    with ``implementation="ref"``.  A is (dim, dstate) or per batch (batch,
+    dim, dstate); D and delta_bias (dim,) or (batch, dim)."""
     if B.dim() != 3 or C.dim() != 3:
         raise ValueError("the sharded scan takes (batch, L, dstate) B and C")
     plain = implementation == "ref" or not u.is_cuda
@@ -253,3 +233,28 @@ def seq_sharded_selective_scan(
         y, last, _ = _shard_forward(u, delta, A, B, C, D, z, delta_bias,
                                     group, plain, False, return_last_state)
     return y, last
+
+
+def seq_sharded_selective_scan(
+    u, delta, A, B, C, D=None, z=None, delta_bias=None, mesh=None,
+    axis_name: str = "seq", implementation=None, return_last_state=True,
+):
+    """The whole (batch, L, dim) output and the global last state (None
+    unless ``return_last_state``) of the scan with L sharded over
+    ``mesh``'s ``axis_name`` group, from whole (replicated) inputs; L
+    divides by the group's size.  Each rank takes its shards
+    (``comm.seq_shard``: the backward gathers their cotangents in one
+    collective), runs ``seq_sharded_selective_scan_local`` and gathers the
+    output (``comm.seq_gather_replicated``)."""
+    group = mesh.group(axis_name)
+    n = comm.size(group)
+    if u.shape[1] % n:
+        raise ValueError(f"L={u.shape[1]} does not divide over {n} shards")
+    seqs = [u, delta, B, C] + ([z] if z is not None else [])
+    parts = comm.seq_shard(group, *seqs)
+    ul, dl, Bl, Cl = parts[:4]
+    y, last = seq_sharded_selective_scan_local(
+        ul, dl, A, Bl, Cl, D=D, z=parts[4] if z is not None else None,
+        delta_bias=delta_bias, group=group, implementation=implementation,
+        return_last_state=return_last_state)
+    return comm.seq_gather_replicated(y, group), last

@@ -21,9 +21,10 @@ Data parallel (a ``mesh`` with a ``data`` axis of more than one rank, one
 process per rank): each rank's train step takes its own block of the
 global batch, the train-mode decode BatchNorm and the losses' batch-wide
 counts (``losses.batch_group``) take their statistics over the axis, the
-gradients are averaged over it (and over a ``seq`` row's equal copies)
-before the global-norm clip (once per step, after the micro-batches), and
-the metrics are the global batch's.  A ZeRO state (``state.zero``, ``parallel/fsdp.py``) gathers its
+gradients are averaged over it (a sequence-sharded layer's first summed
+over its ``seq`` row, ``average_grads``) before the global-norm clip (once
+per step, after the micro-batches), and the metrics are the global
+batch's.  A ZeRO state (``state.zero``, ``parallel/fsdp.py``) gathers its
 parameters for the step and keeps only its slices after it.  The eval step
 takes the whole batch and runs this rank's block of it when the batch
 divides over the axis (else every rank runs it whole), and returns the
@@ -274,18 +275,37 @@ def gathered(state):
         state.zero.release()
 
 
+def seq_partial_parameters(model):
+    """Ids of the parameters whose gradient on this rank is only its token
+    shard's part (the sequence-sharded Mamba layers' of the last forward,
+    ``MambaLayer.seq_partial_parameters``)."""
+    return {id(p) for m in model.modules()
+            if hasattr(m, "seq_partial_parameters")
+            for p in m.seq_partial_parameters()}
+
+
 def average_grads(state, mesh):
-    """Average the gradients over every rank of ``mesh`` (ZeRO: into each
-    rank's slices).  Over ``data`` this is data parallel's mean; the ranks
-    of one ``seq`` row hold copies that are equal in exact arithmetic, and
-    their mean keeps them bitwise equal where the card's non-deterministic
-    backward kernels (atomic sums) let them drift apart."""
+    """Reduce the gradients over every rank of ``mesh`` in one all_reduce
+    (ZeRO: into each rank's slices): a gradient of which each rank of a
+    ``seq`` row holds only its token shard's part (``seq_partial_
+    parameters``) is summed over the row and averaged over ``data``; every
+    other one, whole on each rank of the row (a replicated layer's, or the
+    scan's A, D and dt bias, which the scan summed itself), is averaged
+    over every rank, which over ``data`` is data parallel's mean and over
+    ``seq`` keeps the row's copies bitwise equal where the card's
+    non-deterministic backward kernels (atomic sums) let them drift
+    apart."""
     group = comm.world() if mesh is not None else None
+    n = comm.size(group)
+    partial = seq_partial_parameters(state.model)
+    n_data = n // mesh.size("seq") if mesh is not None else 1
+    divisor = lambda p: n_data if id(p) in partial else n
     if state.zero is not None:
-        state.zero.reduce_grads(group)
-    else:
-        comm.all_reduce_mean_([p.grad for p in state.opt.params
-                               if p.grad is not None], group)
+        state.zero.reduce_grads(group, divisor)
+    elif n > 1:
+        live = [p for p in state.opt.params if p.grad is not None]
+        comm.all_reduce_mean_([p.grad for p in live], group,
+                              [divisor(p) for p in live])
 
 
 def split_eval_batch(batch, mesh):

@@ -34,10 +34,19 @@ Phases, each of which raises on failure (exit code != 0):
    fp32 operations or exps);
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
-   ``run_inference``; K1 must launch 8 times per forward and nothing else,
-   the confusion matrix must count every pixel, and one forward's logits
-   must agree with the same model on the plain scan; a torch.profiler
-   window then splits one forward's device time by kernel group;
+   ``run_inference``, whose forward, argmax and confusion counts are one
+   CUDA graph, captured once and replayed per request: one capture, 4
+   replays, K1 counted 8 times per forward that runs (2 warm-ups and 4
+   replays) and nothing else, the confusion matrix counting every pixel
+   and equal to the same requests' eagerly in this call (fps and
+   per-batch ms of both, their peak memory, and the memory one captured
+   shape keeps, printed); the replayed logits within 1e-5 of the eager
+   module's and 1e-3 of the same model on the plain scan; torch.profiler
+   windows then split one eager forward's and one replay's device time by
+   kernel group, with busy as the union and as the sum of kernel
+   intervals and their overlap by kernel pair, and a replay must run the
+   eager forward's K1 kernels; the forward graph's roots, forks and joins
+   from its DOT dump (cudaGraphDebugDotPrint);
 5. train: the same model, ``recall_focused``, batch 3: ``Trainer.fit`` for
    one epoch of 4 fp32 steps and a validation pass of 2 batches, then 3
    steps of ``make_train_step`` in bf16; every train step must launch
@@ -88,13 +97,19 @@ Phases, each of which raises on failure (exit code != 0):
    new tokens, batch 1, top-k 1; ``LM_REPEATS`` timed calls) in float32,
    bfloat16 and int8, printing each JSON line; (c) K1 must launch 24 times
    per generate (the prefill), 0 times in the decode steps, and 24 times per
-   fp32 and int8 ``MambaEvalCore`` scoring forward; (d) hold K1 against its
+   fp32 and int8 ``MambaEvalCore`` scoring forward (a ``generate`` decodes
+   through the model's decode graph: one capture per bench run, a replay
+   per token); (d) hold K1 against its
    plain version at (1, 128, 1536) and (1, 37, 1536), fp32 and bf16, output
    and last state, with device ms and bound; (e) the prefill's last logits
    and 32 teacher-forced scores (teacher: the plain-scan model's greedy
    tokens) within 1e-3 of the same model on the plain scan; (f) prefill
    ms, decode ms per token (CUDA events), kernels per token and the
-   device's busy share of a decode step (torch.profiler), peak memory;
+   device's busy share of a decode step (torch.profiler), peak memory, for
+   the decode graph's replay and the eager step; (g) ``generate`` at the
+   bench's defaults through the decode graph and through the eager loop
+   (the mixer hook) in each dtype, tokens/s of both and their tokens
+   equal, and in fp32 at top-k 0, temperature 1 from one seed;
 9. remat, a trainer checkpoint into the infer CLI, and the host tools:
    (a) MiT-b3 Vivim built by the training CLIs' ``build_model`` at each
    ``-remat`` level (none, pre_scan, blocks; dropouts and drop-path on at
@@ -108,7 +123,9 @@ Phases, each of which raises on failure (exit code != 0):
    lower; (b) ``cli.infer.main`` on phase 6's fold-0 checkpoint directory
    (best before last) over fold 0's raw validation case with ``--gathered
    false`` and ``-cv_group``: ``metrics.json`` holds the run's confusion
-   matrix, 8 inference K1 launches per forward, fps and per-batch ms; (c)
+   matrix, one capture and a replay per batch (8 inference K1 counted
+   per forward that runs: 2 warm-ups and every replay), fps and per-batch
+   ms; (c)
    ``cli.bench_loader.main --per_stage`` over phase 6's gathered tree
    (4 threads, one epoch after the warm-up), beside phase 6's loader rate,
    and a ``Trainer.fit`` with ``profile_dir``, which must write one trace
@@ -933,8 +950,36 @@ def counts():
 
 def reset_counts():
     from vivim_tpu_torch.kernels import selective_scan as ss
+    from vivim_tpu_torch.utils import cuda_graphs
 
     ss.LAUNCHES = ss.TRAIN_LAUNCHES = ss.BWD_LAUNCHES = 0
+    cuda_graphs.CAPTURES = cuda_graphs.REPLAYS = 0
+
+
+def graph_counts():
+    """CUDA-graph captures and replays since ``reset_counts``."""
+    from vivim_tpu_torch.utils import cuda_graphs
+
+    return {"captures": cuda_graphs.CAPTURES,
+            "replays": cuda_graphs.REPLAYS}
+
+
+def graph_launches(per_call, captures, replays):
+    """Launches that run for ``captures`` captures and ``replays`` replays
+    of a call that launches ``per_call``: each capture's warm-up calls and
+    every replay (the capture itself runs nothing)."""
+    from vivim_tpu_torch.utils import cuda_graphs
+
+    return per_call * (cuda_graphs.WARMUP_CALLS * captures + replays)
+
+
+def timed_perf(times, frames_per_batch):
+    """fps and per-batch ms (avg / min / max) by ``run_inference``'s rule:
+    the first batch excluded as warm-up."""
+    t = times[1:] or times
+    return {"fps": frames_per_batch * len(t) / sum(t),
+            "avg_ms": 1e3 * sum(t) / len(t), "min_ms": 1e3 * min(t),
+            "max_ms": 1e3 * max(t)}
 
 
 def model_args(segformer, nc=3):
@@ -942,12 +987,20 @@ def model_args(segformer, nc=3):
                               with_edge=False)
 
 
-def phase_serve(segformer="b3", size=256, clip_len=5, n_req=4):
+def phase_serve(segformer="b3", size=256, clip_len=5, n_req=4, dot=None):
+    """Phase 4: the requests through ``run_inference`` (the forward, argmax
+    and confusion counts replayed as one CUDA graph), then through the same
+    forward eagerly in this call; the memory one captured shape keeps; the
+    replayed logits against the eager module's and the plain scan's;
+    profiles of a replay and an eager forward; the forward graph's shape
+    (``graph_topology``, its DOT file kept at ``dot`` if given)."""
     from vivim_tpu_torch.cli.common import build_model
-    from vivim_tpu_torch.cli.infer import run_inference
+    from vivim_tpu_torch.cli.infer import _timed, run_inference, serving_forward
     from vivim_tpu_torch.nn.vivim import Vivim
+    from vivim_tpu_torch.utils.cuda_graphs import GraphedCall
 
     nc = 3
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
         args = argparse.Namespace(
@@ -964,51 +1017,133 @@ def phase_serve(segformer="b3", size=256, clip_len=5, n_req=4):
         reset_counts()
         results, cm, perf = run_inference(args, model, Requests(batches),
                                           device="cuda")
-        launched = counts()
+        launched, graphs = counts(), graph_counts()
+        graph_peak = torch.cuda.max_memory_allocated()
     per_fwd = sum(cfg.depths)
-    if launched != {"K1 inference": per_fwd * n_req, "K1 training": 0,
-                    "K2": 0}:
-        raise AssertionError(f"serving {n_req} forwards launched "
-                             f"{launched}; expected {per_fwd} inference K1 "
-                             "launches per forward and nothing else")
+    if graphs != {"captures": 1, "replays": n_req} or launched != {
+            "K1 inference": graph_launches(per_fwd, 1, n_req),
+            "K1 training": 0, "K2": 0}:
+        raise AssertionError(
+            f"serving {n_req} requests of one shape: {graphs}, launched "
+            f"{launched}; expected 1 capture and {n_req} replays, "
+            f"{per_fwd} inference K1 per warm-up forward and per replay, "
+            "and nothing else")
     if int(cm.sum()) != n_req * clip_len * size * size:
         raise AssertionError(f"confusion matrix counts {int(cm.sum())} "
                              "pixels")
+
+    # the same requests through the same forward, eagerly
+    eager_fwd = serving_forward(model, nc)
+    eager_cm = torch.zeros(nc, nc, dtype=torch.long, device=dev)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for b in batches:
+            clip = torch.from_numpy(b["clip"]).to(dev)
+            masks = torch.from_numpy(b["masks"]).to(dev)
+            (_, _, cm_b), secs = _timed(dev, lambda: eager_fwd(clip, masks))
+            times.append(secs)
+            eager_cm += cm_b
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager = timed_perf(times, clip_len)
+    if not (eager_cm.cpu().numpy() == cm).all():
+        raise AssertionError(f"replayed confusion matrix {cm.tolist()}, "
+                             f"eager {eager_cm.tolist()}")
+    # what one captured shape keeps on the card while its GraphedCall
+    # lives (the pool's segments and the static buffers), as a serving
+    # process holds it; run_inference's graphs went with its return
+    with torch.inference_mode():
+        served = GraphedCall(serving_forward(model, nc), model)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+        served(clip, masks)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kept = (torch.cuda.memory_reserved() - base[0],
+                torch.cuda.memory_allocated() - base[1])
+        del served
     print(f"serve: {n_req} requests of (1, {clip_len}, {size}, {size}, 3): "
-          f"launches {launched} ({per_fwd} K1 per forward), "
-          f"fps {perf['fps']:.2f}, per-batch ms "
+          f"launches {launched} ({per_fwd} K1 per forward: "
+          f"{graphs['captures']} capture after "
+          f"{launched['K1 inference'] // per_fwd - graphs['replays']} "
+          f"warm-up forwards, then {graphs['replays']} replays); graph: fps "
+          f"{perf['fps']:.2f}, per-batch ms "
           f"{perf['avg_batch_time'] * 1e3:.3f} avg, "
           f"{perf['min_batch_time'] * 1e3:.3f} min, "
-          f"{perf['max_batch_time'] * 1e3:.3f} max, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"dice mean {results['dice']['mean']:.4f}", flush=True)
+          f"{perf['max_batch_time'] * 1e3:.3f} max; eager in this call: fps "
+          f"{eager['fps']:.2f}, per-batch ms {eager['avg_ms']:.3f} avg, "
+          f"{eager['min_ms']:.3f} min, {eager['max_ms']:.3f} max; confusion "
+          f"matrix equal to eager's; peak memory graph "
+          f"{graph_peak / 2**30:.2f} GiB (its eager warm-ups' peak), eager "
+          f"{eager_peak / 2**30:.2f} GiB; one captured shape keeps "
+          f"{kept[0] / 2**20:.1f} MiB reserved, {kept[1] / 2**20:.1f} MiB "
+          f"allocated, while its GraphedCall lives; dice mean "
+          f"{results['dice']['mean']:.4f}", flush=True)
 
     clip0 = torch.from_numpy(batches[0]["clip"]).cuda()
     ref_model = Vivim(dataclasses.replace(cfg, scan_implementation="ref"))
     ref_model.load_state_dict(model.state_dict())
     ref_model = ref_model.cuda().eval()
     with torch.inference_mode():
-        got = model(clip0)
+        replay = GraphedCall(model, model)
+        got = replay(clip0).clone()
+        eager_logits = model(clip0)
         t1 = time.perf_counter()
         want = ref_model(clip0)
         torch.cuda.synchronize()
         ref_s = time.perf_counter() - t1
+    del ref_model
     if tuple(got.shape) != (1, clip_len, size, size, nc):
         raise AssertionError(f"logits shape {tuple(got.shape)}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("non-finite logits")
+    eager_err = (got - eager_logits).abs().max().item()
+    torch.testing.assert_close(got, eager_logits, rtol=0, atol=1e-5)
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
-    print(f"serve: logits vs plain-scan model: max_abs_err={err:.3e} "
-          f"(atol 1e-3), |logits| max {want.abs().max().item():.3f}; plain "
-          f"forward {ref_s:.1f} s", flush=True)
+    print(f"serve: replayed logits vs the eager module's max_abs_err="
+          f"{eager_err:.3e} (atol 1e-5), vs the plain-scan model's "
+          f"max_abs_err={err:.3e} (atol 1e-3), |logits| max "
+          f"{want.abs().max().item():.3f}; plain forward {ref_s:.1f} s",
+          flush=True)
 
     def forward():
         with torch.inference_mode():
             model(clip0)
 
-    phase_profile("serve forward", forward)
-    return launched, perf
+    def replayed():
+        with torch.inference_mode():
+            replay(clip0)
+
+    prof = phase_profile("serve forward", forward)
+    prof_graph = phase_profile("serve forward (graph replay)", replayed)
+    if prof_graph is None or prof is None or (
+            prof_graph["k1_kernels"] != prof["k1_kernels"]
+            or not prof["k1_kernels"]):
+        raise AssertionError(
+            "a replay's K1 kernels in the profile: "
+            f"{prof_graph and prof_graph['k1_kernels']}, an eager forward's "
+            f"{prof and prof['k1_kernels']}")
+    busy = lambda p: (f"{p['kernels']} kernels, {p['wall_ms']:.3f} ms "
+                      f"wall, busy {p['busy_ms']:.3f} ms union "
+                      f"({100 * p['busy_share']:.1f} %) and "
+                      f"{p['kernel_ms']:.3f} ms summed "
+                      f"({100 * p['summed_share']:.1f} %)")
+    print(f"serve: one replay runs {prof_graph['k1_kernels']} K1 kernels "
+          f"({per_fwd} K1 calls), as one eager forward does; per call: "
+          f"replay {busy(prof_graph)}; eager {busy(prof)}", flush=True)
+    with torch.inference_mode():
+        topo = graph_topology(model, clip0, dump=dot)
+    print(f"serve: the forward's CUDA graph: {topo}", flush=True)
+    return launched, dict(perf, graphs=graphs, eager=eager,
+                          graph_peak_gib=graph_peak / 2**30,
+                          eager_peak_gib=eager_peak / 2**30,
+                          graph_kept_mib=kept[0] / 2**20,
+                          graph_kept_allocated_mib=kept[1] / 2**20,
+                          graph_topology=topo,
+                          eager_logits_err=eager_err, plain_logits_err=err,
+                          profile=prof, graph_profile=prof_graph)
 
 
 # first match wins: cuDNN's conv kernels carry "gemm" in their names
@@ -1024,8 +1159,13 @@ PROFILE_GROUPS = {
 def phase_profile(label, run, n_runs=3):
     """Device time of ``n_runs`` calls of ``run`` by kernel group
     (torch.profiler), and the device's busy share of the window's wall
-    time.  Returns {wall_ms, busy_ms, busy_share, kernels} per call, or
-    None when the profiler recorded no device event."""
+    time.  Busy is the union of the kernels' intervals; their summed time
+    exceeds it where kernels overlap, and the overlap is printed by pair
+    of kernels (the earlier one, the one that starts inside it) and by
+    whether the two ran on one stream.  Returns {wall_ms, busy_ms (union),
+    kernel_ms (summed), busy_share (union), summed_share, streams,
+    overlap_ms, kernels, k1_kernels (K1's CUDA kernels)} per call, or None
+    when the profiler recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1037,13 +1177,31 @@ def phase_profile(label, run, n_runs=3):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_runs
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [(e.name, e.time_range.elapsed_us() / 1e3 / n_runs)
-               for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               for e in events]
     if not kernels:
         print(f"profile {label}: no device events recorded", flush=True)
         return None
-    busy_ms = sum(ms for _, ms in kernels)
+    kernel_ms = sum(ms for _, ms in kernels)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name,
+                    getattr(e, "device_resource_id", None)) for e in events)
+    busy_us, reach, holder, pairs = 0.0, None, None, {}
+    for start, end, name, stream in spans:
+        if reach is None or start >= reach:
+            busy_us += end - start
+            reach, holder = end, (name, stream)
+            continue
+        key = (holder[0], name, holder[1] == stream)
+        pairs[key] = pairs.get(key, 0.0) + min(end, reach) - start
+        if end > reach:
+            busy_us += end - reach
+            reach, holder = end, (name, stream)
+    busy_ms = busy_us / 1e3 / n_runs
+    overlap_ms = sum(pairs.values()) / 1e3 / n_runs
+    streams = len({sp[3] for sp in spans})
+    k1 = sum("selective_scan_fwd" in name for name, _ in kernels)
     by_group, by_name = {}, {}
     for name, ms in kernels:
         low = name.lower()
@@ -1051,17 +1209,85 @@ def phase_profile(label, run, n_runs=3):
                   if any(k in low for k in keys)), "other")
         by_group[g] = by_group.get(g, 0.0) + ms
         by_name[name] = by_name.get(name, 0.0) + ms
-    print(f"profile {label}: per call {wall_ms:.3f} ms wall, {busy_ms:.3f} "
-          f"ms device busy ({100 * busy_ms / wall_ms:.1f} %), "
-          f"{len(kernels) // n_runs} kernels", flush=True)
+    print(f"profile {label}: per call {wall_ms:.3f} ms wall; device busy "
+          f"(union of kernel intervals) {busy_ms:.3f} ms, "
+          f"{100 * busy_ms / wall_ms:.1f} %; kernels' summed time "
+          f"{kernel_ms:.3f} ms, {100 * kernel_ms / wall_ms:.1f} %; "
+          f"{len(kernels) // n_runs} kernels on {streams} stream(s); "
+          f"{overlap_ms:.3f} ms of start-inside-another overlap", flush=True)
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"profile {label}: group {g:26s} {ms:9.3f} ms "
-              f"({100 * ms / busy_ms:.1f} % of busy)")
+              f"({100 * ms / kernel_ms:.1f} % of the summed time)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile {label}: kernel {ms:9.3f} ms {name[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+    for (a, b, same), us in sorted(pairs.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"profile {label}: overlap {us / 1e3 / n_runs:9.3f} ms, "
+              f"{'one stream' if same else 'two streams'}: {b[:60]} "
+              f"starts inside {a[:60]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernel_ms": kernel_ms,
             "busy_share": busy_ms / wall_ms,
-            "kernels": len(kernels) // n_runs}
+            "summed_share": kernel_ms / wall_ms, "streams": streams,
+            "overlap_ms": overlap_ms,
+            "kernels": len(kernels) // n_runs, "k1_kernels": k1 // n_runs}
+
+
+def graph_topology(fn, *inputs, dump=None):
+    """The shape of the CUDA graph that ``cuda_graphs.capture`` makes of
+    ``fn(*inputs)``, from its DOT dump (cudaGraphDebugDotPrint): nodes by type,
+    edges, roots, forks by width and joins (a captured single stream
+    gives a chain: 1 root, no fork, no join), the kernels at the forks and
+    the most frequent kernels.  ``dump`` keeps the DOT file there."""
+    from vivim_tpu_torch.utils import cuda_graphs
+
+    static = tuple(x.clone() for x in inputs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(cuda_graphs.WARMUP_CALLS):
+            fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    try:   # newer PyTorch keeps the cudaGraph_t only when asked
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        graph = torch.cuda.CUDAGraph()
+        graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn(*static)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = dump or os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    del graph
+    edges = re.findall(r'^"([^"]+)"\s*->\s*"([^"]+)"', dot, re.M)
+    blocks = dict(re.findall(r'^"([^"]+)"\s*\[(.*?)\];?\s*$', dot,
+                             re.M | re.S))
+
+    def tally(names):
+        out = {}
+        for n in names:
+            out[n] = out.get(n, 0) + 1
+        return dict(sorted(out.items(), key=lambda kv: -kv[1])[:3])
+
+    def kernel(node):   # the mangled name before <<<grid, block, smem>>>
+        m = re.search(r"\| (\S+?)\\<\\<\\<", blocks.get(node, ""))
+        return m.group(1)[:48] if m else "?"
+
+    outs, ins = {}, {}
+    for a, b in edges:
+        outs[a] = outs.get(a, 0) + 1
+        ins[b] = ins.get(b, 0) + 1
+    forks = [n for n, k in outs.items() if k > 1]
+    kinds = tally(next((w for w in ("KERNEL", "MEMCPY", "MEMSET", "HOST",
+                                    "EVENT", "EMPTY", "MEM_ALLOC", "GRAPH")
+                        if w in body[:80].upper()), "other")
+                  for body in blocks.values())
+    return {"nodes": len(blocks), "by_type": kinds, "edges": len(edges),
+            "roots": sum(n not in ins for n in blocks),
+            "forks_by_width": tally(outs[n] for n in forks),
+            "joins": sum(k > 1 for k in ins.values()),
+            "fork_kernels": tally(kernel(n) for n in forks),
+            "top_kernels": tally(kernel(n) for n in blocks)}
 
 
 def _recorded(fn, log, dev):
@@ -1912,7 +2138,7 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
             line = buf.getvalue().strip().splitlines()[-1]
             bench[dtype] = json.loads(line)
             print(f"lm bench_generation --dtype {dtype}: {line}", flush=True)
-        launched = counts()
+        launched, graphs = counts(), graph_counts()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
     per_gen = cfg.n_layer
     want = {"K1 inference": len(LM_DTYPES) * (repeats + 1) * per_gen,
@@ -1920,12 +2146,20 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
     if on_card and launched != want:
         raise AssertionError(f"bench_generation launched {launched}, "
                              f"expected {want}")
+    # a model per CLI run, so a decode graph each; a replay per token
+    want_graphs = {"captures": len(LM_DTYPES) if on_card else 0,
+                   "replays": len(LM_DTYPES) * (repeats + 1) * gen_len
+                   if on_card else 0}
+    if graphs != want_graphs:
+        raise AssertionError(f"bench_generation: {graphs}, expected "
+                             f"{want_graphs}")
     for dtype, r in bench.items():
         if r["gen_len"] != gen_len or r["prompt_len"] != prompt \
                 or not r["tokens_per_sec"] > 0:
             raise AssertionError(f"bench line {dtype}: {r}")
     print(f"lm: bench launches {launched} ({per_gen} K1 per generate), "
-          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+          f"decode graphs {graphs}, peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
 
     # (c) K1 per generate, per decode token and per scoring forward
     dev_ = next(model.parameters()).device
@@ -1948,6 +2182,16 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
     if len(step_launches) != 16 * cfg.n_layer or any(step_launches):
         raise AssertionError(f"decode steps launched {sum(step_launches)} "
                              f"K1 over {len(step_launches)} mixer steps")
+    # through the decode graph: K1 in the prefill alone, a replay per token
+    lm.generate(model, params, toks, 16, top_k=1,
+                generator=torch.Generator(device=dev_).manual_seed(1))
+    reset_counts()
+    lm.generate(model, params, toks, 16, top_k=1,
+                generator=torch.Generator(device=dev_).manual_seed(1))
+    per["graph generate"] = counts()["K1 inference"]
+    graphs = graph_counts()
+    if on_card and graphs != {"captures": 0, "replays": 16}:
+        raise AssertionError(f"16 graph decode steps: {graphs}")
     text = "".join(chr(97 + i % 26) for i in range(prompt))
     for name, p in (("score fp32", params), ("score int8", q8)):
         core = MambaEvalCore(model, p, CharTokenizer(cfg.vocab_size))
@@ -1959,8 +2203,10 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
     if on_card and any(v != per_gen for v in per.values()):
         raise AssertionError(f"K1 launches {per}; expected {per_gen} per "
                              "generate and per scoring forward")
-    print(f"lm: K1 launches per generate / fp32 / int8 scoring forward "
-          f"{per}, 0 in {len(step_launches)} decode mixer steps", flush=True)
+    print(f"lm: K1 launches per eager / graph generate / fp32 / int8 "
+          f"scoring forward {per}: 0 in {len(step_launches)} eager decode "
+          f"mixer steps and in {graphs['replays']} decode graph replays",
+          flush=True)
 
     # (d) K1 against its plain version at the LM shapes
     rows = lm_scan_rows(peaks, d_inner) if on_card else []
@@ -2009,26 +2255,77 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
             def step():
                 lm.decode_step(parts, tok, cs, ssm)
 
+            replay = lm.decode_graph(model, parts, p, cs, ssm).start(cs, ssm)
             if on_card:
                 prefill_ms = cuda_ms(lambda: lm.prefill(parts, toks), 5)
                 decode_ms = cuda_ms(
                     lambda: [step() for _ in range(LM_DECODE_STEPS)],
                     3) / LM_DECODE_STEPS
+                graph_ms = cuda_ms(
+                    lambda: [replay(tok) for _ in range(LM_DECODE_STEPS)],
+                    3) / LM_DECODE_STEPS
                 prof = phase_profile(f"lm decode step {dtype}", step,
                                      n_runs=5)
+                gprof = phase_profile(f"lm decode step {dtype} (graph "
+                                      "replay)", lambda: replay(tok),
+                                      n_runs=5)
             else:
                 step()
-                prefill_ms = decode_ms = prof = None
+                replay(tok)
+                prefill_ms = decode_ms = graph_ms = prof = gprof = None
         timing[dtype] = dict(prefill_ms=prefill_ms,
-                             decode_ms_per_token=decode_ms, profile=prof)
+                             decode_ms_per_token=decode_ms,
+                             graph_decode_ms_per_token=graph_ms,
+                             profile=prof, graph_profile=gprof)
         if on_card:
+            busy = lambda pr: (f"{pr['kernels']} kernels per token, device "
+                               f"busy {100 * pr['busy_share']:.1f} % of a "
+                               "step" if pr else "no profile")
             print(f"lm {dtype}: prefill {prefill_ms:.3f} ms (1, {prompt}); "
-                  f"decode {decode_ms:.3f} ms per token ("
-                  f"{1e3 / decode_ms:.1f} tokens/s, CUDA events over "
-                  f"{LM_DECODE_STEPS} steps); "
-                  + (f"{prof['kernels']} kernels per token, device busy "
-                     f"{100 * prof['busy_share']:.1f} % of a step"
-                     if prof else "no profile"), flush=True)
+                  f"decode ms per token (CUDA events over {LM_DECODE_STEPS} "
+                  f"steps): graph {graph_ms:.3f} ({1e3 / graph_ms:.1f} "
+                  f"tokens/s; {busy(gprof)}), eager {decode_ms:.3f} ("
+                  f"{1e3 / decode_ms:.1f} tokens/s; {busy(prof)})",
+                  flush=True)
+
+    # (g) generate through the decode graph against the eager loop (the
+    # mixer hook), bench_generation's defaults, in this call
+    ones = torch.ones(1, prompt, dtype=torch.long, device=dev_)
+
+    def run(p, eager, seed=1, **kw):
+        kw = dict(dict(temperature=1.0, top_k=1), **kw)
+        if eager:
+            kw["mixer_step"] = streaming.mamba_step
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = lm.generate(model, p, ones, gen_len, generator=torch.Generator(
+            device=dev_).manual_seed(seed), **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        return out, gen_len / (time.perf_counter() - t1)
+
+    for dtype, p in variants.items():
+        run(p, False)                       # the capture, untimed
+        g_out, g_tps = run(p, False)
+        e_out, e_tps = run(p, True)
+        if not torch.equal(g_out, e_out):
+            raise AssertionError(f"{dtype}: graph decode's tokens differ "
+                                 "from the eager loop's at top-k 1")
+        timing[dtype].update(graph_tokens_per_s=g_tps if on_card else None,
+                             eager_tokens_per_s=e_tps if on_card else None)
+        if on_card:
+            print(f"lm {dtype}: generate (1, {prompt}) + {gen_len} tokens at "
+                  f"top-k 1: graph {g_tps:.2f} tokens/s, eager loop "
+                  f"{e_tps:.2f} tokens/s in this call; tokens equal",
+                  flush=True)
+    sampled = [run(params, eager, seed=5, top_k=0)[0]
+               for eager in (False, True)]
+    if not torch.equal(*sampled):
+        raise AssertionError("fp32 graph decode's tokens differ from the "
+                             "eager loop's at top-k 0, temperature 1")
+    print(f"lm float32: {gen_len} tokens drawn at top-k 0, temperature 1 "
+          "from one seed: graph decode's equal the eager loop's", flush=True)
     print(f"lm: phase {time.perf_counter() - t0:.1f} s", flush=True)
     return launched, dict(bench=bench, per_call_launches=per,
                           prefill_logits_err=logit_err,
@@ -2176,7 +2473,7 @@ def phase_infer_ckpt(workdir, dev="cuda", segformer="b3", size=256,
                     "--segformer", segformer, "--image_size", str(size),
                     "--clip_length", str(clip_len), "--output_dir", out_dir,
                     "--device", str(dev)])
-        launched = counts()
+        launched, graphs = counts(), graph_counts()
     finally:
         infer.run_inference = run_inference
     with open(os.path.join(out_dir, "metrics.json")) as f:
@@ -2191,13 +2488,17 @@ def phase_infer_ckpt(workdir, dev="cuda", segformer="b3", size=256,
         raise AssertionError(f"the confusion matrix counts {int(cm.sum())} "
                              "pixels")
     per_pass = LAYERS_PER_STAGE * len(STAGES)
-    if dev.type == "cuda" and launched != {
-            "K1 inference": per_pass * n_batches, "K1 training": 0, "K2": 0}:
-        raise AssertionError(f"{n_batches} forwards launched {launched}")
+    # batches of 1 clip: one capture, a replay per batch
+    if dev.type == "cuda" and (
+            graphs != {"captures": 1, "replays": n_batches}
+            or launched != {"K1 inference": graph_launches(
+                per_pass, 1, n_batches), "K1 training": 0, "K2": 0}):
+        raise AssertionError(f"{n_batches} forwards: {graphs}, launched "
+                             f"{launched}")
     print(f"infer from {os.path.relpath(ckpt, workdir)} (picked "
           f"{os.path.basename(infer.checkpoint_file(ckpt))}), --gathered "
           f"false on fold 0's validation case: {n_batches} batches of 1, "
-          f"launches {launched}, fps {perf['fps']:.2f}, per-batch ms "
+          f"{graphs}, launches {launched}, fps {perf['fps']:.2f}, per-batch ms "
           f"{perf['avg_batch_time'] * 1e3:.3f} avg, "
           f"{perf['min_batch_time'] * 1e3:.3f} min, "
           f"{perf['max_batch_time'] * 1e3:.3f} max; metrics.json holds the "
@@ -4386,7 +4687,7 @@ def main():
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
               "--kernels-only: stopped after phase 3b", flush=True)
         return
-    serve_launched, _ = phase_serve()
+    serve_launched, serve_perf = phase_serve()
     t0 = done("4 serve", t0)
     train_launched, train_perf = phase_train()
     t0 = done("5 train", t0)
@@ -4494,7 +4795,8 @@ def main():
     lm_summary = {k: v for k, v in lm_perf.items() if k != "scan_rows"}
     lmp_summary = {k: v for k, v in lmp_perf.items()
                    if k not in ("fwd_rows", "bwd_rows")}
-    print(json.dumps({"kernels": [k1, k2], "train": train_perf,
+    print(json.dumps({"kernels": [k1, k2], "serve": serve_perf,
+                      "train": train_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
                       "lm": lm_summary, "remat": remat_perf,
                       "infer_ckpt": infer_perf, "tools": tools_perf,

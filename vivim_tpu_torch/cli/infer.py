@@ -7,10 +7,14 @@ Port of the JAX package's ``cli/infer.py``:
   trainer's checkpoint directory (its ``best_*`` file before its
   ``last_*`` one), or a reference Lightning ``.ckpt``; an orbax directory
   of the JAX package is converted first by ``scripts/orbax_to_torch.py``;
-- timed forward per batch (CUDA events, synchronised before each time is
-  read; the first batch is excluded from the FPS as warm-up);
-- argmax predictions, per-sample per-class confusion counts and the
-  aggregated confusion matrix computed on the device;
+- the forward, argmax predictions, per-sample per-class confusion counts
+  and the aggregated confusion matrix computed on the device as one call,
+  captured once per batch shape as a CUDA graph and replayed
+  (``utils/cuda_graphs.py``: the JAX CLI's jitted ``forward``); on the
+  CPU it runs eagerly;
+- each batch's copy into the graph and its replay timed (CUDA events,
+  synchronised before each time is read; the first batch, which holds the
+  capture, is excluded from the FPS as warm-up);
 - ``metrics.json``, then the confusion-matrix heatmaps (where matplotlib
   imports) and prediction grids; with ``--wandb``, the same to wandb when
   it starts.
@@ -137,20 +141,14 @@ def _timed(dev, fn):
     return out, time.perf_counter() - t0
 
 
-def run_inference(args, model, loader, device="cuda"):
-    """Predict every batch of ``loader`` (dicts with channels-last numpy
-    ``clip`` and ``masks``; ``loader.batch_size``) on ``device``, where the
-    model must already be.  Returns (metrics, confusion matrix, perf)."""
+def serving_forward(model, num_classes):
+    """``forward(clip, masks)`` -> (uint8 predictions (B, T, H, W), (B*T,
+    C, 4) confusion counts, (C, C) confusion matrix), all on the device:
+    what the JAX CLI jits and what ``run_inference`` captures."""
     from vivim_tpu_torch.train.metrics import (
-        MulticlassMetricsTracker,
         confusion_matrix,
         per_class_confusion,
     )
-
-    dev = resolve_device(device)
-    if next(model.parameters()).device != dev:
-        raise ValueError(f"the model is not on {dev}")
-    nc = args.num_classes
 
     def forward(clip, masks):
         out = model(clip)
@@ -159,8 +157,26 @@ def run_inference(args, model, loader, device="cuda"):
         preds = logits.argmax(-1).reshape(B * T, H, W)
         targets = masks.argmax(-1).reshape(B * T, H, W)
         return (preds.reshape(B, T, H, W).to(torch.uint8),
-                per_class_confusion(preds, targets, nc),
-                confusion_matrix(preds, targets, nc))
+                per_class_confusion(preds, targets, num_classes),
+                confusion_matrix(preds, targets, num_classes))
+
+    return forward
+
+
+def run_inference(args, model, loader, device="cuda"):
+    """Predict every batch of ``loader`` (dicts with channels-last numpy
+    ``clip`` and ``masks``; ``loader.batch_size``) on ``device``, where the
+    model must already be.  On the card each batch shape is captured once
+    and replayed (a smaller last batch gets its own capture).  Returns
+    (metrics, confusion matrix, perf)."""
+    from vivim_tpu_torch.train.metrics import MulticlassMetricsTracker
+    from vivim_tpu_torch.utils.cuda_graphs import GraphedCall
+
+    dev = resolve_device(device)
+    if next(model.parameters()).device != dev:
+        raise ValueError(f"the model is not on {dev}")
+    nc = args.num_classes
+    forward = GraphedCall(serving_forward(model, nc), model)
 
     tracker = MulticlassMetricsTracker(nc)
     cm = np.zeros((nc, nc), np.int64)

@@ -13,7 +13,8 @@ kernels become CUDA kernels (see the notes at the top of each source):
 
 This module checks and lays out their arguments, allocates their outputs and
 scratch, launches them on PyTorch's current stream and counts the launches
-(one count per wrapper call, whatever number of CUDA kernels the call runs).
+(one count per wrapper call, whatever number of CUDA kernels the call runs;
+a call inside a CUDA graph counts at each replay, ``utils/cuda_graphs.py``).
 
 Both kernels take d_state N from 1 to ``MAX_DSTATE`` = 256, as mamba_ssm's
 CUDA scan does; a channel's states sit in the registers of one thread or of
@@ -58,11 +59,13 @@ from __future__ import annotations
 
 import ctypes
 import logging
+import sys
 
 import torch
 import torch.nn.functional as F
 
 from vivim_tpu_torch.kernels import _build, refs
+from vivim_tpu_torch.utils import cuda_graphs
 
 _log = logging.getLogger(__name__)
 
@@ -71,6 +74,8 @@ _log = logging.getLogger(__name__)
 LAUNCHES = 0
 TRAIN_LAUNCHES = 0
 BWD_LAUNCHES = 0
+cuda_graphs.count_launches(sys.modules[__name__], "LAUNCHES",
+                           "TRAIN_LAUNCHES", "BWD_LAUNCHES")
 
 # the largest d_state the kernels take (mamba_ssm's CUDA scan checks
 # dstate <= 256 too; the Pallas kernels take any)

@@ -18,6 +18,12 @@ MambaLMHeadModel (mixer_seq_simple.py:83-233) and its generation loop
   every token through ``streaming.mamba_step`` (plain PyTorch: no scan
   kernel) with temperature / top-k / top-p sampling on an explicit
   ``torch.Generator``.
+- ``DecodeGraph``: ``decode_step`` over static token, state and logits
+  buffers, captured once as a CUDA graph on the card and replayed for
+  every token (the reference's CUDA-graph decode cache,
+  utils/generation.py:256-377; the JAX package jits its decode loop
+  instead).  The model keeps one, keyed on the batch, the compute dtype
+  and the parameters' tensors; on the CPU the same buffers run eagerly.
 
 The token loop runs every one of ``max_new_tokens`` steps whatever eos
 says, and keeps ``done`` on the device: nothing in a step waits for the
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import math
 
 import torch
@@ -36,6 +43,9 @@ from torch import nn
 from vivim_tpu_torch.kernels import selective_scan as _scan
 from vivim_tpu_torch.nn import quant, streaming
 from vivim_tpu_torch.nn.mamba import MambaV3
+from vivim_tpu_torch.utils import cuda_graphs
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +172,8 @@ class MambaLM(nn.Module):
         self.backbone = MixerModel(cfg, scan_implementation)
         self.lm_head = nn.Linear(cfg.d_model, cfg.padded_vocab, bias=False)
         self.lm_head.weight = self.backbone.embedding.weight
+        # generate's DecodeGraph (the reference's model._decoding_cache)
+        self._decoding_cache = None
 
     @torch.no_grad()
     def init_parameters(self, gen):
@@ -336,6 +348,59 @@ def decode_step(parts: LMParts, token, conv_states, ssm_states,
     return quant.lm_head(h, parts.emb), new_cs, new_ss
 
 
+class DecodeGraph:
+    """``decode_step`` over static buffers: a token (B,), each layer's conv
+    state (B, W, d_inner) and fp32 ssm state (B, d_inner, N), and the
+    logits (B, V).  Each call steps the static states in place and returns
+    the static logits, which the next call overwrites.  On the card the
+    step is one CUDA graph (``cuda_graphs.capture``), warmed up and
+    captured here on zero states, before ``start`` loads any live state;
+    on the CPU it runs eagerly."""
+
+    def __init__(self, parts: LMParts, params, conv_states, ssm_states):
+        self.key = decode_key(params, conv_states, ssm_states)
+        self.parts = parts   # holds the weights the graph reads alive
+        self.states = [torch.zeros_like(s) for s in conv_states + ssm_states]
+        self.n_layer = len(conv_states)
+        token = torch.zeros(conv_states[0].shape[0], dtype=torch.long,
+                            device=conv_states[0].device)
+        self.step = (cuda_graphs.capture(self._step, (token,))
+                     if token.is_cuda else self._step)
+
+    def _step(self, token):
+        n = self.n_layer
+        logits, cs, ss = decode_step(self.parts, token, self.states[:n],
+                                     self.states[n:])
+        for dst, src in zip(self.states, cs + ss):
+            dst.copy_(src)
+        return logits
+
+    def start(self, conv_states, ssm_states):
+        """Load the prefill's states; returns the step (token -> logits)."""
+        for dst, src in zip(self.states, conv_states + ssm_states):
+            dst.copy_(src)
+        return self.step
+
+
+def decode_key(params, conv_states, ssm_states):
+    """A decode graph's key: the parameters' tensors and the states'
+    shapes and dtypes (the batch and the compute dtype among them)."""
+    return cuda_graphs.tensors_key(params), tuple(
+        cuda_graphs.signature(s) for s in conv_states + ssm_states)
+
+
+def decode_graph(model: MambaLM, parts, params, conv_states, ssm_states):
+    """The model's ``DecodeGraph`` for these parameters and states: the
+    cached one when its key matches, else a new one that replaces it."""
+    cached = model._decoding_cache
+    if cached is None or cached.key != decode_key(params, conv_states,
+                                                  ssm_states):
+        model._decoding_cache = None   # its graph's memory goes first
+        model._decoding_cache = DecodeGraph(parts, params, conv_states,
+                                            ssm_states)
+    return model._decoding_cache
+
+
 @torch.no_grad()
 def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
              temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
@@ -355,7 +420,8 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
     116-117,164-168).  After ``eos_token_id`` a row emits only eos.
     ``mixer_prefill(mixer_params, x)`` / ``mixer_step(mixer_params, x,
     conv_state, ssm_state)`` replace the per-mixer prefill and step (the
-    hook a tensor-parallel decode uses).
+    hook a tensor-parallel decode uses); with either hook the tokens run
+    an eager loop of ``decode_step``, else the model's ``DecodeGraph``.
     """
     dev = tokens.device
     check_kernel_config(model.cfg, dev, model.scan_implementation)
@@ -363,6 +429,20 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
         generator = torch.Generator(device=dev).manual_seed(0)
     parts = split_params(model, params)
     logits, conv_states, ssm_states = prefill(parts, tokens, mixer_prefill)
+    if mixer_prefill is None and mixer_step is None:
+        step = decode_graph(model, parts, params, conv_states,
+                            ssm_states).start(conv_states, ssm_states)
+    else:
+        # a tensor-parallel decode over gloo copies its collectives through
+        # the host, which a CUDA graph cannot capture
+        _log.info("generate: mixer hooks given -> eager decode loop")
+
+        def step(token):
+            nonlocal conv_states, ssm_states
+            out, conv_states, ssm_states = decode_step(
+                parts, token, conv_states, ssm_states, mixer_step)
+            return out
+
     prompt_len = tokens.shape[1]
     tlen = teacher_outputs.shape[1] if teacher_outputs is not None else 0
     done = torch.zeros(tokens.shape[0], dtype=torch.bool, device=dev)
@@ -376,9 +456,8 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
             done = done | (nxt == eos_token_id)
         new_tokens.append(nxt)
         if output_scores:
-            scores.append(logits)
-        logits, conv_states, ssm_states = decode_step(
-            parts, nxt, conv_states, ssm_states, mixer_step)
+            scores.append(logits.clone())   # the graph's logits are reused
+        logits = step(nxt)
     full = torch.cat([tokens.long()]
                      + [t[:, None] for t in new_tokens], dim=1)
     if output_scores:

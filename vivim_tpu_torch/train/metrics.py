@@ -33,11 +33,15 @@ def per_class_confusion(pred_labels, gt_labels, num_classes: int):
 
 
 def confusion_matrix(preds, targets, num_classes: int):
-    """Aggregated (C, C) confusion matrix, rows = ground truth, columns =
-    prediction, on the tensors' device."""
+    """Aggregated (C, C) int64 confusion matrix, rows = ground truth,
+    columns = prediction, on the tensors' device: one ``index_add_`` into
+    C * C zeros.  Its size is fixed and it reads nothing back to the host,
+    so a CUDA graph can capture it (a bincount sizes its output from the
+    input's maximum, a host sync)."""
     idx = targets.reshape(-1).long() * num_classes + preds.reshape(-1).long()
-    return torch.bincount(idx, minlength=num_classes * num_classes).reshape(
-        num_classes, num_classes)
+    return torch.zeros(num_classes * num_classes, dtype=torch.long,
+                       device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx)).view(num_classes, num_classes)
 
 
 def _nan_or_zero(nan_for_nonexisting):

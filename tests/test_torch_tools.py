@@ -2,8 +2,8 @@
 (the same lines for the same tree; the figure, or a line saying why not),
 ``cli/bench_loader`` (the same synthetic tree, ``measure_loader`` and
 ``measure_stages`` on a tiny tree, ``main``'s JSON line with the JAX
-keys) and ``utils/profiling`` (a trace written on the CPU, the same
-``step_timer`` summary, the Trainer's ``profile_dir`` through it)."""
+keys) and ``utils/profiling`` (a trace written on the CPU, the Trainer's
+``profile_dir`` through it; its spans: ``test_torch_spans.py``)."""
 
 import glob
 import json
@@ -18,7 +18,6 @@ from PIL import Image
 from tests.data_fixtures import make_gathered_tree
 from vivim_tpu.cli import bench_loader as jbench_loader
 from vivim_tpu.cli import check_data as jcheck_data
-from vivim_tpu.utils import profiling as jprofiling
 from vivim_tpu_torch.cli import bench_loader, check_data
 from vivim_tpu_torch.utils import profiling
 
@@ -102,17 +101,6 @@ def test_trace_writes_a_trace_on_the_cpu(tmp_path):
     assert len(files) == 1
     events = json.load(open(files[0]))["traceEvents"]
     assert any("aten::mm" in e.get("name", "") for e in events)
-
-
-def test_step_timer_summary_has_the_jax_keys():
-    timers = [profiling.step_timer(), jprofiling.step_timer()]
-    for t in timers:
-        assert t.summary() == {}
-        for _ in range(3):
-            with t:
-                pass
-    got, want = (t.summary() for t in timers)
-    assert set(got) == set(want) and got["steps"] == 3
 
 
 def test_trainer_profile_dir_writes_a_trace(tmp_path):

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from vivim_tpu_torch.cli.common import build_model, resolve_device
+from vivim_tpu_torch.utils.profiling import span
 
 CLASS_COLORS = np.array([[0, 0, 0], [255, 0, 0], [255, 255, 0]], np.uint8)
 CLASS_NAMES = ["background", "solid", "non-solid"]
@@ -126,19 +127,32 @@ def prepare_test_data(args):
     return ds, dl
 
 
-def _timed(dev, fn):
-    """fn() and its seconds; on CUDA timed with events and synchronised."""
-    if dev.type == "cuda":
-        e0 = torch.cuda.Event(enable_timing=True)
+class _Timer:
+    """Seconds from its creation to ``stop()``; on CUDA timed with events,
+    and ``stop`` synchronises."""
+
+    def __init__(self, dev):
+        if dev.type == "cuda":
+            self.e0 = torch.cuda.Event(enable_timing=True)
+            self.e0.record()
+        else:
+            self.e0 = None
+            self.t0 = time.perf_counter()
+
+    def stop(self):
+        if self.e0 is None:
+            return time.perf_counter() - self.t0
         e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
         e1.record()
         e1.synchronize()
-        return out, e0.elapsed_time(e1) / 1e3
-    t0 = time.perf_counter()
+        return self.e0.elapsed_time(e1) / 1e3
+
+
+def _timed(dev, fn):
+    """fn() and its seconds; on CUDA timed with events and synchronised."""
+    timer = _Timer(dev)
     out = fn()
-    return out, time.perf_counter() - t0
+    return out, timer.stop()
 
 
 def serving_forward(model, num_classes):
@@ -168,7 +182,10 @@ def run_inference(args, model, loader, device="cuda"):
     ``clip`` and ``masks``; ``loader.batch_size``) on ``device``, where the
     model must already be.  On the card each batch shape is captured once
     and replayed (a smaller last batch gets its own capture).  Returns
-    (metrics, confusion matrix, perf)."""
+    (metrics, confusion matrix, perf).  A request's span ``serve.request``
+    holds ``serve.copy_in`` (clip and masks to the device), the forward's
+    ``graph.key`` and ``graph.replay``, and ``serve.readback`` (the
+    synchronise and the counts to the host)."""
     from vivim_tpu_torch.train.metrics import MulticlassMetricsTracker
     from vivim_tpu_torch.utils.cuda_graphs import GraphedCall
 
@@ -186,17 +203,20 @@ def run_inference(args, model, loader, device="cuda"):
     os.makedirs(args.output_dir, exist_ok=True)
     with torch.inference_mode():
         for batch in loader:
-            clip = torch.from_numpy(batch["clip"]).to(dev)
-            masks = torch.from_numpy(batch["masks"]).to(dev)
-            (preds, conf, cm_b), secs = _timed(
-                dev, lambda: forward(clip, masks))
-            batch_times.append(secs)
-            total_frames += clip.shape[0] * clip.shape[1]
-            tracker.update_from_confusion(conf.cpu().numpy())
-            cm += cm_b.cpu().numpy().astype(np.int64)
-            if args.save_vis and vis_saved < args.vis_count:
-                vis_saved += _save_vis(args, batch, preds.cpu().numpy(),
-                                       vis_saved)
+            with span("serve.request"):
+                with span("serve.copy_in"):
+                    clip = torch.from_numpy(batch["clip"]).to(dev)
+                    masks = torch.from_numpy(batch["masks"]).to(dev)
+                timer = _Timer(dev)
+                preds, conf, cm_b = forward(clip, masks)
+                with span("serve.readback"):
+                    batch_times.append(timer.stop())
+                    total_frames += clip.shape[0] * clip.shape[1]
+                    tracker.update_from_confusion(conf.cpu().numpy())
+                    cm += cm_b.cpu().numpy().astype(np.int64)
+                if args.save_vis and vis_saved < args.vis_count:
+                    vis_saved += _save_vis(args, batch, preds.cpu().numpy(),
+                                           vis_saved)
 
     # first batch excluded as warm-up
     times = batch_times[1:] or batch_times

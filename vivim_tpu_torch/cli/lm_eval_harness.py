@@ -23,6 +23,8 @@ import os
 
 import torch
 
+from vivim_tpu_torch.utils.profiling import span
+
 
 def _check_sharding(tp_shards, pp_stages):
     if tp_shards > 1 and pp_stages > 1:
@@ -104,14 +106,18 @@ class MambaEvalCore:
     @torch.no_grad()
     def _score(self, ctx_ids, cont_ids):
         """Sum of log p(cont | ctx), and whether cont is the greedy
-        argmax."""
-        logits = self._fwd(self._tokens(list(ctx_ids) + list(cont_ids)))[0]
-        logp = torch.log_softmax(logits.float(), -1)
-        start = len(ctx_ids) - 1
-        positions = logp[start:start + len(cont_ids)]
-        cont = torch.tensor(list(cont_ids), device=logp.device)
-        ll = float(positions.gather(-1, cont[:, None]).sum())
-        greedy = bool((positions.argmax(-1) == cont).all())
+        argmax.  Spans: ``lm.score`` holds the scoring forward's
+        ``lm.forward`` (the head included)."""
+        with span("lm.score"):
+            tokens = self._tokens(list(ctx_ids) + list(cont_ids))
+            with span("lm.forward"):
+                logits = self._fwd(tokens)[0]
+            logp = torch.log_softmax(logits.float(), -1)
+            start = len(ctx_ids) - 1
+            positions = logp[start:start + len(cont_ids)]
+            cont = torch.tensor(list(cont_ids), device=logp.device)
+            ll = float(positions.gather(-1, cont[:, None]).sum())
+            greedy = bool((positions.argmax(-1) == cont).all())
         return ll, greedy
 
     def loglikelihood_pair(self, ctx: str, cont: str):

@@ -66,11 +66,14 @@ import torch.nn.functional as F
 
 from vivim_tpu_torch.kernels import _build, refs
 from vivim_tpu_torch.utils import cuda_graphs
+from vivim_tpu_torch.utils.profiling import span
 
 _log = logging.getLogger(__name__)
 
 # Kernel launches so far, per kernel; a caller resets them to 0 to count one
 # run.  LAUNCHES: K1 inference; TRAIN_LAUNCHES: K1 training; BWD_LAUNCHES: K2.
+# The public wrappers' spans ``scan.k1`` / ``scan.k2`` (``utils/profiling``)
+# show each eager call in a profile's timeline with its kernels.
 LAUNCHES = 0
 TRAIN_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -316,8 +319,9 @@ def selective_scan_fwd_cuda(u, delta, A, B, C, D=None, z=None,
     of in_proj's) — nothing is copied for them.
     """
     global LAUNCHES
-    y, _, last = _fwd_launch(u, delta, A, B, C, D, z, delta_bias,
-                             delta_softplus, initial_state, False)
+    with span("scan.k1"):
+        y, _, last = _fwd_launch(u, delta, A, B, C, D, z, delta_bias,
+                                 delta_softplus, initial_state, False)
     LAUNCHES += 1
     return y, last
 
@@ -330,8 +334,9 @@ def selective_scan_fwd_states_cuda(u, delta, A, B, C, D=None,
     dstate) and the fp32 last state, as
     ``refs.selective_scan_fwd_states_ref``."""
     global TRAIN_LAUNCHES
-    out = _fwd_launch(u, delta, A, B, C, D, None, delta_bias,
-                      delta_softplus, initial_state, True)
+    with span("scan.k1"):
+        out = _fwd_launch(u, delta, A, B, C, D, None, delta_bias,
+                          delta_softplus, initial_state, True)
     TRAIN_LAUNCHES += 1
     return out
 
@@ -399,8 +404,9 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, chunk_states,
     ``selective_scan_fwd_states_cuda`` on the same inputs; D, delta_bias
     and dlast may be None."""
     global BWD_LAUNCHES
-    out = _bwd_launch(u, delta, A, B, C, D, delta_bias, chunk_states, dout,
-                      dlast, delta_softplus)
+    with span("scan.k2"):
+        out = _bwd_launch(u, delta, A, B, C, D, delta_bias, chunk_states,
+                          dout, dlast, delta_softplus)
     BWD_LAUNCHES += 1
     return out
 

@@ -24,6 +24,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from vivim_tpu_torch.parallel import comm
+from vivim_tpu_torch.utils.profiling import span
 
 
 class Stochastic(nn.Module):
@@ -180,7 +181,8 @@ class DWConv3d(nn.Module):
     The conv runs in fp32 whatever the input dtype (input, weight and bias
     cast up, the output cast back), as the JAX package sums this conv's taps
     in fp32; cuDNN's bf16 3-D depthwise weight gradient was also far slower
-    than its fp32 one (PERF.md)."""
+    than its fp32 one (PERF.md).  Its span ``dwconv3d`` covers the forward
+    (the layout's permutes, the casts and cuDNN's per-group kernels)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -198,11 +200,12 @@ class DWConv3d(nn.Module):
         B, N, C = x.shape
         if N != nframes * H * W:
             raise ValueError(f"{N} tokens != {nframes}x{H}x{W}")
-        xv = x.reshape(B, nframes, H, W, C).permute(0, 4, 1, 2, 3)
-        conv = self.dwconv
-        y = F.conv3d(xv.float(), conv.weight.float(), conv.bias.float(),
-                     padding=1, groups=C).to(x.dtype)
-        return y.permute(0, 2, 3, 4, 1).reshape(B, N, C)
+        with span("dwconv3d"):
+            xv = x.reshape(B, nframes, H, W, C).permute(0, 4, 1, 2, 3)
+            conv = self.dwconv
+            y = F.conv3d(xv.float(), conv.weight.float(), conv.bias.float(),
+                         padding=1, groups=C).to(x.dtype)
+            return y.permute(0, 2, 3, 4, 1).reshape(B, N, C)
 
 
 class Mlp(nn.Module):

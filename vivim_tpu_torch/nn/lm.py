@@ -44,6 +44,7 @@ from vivim_tpu_torch.kernels import selective_scan as _scan
 from vivim_tpu_torch.nn import quant, streaming
 from vivim_tpu_torch.nn.mamba import MambaV3
 from vivim_tpu_torch.utils import cuda_graphs
+from vivim_tpu_torch.utils.profiling import span
 
 _log = logging.getLogger(__name__)
 
@@ -393,8 +394,10 @@ def decode_graph(model: MambaLM, parts, params, conv_states, ssm_states):
     """The model's ``DecodeGraph`` for these parameters and states: the
     cached one when its key matches, else a new one that replaces it."""
     cached = model._decoding_cache
-    if cached is None or cached.key != decode_key(params, conv_states,
-                                                  ssm_states):
+    with span("graph.key"):
+        stale = cached is None or cached.key != decode_key(
+            params, conv_states, ssm_states)
+    if stale:
         model._decoding_cache = None   # its graph's memory goes first
         model._decoding_cache = DecodeGraph(parts, params, conv_states,
                                             ssm_states)
@@ -422,46 +425,56 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
     conv_state, ssm_state)`` replace the per-mixer prefill and step (the
     hook a tensor-parallel decode uses); with either hook the tokens run
     an eager loop of ``decode_step``, else the model's ``DecodeGraph``.
+
+    Spans (``utils/profiling.py::span``): ``lm.generate`` holds the
+    prefill's ``lm.forward``, each token's ``lm.draw`` (the draw, the eos
+    mask, the score's copy), the decode graph's ``graph.key`` and, on the
+    card, each token's ``graph.replay``.
     """
-    dev = tokens.device
-    check_kernel_config(model.cfg, dev, model.scan_implementation)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    parts = split_params(model, params)
-    logits, conv_states, ssm_states = prefill(parts, tokens, mixer_prefill)
-    if mixer_prefill is None and mixer_step is None:
-        step = decode_graph(model, parts, params, conv_states,
-                            ssm_states).start(conv_states, ssm_states)
-    else:
-        # a tensor-parallel decode over gloo copies its collectives through
-        # the host, which a CUDA graph cannot capture
-        _log.info("generate: mixer hooks given -> eager decode loop")
+    with span("lm.generate"):
+        dev = tokens.device
+        check_kernel_config(model.cfg, dev, model.scan_implementation)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        parts = split_params(model, params)
+        with span("lm.forward"):
+            logits, conv_states, ssm_states = prefill(parts, tokens,
+                                                      mixer_prefill)
+        if mixer_prefill is None and mixer_step is None:
+            step = decode_graph(model, parts, params, conv_states,
+                                ssm_states).start(conv_states, ssm_states)
+        else:
+            # a tensor-parallel decode over gloo copies its collectives
+            # through the host, which a CUDA graph cannot capture
+            _log.info("generate: mixer hooks given -> eager decode loop")
 
-        def step(token):
-            nonlocal conv_states, ssm_states
-            out, conv_states, ssm_states = decode_step(
-                parts, token, conv_states, ssm_states, mixer_step)
-            return out
+            def step(token):
+                nonlocal conv_states, ssm_states
+                out, conv_states, ssm_states = decode_step(
+                    parts, token, conv_states, ssm_states, mixer_step)
+                return out
 
-    prompt_len = tokens.shape[1]
-    tlen = teacher_outputs.shape[1] if teacher_outputs is not None else 0
-    done = torch.zeros(tokens.shape[0], dtype=torch.bool, device=dev)
-    new_tokens, scores = [], []
-    for t in range(max_new_tokens):
-        nxt = _sample_logits(generator, logits, temperature, top_k, top_p)
-        if prompt_len + t < tlen:
-            nxt = teacher_outputs[:, prompt_len + t].to(nxt.dtype)
-        if eos_token_id is not None:
-            nxt = torch.where(done, eos_token_id, nxt)
-            done = done | (nxt == eos_token_id)
-        new_tokens.append(nxt)
+        prompt_len = tokens.shape[1]
+        tlen = teacher_outputs.shape[1] if teacher_outputs is not None else 0
+        done = torch.zeros(tokens.shape[0], dtype=torch.bool, device=dev)
+        new_tokens, scores = [], []
+        for t in range(max_new_tokens):
+            with span("lm.draw"):
+                nxt = _sample_logits(generator, logits, temperature, top_k,
+                                     top_p)
+                if prompt_len + t < tlen:
+                    nxt = teacher_outputs[:, prompt_len + t].to(nxt.dtype)
+                if eos_token_id is not None:
+                    nxt = torch.where(done, eos_token_id, nxt)
+                    done = done | (nxt == eos_token_id)
+                new_tokens.append(nxt)
+                if output_scores:
+                    scores.append(logits.clone())   # the graph reuses them
+            logits = step(nxt)
+        full = torch.cat([tokens.long()]
+                         + [t[:, None] for t in new_tokens], dim=1)
         if output_scores:
-            scores.append(logits.clone())   # the graph's logits are reused
-        logits = step(nxt)
-    full = torch.cat([tokens.long()]
-                     + [t[:, None] for t in new_tokens], dim=1)
-    if output_scores:
-        b, v = logits.shape
-        return full, (torch.stack(scores, 1) if scores
-                      else logits.new_zeros(b, 0, v))
-    return full
+            b, v = logits.shape
+            return full, (torch.stack(scores, 1) if scores
+                          else logits.new_zeros(b, 0, v))
+        return full

@@ -46,6 +46,7 @@ from vivim_tpu_torch.parallel import comm
 from vivim_tpu_torch.parallel.mesh import shard_batch
 from vivim_tpu_torch.train import losses as losses_lib
 from vivim_tpu_torch.train.metrics import confusion_matrix, per_class_confusion
+from vivim_tpu_torch.utils.profiling import span
 
 # the JAX package's name for the device-side confusion matrix
 confusion_matrix_device = confusion_matrix
@@ -336,7 +337,11 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
     ``grad_norm`` (before clipping), as 0-dim tensors.  ``mesh``: data
     parallel over its ``data`` axis (see the module docstring): ``batch``
     is this rank's block, and its micro-batches are its blocks of the
-    global ones (``DataLoader(micro_batches=grad_accum)``).
+    global ones (``DataLoader(micro_batches=grad_accum)``).  Spans
+    (``utils/profiling.py::span``): ``train.step`` holds each
+    micro-batch's ``train.forward`` (forward, loss, counts) and
+    ``train.backward``, then ``train.optimizer`` (the gradients' reduction,
+    the clip and AdamW).
     """
     if isinstance(loss_fn, str):
         loss_fn = losses_lib.LOSSES[loss_fn]
@@ -350,39 +355,48 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
         if B % grad_accum:
             raise ValueError(
                 f"batch size {B} not divisible by grad_accum={grad_accum}")
-        model.train()
-        use_generator(model, state.generator)
-        model.stats_group = group
-        for p in model.parameters():
-            p.grad = None
-        mb = B // grad_accum
-        loss_sum = 0.0
-        counts = 0.0
-        with gathered(state), losses_lib.batch_group(group):
-            for i in range(grad_accum):
-                part = slice(i * mb, (i + 1) * mb)
-                logits5, edge5 = _split_edge(
-                    model, _forward(model, clip[part], compute_dtype),
-                    edge_loss_fn)
-                logits, targets = flatten_frames(logits5, masks[part])
-                loss = loss_fn(logits, targets, num_classes)
-                if edge5 is not None:
-                    # the losses cast to fp32 themselves, as in the JAX step
-                    loss = loss + edge_loss_fn(logits5, masks[part], edge5,
-                                               batch["edges"][part])
-                (loss / grad_accum).backward()
-                loss_sum = loss_sum + loss.detach()
-                counts = counts + jaccard_counts(logits.detach(), targets,
-                                                 num_classes)
-            average_grads(state, mesh)
-        grad_norm = state.opt.step()
-        state.step += 1
-        if group is not None:  # the global batch's loss and counts
-            total = comm.all_reduce_sum(
-                torch.cat([loss_sum.reshape(1), counts]), group)
-            loss_sum = total[0] / comm.size(group)
-            counts = total[1:]
-        tp, fp, fn = counts
+        with span("train.step"), contextlib.ExitStack() as opt_span:
+            model.train()
+            use_generator(model, state.generator)
+            model.stats_group = group
+            for p in model.parameters():
+                p.grad = None
+            mb = B // grad_accum
+            loss_sum = 0.0
+            counts = 0.0
+            with gathered(state), losses_lib.batch_group(group):
+                for i in range(grad_accum):
+                    part = slice(i * mb, (i + 1) * mb)
+                    with span("train.forward"):
+                        logits5, edge5 = _split_edge(
+                            model, _forward(model, clip[part], compute_dtype),
+                            edge_loss_fn)
+                        logits, targets = flatten_frames(logits5, masks[part])
+                        loss = loss_fn(logits, targets, num_classes)
+                        if edge5 is not None:
+                            # the losses cast to fp32 themselves, as in the
+                            # JAX step
+                            loss = loss + edge_loss_fn(
+                                logits5, masks[part], edge5,
+                                batch["edges"][part])
+                        loss_sum = loss_sum + loss.detach()
+                        counts = counts + jaccard_counts(
+                            logits.detach(), targets, num_classes)
+                    with span("train.backward"):
+                        (loss / grad_accum).backward()
+                # the gradients' reduction and the update, across the ZeRO
+                # parameters' release
+                opt_span.enter_context(span("train.optimizer"))
+                average_grads(state, mesh)
+            grad_norm = state.opt.step()
+            opt_span.close()
+            state.step += 1
+            if group is not None:  # the global batch's loss and counts
+                total = comm.all_reduce_sum(
+                    torch.cat([loss_sum.reshape(1), counts]), group)
+                loss_sum = total[0] / comm.size(group)
+                counts = total[1:]
+            tp, fp, fn = counts
         return state, {"loss": loss_sum / grad_accum,
                        "jaccard": tp / torch.clamp(tp + fp + fn, min=1),
                        "grad_norm": grad_norm}

@@ -1,5 +1,5 @@
 """Utilities: profiling and tracing helpers."""
 
-from vivim_tpu_torch.utils.profiling import step_timer, trace
+from vivim_tpu_torch.utils.profiling import span, trace
 
-__all__ = ["trace", "step_timer"]
+__all__ = ["trace", "span"]

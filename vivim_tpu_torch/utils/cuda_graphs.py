@@ -31,17 +31,27 @@ registers those counters here), and a count must equal what runs on the
 card: a capture launches nothing, so ``capture`` takes back what the
 captured call counted and keeps it in its ``Graph``, and every replay adds
 it again.  The warm-up calls run, and count.
+
+``CAPTURE_S`` sums the host seconds spent in ``capture`` (the warm-ups and
+the capture: set-up, paid once per key).  The spans ``graph.key`` (the
+key's walk over every weight tensor) and ``graph.replay`` (the copies into
+the static inputs and the replay's submission) name the host's part of a
+call in a profile (``utils/profiling.py::span``).
 """
 
 from __future__ import annotations
 
+import time
 from collections.abc import Mapping
 
 import torch
 from torch import nn
 
+from vivim_tpu_torch.utils.profiling import span
+
 WARMUP_CALLS = 2
 CAPTURES = 0
+CAPTURE_S = 0.0
 REPLAYS = 0
 # (module, attribute) of every registered kernel launch counter
 _COUNTERS = []
@@ -98,9 +108,10 @@ class Graph:
 
     def __call__(self, *inputs):
         global REPLAYS
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-        self.graph.replay()
+        with span("graph.replay"):
+            for buf, x in zip(self.inputs, inputs):
+                buf.copy_(x)
+            self.graph.replay()
         _add_counts(self.counted)
         REPLAYS += 1
         return self.outputs
@@ -111,7 +122,8 @@ def capture(fn, static, pool=None):
     ``WARMUP_CALLS`` calls on a side stream (kernel builds, cuBLAS and
     cuDNN workspaces, lazy init), then the capture into ``pool`` (a
     private pool when None)."""
-    global CAPTURES
+    global CAPTURES, CAPTURE_S
+    t0 = time.perf_counter()
     with torch.cuda.device(static[0].device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -129,6 +141,7 @@ def capture(fn, static, pool=None):
                if a != b]
     _add_counts([(c, -d) for c, d in counted])   # nothing ran yet
     CAPTURES += 1
+    CAPTURE_S += time.perf_counter() - t0
     return Graph(graph, static, outputs, counted)
 
 
@@ -144,7 +157,9 @@ class GraphedCall:
         self.pool = None
 
     def key(self, *inputs):
-        return tuple(signature(x) for x in inputs), tensors_key(self.weights)
+        with span("graph.key"):
+            return (tuple(signature(x) for x in inputs),
+                    tensors_key(self.weights))
 
     def __call__(self, *inputs):
         if not inputs[0].is_cuda:

@@ -7,18 +7,35 @@ Port of the JAX package's ``utils/profiling.py``:
   ``<host>_<pid>.<ns>.pt.trace.json`` into ``logdir`` when it exits, a
   trace that TensorBoard's PyTorch profiler plugin and Chrome / Perfetto
   both read;
-- ``step_timer``: host-clock step durations with percentile summaries, for
-  per-step logging without a full trace (the caller synchronises the
-  device inside the timed block).
+- ``span(name)``: the program's named ranges at its layer boundaries (the
+  train step's phases, a serving request's parts, the LM's prefill, draw
+  and replay, the scan kernels and the 3-D conv).  While a profiler
+  records, a span is a ``torch.profiler.record_function`` range, so it
+  lands in the profiler's own timeline beside the kernels, on one clock,
+  in every trace (``trace``, the Trainer's ``profile_dir``, a benchmark's
+  profiled stretch); otherwise it is a shared no-op context, and costs one
+  flag check.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
+
+# entering record_function with no profiler still costs microseconds a
+# use, on every request and step: spans enter it only while one records
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else a
+    no-op context: ``with span("train.forward"): ...``."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -34,32 +51,3 @@ def trace(logdir: str):
     with profile(activities=acts,
                  on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
-
-
-class step_timer:
-    """Collects step durations; ``summary()`` gives mean / p50 / p90 / max
-    in milliseconds."""
-
-    def __init__(self):
-        self.times = []
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-        return False
-
-    def summary(self):
-        if not self.times:
-            return {}
-        arr = np.array(self.times) * 1e3
-        return {
-            "steps": len(arr),
-            "mean_ms": float(arr.mean()),
-            "p50_ms": float(np.percentile(arr, 50)),
-            "p90_ms": float(np.percentile(arr, 90)),
-            "max_ms": float(arr.max()),
-        }

@@ -32,13 +32,23 @@ Phases, each of which raises on failure (exit code != 0):
    Function against autograd through the sequential plain scan; print
    error, kernel / plain / bound ms and the bound's binding term (bytes,
    fp32 operations or exps);
+3c. hold the 3-D depthwise conv kernels (``kernels/dwconv3d.py``: one
+   forward launch, a backward pair) against float64 ``F.conv3d`` at the
+   Mix-FFN shapes of a serving forward (batch 1) and of a training step
+   (batch 3), y and dx within 1e-5 and the weight and bias grads within
+   1e-4 of their scale, then at ragged shapes with forced tiles; print
+   each shape's tiles (float4 or scalar lanes, block lanes, block rows),
+   replay ms, one eager call's ms, the kernels' us, the plain
+   versions' ms, cuDNN's ms on the route the port took before the kernels
+   (``F.conv3d`` with autograd), and the bytes bound;
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
    ``run_inference``, whose forward, argmax and confusion counts are one
    CUDA graph, captured once and replayed per request: one capture, 4
-   replays, K1 counted 8 times per forward that runs (2 warm-ups and 4
-   replays) and nothing else, the confusion matrix counting every pixel
-   and equal to the same requests' eagerly in this call (fps and
+   replays, K1 and the conv forward counted 8 times per forward that runs
+   (2 warm-ups and 4 replays) and nothing else, the confusion matrix
+   counting every pixel and equal to the same requests' eagerly in this
+   call (fps and
    per-batch ms of both, their peak memory, and the memory one captured
    shape keeps, printed); the replayed logits within 1e-5 of the eager
    module's and 1e-3 of the same model on the plain scan; torch.profiler
@@ -217,10 +227,16 @@ Phases, each of which raises on failure (exit code != 0):
    it; no launch): output, last state and 9 gradients against the CPU's;
    d_state 257 refused;
 14. print the kernels line (every K1 / K2 row by d_state under
-   ``by_dstate``), the card line and, last, the device line.
+   ``by_dstate``; the conv's forward and backward), the card line and,
+   last, the device line.
+
+Wherever Vivim runs (phases 4 to 10) the launch checks also count the
+3-D conv's wrapper calls (``counts``): a conv forward beside each K1 of a
+MambaLayer, with ``blocks`` remat's recompute, and a conv backward beside
+each K2; the LM phases must call it not at all.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
-before printing any result.  ``--kernels-only`` stops after phase 3b (a
+before printing any result.  ``--kernels-only`` stops after phase 3c (a
 quick check of the kernels on the card); ``--dstate-only`` runs phase 13
 alone after the build.
 """
@@ -249,6 +265,8 @@ N = 16                      # d_state
 STAGES = (                  # (L = T*H*W, d_inner) of MiT-b3 Vivim at 5x256^2
     (20480, 128), (5120, 256), (1280, 640), (320, 1024))
 LAYERS_PER_STAGE = 2        # MambaLayers per stage: launches per shape
+DW_FRAMES = 5               # the Mix-FFN 3-D convs' (T, H = W, C) at 5x256^2
+DW_STAGES = ((64, 256), (32, 512), (16, 1280), (8, 2048))
 SCAN_BATCH = 3              # three scan directions x batch 1 (serving)
 TRAIN_BATCH = 3             # clips per training step (bench.py's batch)
 TRAIN_SCAN_BATCH = 3 * TRAIN_BATCH
@@ -462,24 +480,31 @@ def device_ms(fn, calls=10, repeats=5):
     return ms
 
 
-def kernel_split(fn, calls=3):
+def kernel_split(fn, calls=3, tries=5):
     """Device us per launch of each CUDA kernel of ``fn`` (torch.profiler
     over ``calls`` calls), keyed by a short name: K1's passes "local",
     "carry" and "out", K2's "local", "carry", "main", "sum" (dB / dC) and
-    "sum_params".  Each is the mean over the events recorded for its key,
-    since the profiler may record fewer launches than were made."""
+    "sum_params", the conv's "dwconv3d_fwd", "dwconv3d_bwd" and
+    "dwconv3d_bwd_sum".  Each is the mean over the events recorded for its
+    key, since the profiler may record fewer launches than were made.  It
+    may also record none of a session's kernels, more often after many
+    sessions in one process (PERF.md): such a session is run again, up to
+    ``tries`` sessions in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     total, count = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         name = e.name
         if "selective_scan_fwd_carry" in name:
             key = "carry"
@@ -499,6 +524,9 @@ def kernel_split(fn, calls=3):
             key = "sum_params"
         elif "sum_partials" in name:
             key = "sum"
+        elif "dwconv3d" in name:
+            key = next(k for k in ("dwconv3d_bwd_sum", "dwconv3d_bwd",
+                                   "dwconv3d_fwd") if k in name)
         else:
             key = name.split("(")[0][-40:]
         total[key] = total.get(key, 0.0) + e.time_range.elapsed_us()
@@ -904,6 +932,135 @@ def phase_train_kernels(peaks):
     return fwd_rows, bwd_rows, err
 
 
+def dwconv_work(batch, T, H, W, C, backward):
+    """(bytes, fp32 operations, exps) of the 3-D depthwise conv: the
+    forward reads x and writes y, 54 operations per element (27 FMAs); the
+    backward reads x and dy and writes dx, 109 per element (27 FMAs for
+    dx, 27 for the weight grad, one add for the bias grad); both read the
+    weight and bias, the backward writes their grads."""
+    n = batch * T * H * W * C
+    params = C * 28 * 4
+    if backward:
+        return 12 * n + 2 * params, 109 * n, 0
+    return 8 * n + params, 54 * n, 0
+
+
+def phase_dwconv(peaks):
+    """The 3-D depthwise conv kernels (``kernels/dwconv3d.py``) at the
+    Mix-FFN shapes of a serving forward (batch 1) and a training step
+    (batch 3), forward and backward, against float64 ``F.conv3d``; timed
+    as K1 and K2 are, beside the plain versions (``refs.dwconv3d_ref``,
+    which is cuDNN's ``F.conv3d``, and ``refs.dwconv3d_bwd_ref``) and
+    cuDNN's route as the port ran it before the kernels (``F.conv3d`` with
+    autograd through it: ``library_ms``); then the ragged shapes of the CPU
+    tests with forced tiles."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+    from vivim_tpu_torch.kernels import refs
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+
+    def inputs(batch, T, H, W, C):
+        f = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+        return (f(batch, T * H * W, C), f(C, 1, 3, 3, 3) / 27 ** 0.5,
+                0.1 * f(C), f(batch, T * H * W, C))
+
+    def float64(x, w, b, dy, T, H, W):
+        x, w, b = (t.double().requires_grad_() for t in (x, w, b))
+        y = refs.dwconv3d_ref(x, w, b, T, H, W)
+        return (y.detach(),) + torch.autograd.grad(y, (x, w, b), dy.double())
+
+    for batch in (1, TRAIN_BATCH):
+        for si, (S, C) in enumerate(DW_STAGES):
+            T, H, W = DW_FRAMES, S, S
+            x, w, b, dy = inputs(batch, T, H, W, C)
+            want = float64(x, w, b, dy, T, H, W)
+            fwd = lambda: dk.dwconv3d_fwd_cuda(x, w, b, T, H, W)
+            bwd = lambda: dk.dwconv3d_bwd_cuda(x, dy, w, T, H, W)
+            got = (fwd(),) + bwd()
+            torch.cuda.synchronize()
+            errs = [scaled_err((g,), (v,)) for g, v in zip(got, want)]
+            # y and dx: 27 FMAs; the weight and bias grads: fp32 sums over
+            # every position (see tests/test_torch_cuda.py)
+            for name, e, tol in zip(("y", "dx", "dweight", "dbias"), errs,
+                                    (1e-5, 1e-5, 1e-4, 1e-4)):
+                if e > tol:
+                    raise AssertionError(f"dwconv3d batch {batch} stage {si}"
+                                         f" {name}: scaled error {e:.3e}")
+
+            def library_bwd():
+                xr = x.detach().requires_grad_()
+                wr = w.detach().requires_grad_()
+                br = b.detach().requires_grad_()
+                y = refs.dwconv3d_ref(xr, wr, br, T, H, W)
+                return torch.autograd.grad(y, (xr, wr, br), dy)
+
+            vec = dk.vec_width(C, x)
+            tiles = {"forward": dk.fwd_tiling(batch, T, H, C, vec),
+                     "backward": dk.bwd_tiling(batch, T, H, C, sm_count())}
+            for which, run, plain, library, err in (
+                    ("forward", fwd,
+                     lambda: refs.dwconv3d_ref(x, w, b, T, H, W),
+                     lambda: refs.dwconv3d_ref(x, w, b, T, H, W), errs[0]),
+                    ("backward", bwd,
+                     lambda: refs.dwconv3d_bwd_ref(x, dy, w, T, H, W),
+                     library_bwd, max(errs[1:]))):
+                run()
+                call_ms = cuda_ms(run, 20)
+                ms = device_ms(run)
+                split = kernel_split(run)
+                plain()
+                plain_ms = cuda_ms(plain, 5)
+                library()
+                library_ms = cuda_ms(library, 5)
+                work = dwconv_work(batch, T, H, W, C, which == "backward")
+                bound_ms, bound_by, term = bound(work, peaks)
+                lanes, grid_y = tiles[which]
+                row = dict(stage=si, batch=batch, T=T, H=H, W=W, C=C,
+                           which=which, dtype="float32", max_abs_err=err,
+                           ms=ms, call_ms=call_ms, split_us=split,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bound_term=term, mbytes=work[0] / 1e6,
+                           vec=vec if which == "forward" else 1,
+                           lanes=lanes, rows=grid_y)
+                rows.append(row)
+                print(f"dwconv3d {which:8s} batch {batch} stage {si} "
+                      f"T={T} H=W={S} C={C} vec={row['vec']} lanes={lanes} "
+                      f"rows={grid_y}: scaled err {err:.3e} "
+                      f"ms={ms:.4f} (one call with its launch "
+                      f"{call_ms:.4f}; {split_text(split)}) plain_ms="
+                      f"{plain_ms:.3f} cudnn_ms={library_ms:.3f} bound_ms="
+                      f"{bound_ms:.4f} ({term}; {work[0] / 1e6:.1f} MB; "
+                      f"{bound_ms / ms * 100:.1f} % of it)", flush=True)
+            del x, w, b, dy, want, got
+    # ragged shapes with the wrapper's tiles and forced block rows (tiles
+    # ending mid-frame, crossing frames), scalar lanes forced too
+    worst = 0.0
+    for case in ((1, 1, 1, 1, 1), (3, 1, 2, 5, 3), (1, 2, 7, 1, 16),
+                 (3, 5, 5, 2, 130), (1, 7, 1, 7, 3), (3, 2, 2, 2, 1),
+                 (1, 5, 7, 5, 130), (3, 7, 5, 7, 16)):
+        batch, T, H, W, C = case
+        x, w, b, dy = inputs(*case)
+        want = float64(x, w, b, dy, T, H, W)
+        for grid_y, vec in ((None, None), (2, None), (3, 1)):
+            got = ((dk._fwd_launch(x, w, b, T, H, W, grid_y, vec),)
+                   + dk._bwd_launch(x, dy, w, T, H, W, True, grid_y))
+            torch.cuda.synchronize()
+            for name, g, v, tol in zip(("y", "dx", "dweight", "dbias"), got,
+                                       want, (1e-5, 1e-5, 1e-4, 1e-4)):
+                e = scaled_err((g,), (v,))
+                worst = max(worst, e)
+                if e > tol:
+                    raise AssertionError(f"dwconv3d ragged {case} rows "
+                                         f"{grid_y} {name}: scaled error "
+                                         f"{e:.3e}")
+    rows.append(dict(stage="ragged", dtype="float32", max_abs_err=worst))
+    print(f"dwconv3d ragged: 8 shapes x 3 tilings, y, dx, dweight, dbias "
+          f"against float64: largest scaled error {worst:.3e}", flush=True)
+    return rows
+
+
 class Requests:
     """In-memory batches of numpy dicts as an iterable loader."""
 
@@ -941,18 +1098,42 @@ def make_requests(n, clip_len, size, num_classes, seed=0, batch=1):
     return batches
 
 
+def launches(k1=0, k1_train=0, k2=0, conv=0, conv_bwd=0):
+    """A ``counts()`` dict: K1's inference and training launches, K2's,
+    and the 3-D conv's forward and backward wrapper calls."""
+    return {"K1 inference": k1, "K1 training": k1_train, "K2": k2,
+            "dwconv3d forward": conv, "dwconv3d backward": conv_bwd}
+
+
+def vivim_forward(n):
+    """The launches of Vivim forwards over ``n`` MambaLayers in all: an
+    inference K1 and a conv forward each."""
+    return launches(k1=n, conv=n)
+
+
+def vivim_step(per_pass):
+    """The launches of a Vivim train step over ``per_pass`` MambaLayers:
+    a training K1, a K2 and a conv forward and backward each."""
+    return launches(k1_train=per_pass, k2=per_pass, conv=per_pass,
+                    conv_bwd=per_pass)
+
+
 def counts():
+    """The kernels' launches since ``reset_counts``, as ``launches``."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
     from vivim_tpu_torch.kernels import selective_scan as ss
 
-    return {"K1 inference": ss.LAUNCHES, "K1 training": ss.TRAIN_LAUNCHES,
-            "K2": ss.BWD_LAUNCHES}
+    return launches(ss.LAUNCHES, ss.TRAIN_LAUNCHES, ss.BWD_LAUNCHES,
+                    dk.LAUNCHES, dk.BWD_LAUNCHES)
 
 
 def reset_counts():
+    from vivim_tpu_torch.kernels import dwconv3d as dk
     from vivim_tpu_torch.kernels import selective_scan as ss
     from vivim_tpu_torch.utils import cuda_graphs
 
     ss.LAUNCHES = ss.TRAIN_LAUNCHES = ss.BWD_LAUNCHES = 0
+    dk.LAUNCHES = dk.BWD_LAUNCHES = 0
     cuda_graphs.CAPTURES = cuda_graphs.REPLAYS = 0
 
 
@@ -1020,14 +1201,13 @@ def phase_serve(segformer="b3", size=256, clip_len=5, n_req=4, dot=None):
         launched, graphs = counts(), graph_counts()
         graph_peak = torch.cuda.max_memory_allocated()
     per_fwd = sum(cfg.depths)
-    if graphs != {"captures": 1, "replays": n_req} or launched != {
-            "K1 inference": graph_launches(per_fwd, 1, n_req),
-            "K1 training": 0, "K2": 0}:
+    if graphs != {"captures": 1, "replays": n_req} or launched != (
+            vivim_forward(graph_launches(per_fwd, 1, n_req))):
         raise AssertionError(
             f"serving {n_req} requests of one shape: {graphs}, launched "
             f"{launched}; expected 1 capture and {n_req} replays, "
-            f"{per_fwd} inference K1 per warm-up forward and per replay, "
-            "and nothing else")
+            f"{per_fwd} inference K1 and {per_fwd} conv forwards per "
+            "warm-up forward and per replay, and nothing else")
     if int(cm.sum()) != n_req * clip_len * size * size:
         raise AssertionError(f"confusion matrix counts {int(cm.sum())} "
                              "pixels")
@@ -1064,7 +1244,7 @@ def phase_serve(segformer="b3", size=256, clip_len=5, n_req=4, dot=None):
                 torch.cuda.memory_allocated() - base[1])
         del served
     print(f"serve: {n_req} requests of (1, {clip_len}, {size}, {size}, 3): "
-          f"launches {launched} ({per_fwd} K1 per forward: "
+          f"launches {launched} ({per_fwd} K1 and conv per forward: "
           f"{graphs['captures']} capture after "
           f"{launched['K1 inference'] // per_fwd - graphs['replays']} "
           f"warm-up forwards, then {graphs['replays']} replays); graph: fps "
@@ -1148,9 +1328,10 @@ def phase_serve(segformer="b3", size=256, clip_len=5, n_req=4, dot=None):
 
 # first match wins: cuDNN's conv kernels carry "gemm" in their names
 PROFILE_GROUPS = {
+    "dwconv3d (3-D depthwise)": ("dwconv3d",),
     "selective_scan_bwd (K2)": ("selective_scan_bwd", "sum_partials"),
     "selective_scan_fwd (K1)": ("selective_scan_fwd",),
-    "conv": ("conv", "fprop", "dgrad", "wgrad", "winograd"),
+    "conv (cuDNN, 2-D)": ("conv", "fprop", "dgrad", "wgrad", "winograd"),
     "layout (cudnn nhwc<->nchw)": ("nhwctonchw", "nchwtonhwc"),
     "matmul": ("gemm", "cutlass", "cublas"),
 }
@@ -1359,11 +1540,8 @@ def phase_train(dev="cuda", segformer="b3", size=256, clip_len=5,
         launched = counts()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         if on_card:
-            _check_launches(steps, {"K1 inference": 0,
-                                    "K1 training": per_pass,
-                                    "K2": per_pass}, "train step")
-            _check_launches(evals, {"K1 inference": per_pass,
-                                    "K1 training": 0, "K2": 0},
+            _check_launches(steps, vivim_step(per_pass), "train step")
+            _check_launches(evals, vivim_forward(per_pass),
                             "validation forward")
         if len(steps) != n_steps or len(evals) != n_val:
             raise AssertionError(f"{len(steps)} steps, {len(evals)} "
@@ -1402,9 +1580,7 @@ def phase_train(dev="cuda", segformer="b3", size=256, clip_len=5,
         run(state, b_)
     peak_bf16 = torch.cuda.max_memory_allocated() if on_card else 0
     if on_card:
-        _check_launches(bf16_log, {"K1 inference": 0,
-                                   "K1 training": per_pass,
-                                   "K2": per_pass}, "bf16 train step")
+        _check_launches(bf16_log, vivim_step(per_pass), "bf16 train step")
     for _, _, (_, m) in bf16_log:
         for k in ("loss", "grad_norm"):
             if not math.isfinite(float(m[k])):
@@ -1762,12 +1938,10 @@ def phase_train_cli(dev="cuda", segformer="b3", size=256, clip_len=5,
                 raise AssertionError(f"{label}: {len(run['steps'])} steps, "
                                      f"expected {n_steps}")
             if on_card:
-                _check_launches(run["steps"], {
-                    "K1 inference": 0, "K1 training": per_pass,
-                    "K2": per_pass}, f"{label} train step")
-                _check_launches(run["evals"], {
-                    "K1 inference": per_pass, "K1 training": 0, "K2": 0},
-                    f"{label} validation forward")
+                _check_launches(run["steps"], vivim_step(per_pass),
+                                f"{label} train step")
+                _check_launches(run["evals"], vivim_forward(per_pass),
+                                f"{label} validation forward")
             for _, _, (_, m) in run["steps"]:
                 for k in ("loss", "grad_norm"):
                     if not math.isfinite(float(m[k])):
@@ -1987,12 +2161,10 @@ def phase_binary(dev="cuda", segformer="b3", size=256, clip_len=5,
                 raise AssertionError(f"{label}: {len(run['steps'])} steps, "
                                      f"expected {n}")
             if on_card:
-                _check_launches(run["steps"], {
-                    "K1 inference": 0, "K1 training": per_pass,
-                    "K2": per_pass}, f"{label} train step")
-                _check_launches(run["evals"], {
-                    "K1 inference": per_pass, "K1 training": 0, "K2": 0},
-                    f"{label} validation forward")
+                _check_launches(run["steps"], vivim_step(per_pass),
+                                f"{label} train step")
+                _check_launches(run["evals"], vivim_forward(per_pass),
+                                f"{label} validation forward")
             for _, _, (_, m) in run["steps"]:
                 for k, v in m.items():
                     if not math.isfinite(float(v)):
@@ -2141,8 +2313,7 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
         launched, graphs = counts(), graph_counts()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
     per_gen = cfg.n_layer
-    want = {"K1 inference": len(LM_DTYPES) * (repeats + 1) * per_gen,
-            "K1 training": 0, "K2": 0}
+    want = launches(k1=len(LM_DTYPES) * (repeats + 1) * per_gen)
     if on_card and launched != want:
         raise AssertionError(f"bench_generation launched {launched}, "
                              f"expected {want}")
@@ -2415,10 +2586,12 @@ def phase_remat(dev="cuda", segformer="b3", size=256, clip_len=5,
         out[level] = {}
         log, peak = remat_run(level, batches, dev, segformer, check(level))
         if on_card:
-            _check_launches(log, {"K1 inference": 0,
-                                  "K1 training": per_pass * (
-                                      2 if level == "blocks" else 1),
-                                  "K2": per_pass}, f"remat {level} step")
+            # blocks recomputes every MambaLayer's forward, conv included
+            twice = 2 if level == "blocks" else 1
+            _check_launches(log, launches(
+                k1_train=twice * per_pass, k2=per_pass,
+                conv=twice * per_pass, conv_bwd=per_pass),
+                f"remat {level} step")
         out[level].update(_step_summary(f"remat {level}", log, batch),
                           peak_gib=peak, launches=log[0][1])
         print(f"remat {level}: batch {batch}, launches per step "
@@ -2491,8 +2664,8 @@ def phase_infer_ckpt(workdir, dev="cuda", segformer="b3", size=256,
     # batches of 1 clip: one capture, a replay per batch
     if dev.type == "cuda" and (
             graphs != {"captures": 1, "replays": n_batches}
-            or launched != {"K1 inference": graph_launches(
-                per_pass, 1, n_batches), "K1 training": 0, "K2": 0}):
+            or launched != vivim_forward(graph_launches(per_pass, 1,
+                                                        n_batches))):
         raise AssertionError(f"{n_batches} forwards: {graphs}, launched "
                              f"{launched}")
     print(f"infer from {os.path.relpath(ckpt, workdir)} (picked "
@@ -2922,7 +3095,7 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
                "probe": ranks[0]["probe"]}
     print(f"parallel: {ranks[0]['backend']} on {spec['dev']} tensors, "
           f"checked by value: {ranks[0]['probe']}", flush=True)
-    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+    launched = launches()
     label = "2 ranks over gloo on one card, not a multi-card figure"
     for mode in ("dp2", "zero2", "seq2"):
         sd = torch.load(os.path.join(out_dir, f"{mode}.pt"),
@@ -2932,8 +3105,7 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
             if abs(o["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
                 raise AssertionError(f"{mode} rank {r}: loss {o['loss']} "
                                      f"vs one device {ref['loss']}")
-            want = {"K1 inference": 0, "K1 training": per_pass,
-                    "K2": per_pass}
+            want = vivim_step(per_pass)
             if on_card and any(l != want for l in o["launches"]):
                 raise AssertionError(f"{mode} rank {r} launched "
                                      f"{o['launches']}, expected {want}")
@@ -3034,8 +3206,8 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
                 raise AssertionError(f"seq2 logits {err:.3e} from one "
                                      "device's")
             for r, o in enumerate(per):
-                want = {"K1 inference": per_pass, "K1 training": 0, "K2": 0}
-                if on_card and o["eval_launches"] != want:
+                if on_card and o["eval_launches"] != vivim_forward(
+                        per_pass):
                     raise AssertionError(f"seq2 rank {r} forward launched "
                                          f"{o['eval_launches']}")
                 for k in launched:
@@ -3049,10 +3221,14 @@ def phase_parallel(workdir, dev="cuda", segformer="b3", size=256,
         runs = cli_ranks[name]
         for r, c in enumerate(runs):
             n = c["launches"]
+            # a conv forward per K1, a conv backward per K2
             if on_card and (n["K1 training"] != n["K2"]
                             or n["K1 training"] % per_pass
                             or n["K1 inference"] % per_pass
-                            or not n["K1 training"]):
+                            or not n["K1 training"]
+                            or n["dwconv3d forward"] != n["K1 inference"]
+                            + n["K1 training"]
+                            or n["dwconv3d backward"] != n["K2"]):
                 raise AssertionError(f"cli {name} rank {r} launched {n}")
             # a -seq_shards run exchanges a halo per sharded MambaLayer
             if ("-seq_shards" in flags) != (c["seq"]["halo"][0] > 0):
@@ -3469,7 +3645,7 @@ def phase_lm_parallel(peaks=None, dev="cuda", config=LM_CONFIG,
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t_phase = time.perf_counter()
     summary = {"timing": LMP_LABEL}
-    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+    launched = launches()
 
     def add(c):
         for k in launched:
@@ -3510,8 +3686,7 @@ def phase_lm_parallel(peaks=None, dev="cuda", config=LM_CONFIG,
         got, want = runs["kernels"], runs["plain"]
         add(got["launches"])
         per = cfg.n_layer
-        if on_card and got["launches"] != {"K1 inference": 0,
-                                           "K1 training": per, "K2": per}:
+        if on_card and got["launches"] != launches(k1_train=per, k2=per):
             raise AssertionError(f"one-device LM step launched "
                                  f"{got['launches']}")
         if abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
@@ -3565,10 +3740,9 @@ def phase_lm_parallel(peaks=None, dev="cuda", config=LM_CONFIG,
     summary["spawn_s"] = secs
     lps = cfg.n_layer // 2
     want_launches = {
-        "tp2": {"K1 inference": 0, "K1 training": per, "K2": per},
-        "pp2": {"K1 inference": 0,
-                "K1 training": lps * (n_micro + 1),
-                "K2": lps * (n_micro + 1)}}
+        "tp2": launches(k1_train=per, k2=per),
+        "pp2": launches(k1_train=lps * (n_micro + 1),
+                        k2=lps * (n_micro + 1))}
     for mode in ("tp2", "pp2"):
         per_rank = [r["modes"][mode] for r in ranks]
         for r, o in enumerate(per_rank):
@@ -3588,8 +3762,7 @@ def phase_lm_parallel(peaks=None, dev="cuda", config=LM_CONFIG,
             # its layers at each of its k ticks
             want_score = (lps * 2 if mode == "pp2" else per) * len(
                 o["scores"])
-            if on_card and o["score_launches"] != {
-                    "K1 inference": want_score, "K1 training": 0, "K2": 0}:
+            if on_card and o["score_launches"] != launches(k1=want_score):
                 raise AssertionError(f"{mode} rank {r}: {len(o['scores'])} "
                                      "scoring forwards launched "
                                      f"{o['score_launches']}, expected "
@@ -3759,7 +3932,7 @@ def phase_moe_lm(dev="cuda", config=None, batch=MOE_BATCH,
           f"parameters ({n_experts / 1e6:.2f} M in experts, "
           f"{4 * n_params / 2**30:.2f} GiB fp32), seeded on {dev} in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+    launched = launches()
 
     def add(c):
         for k in launched:
@@ -3777,8 +3950,7 @@ def phase_moe_lm(dev="cuda", config=None, batch=MOE_BATCH,
                           launches=c)
     got, want = runs["kernels"], runs["plain"]
     add(got["launches"])
-    if on_card and got["launches"] != {"K1 inference": per,
-                                       "K1 training": 0, "K2": 0}:
+    if on_card and got["launches"] != launches(k1=per):
         raise AssertionError(f"MoE LM forward launched {got['launches']}")
     logits_err = _max_err(got["logits"], want["logits"])
     if not logits_err <= 1e-3:
@@ -3818,7 +3990,7 @@ def phase_moe_lm(dev="cuda", config=None, batch=MOE_BATCH,
     model.scan_implementation = None
     loss, _, _, grads, c = _moe_grad_run(cfg, fwd, params, toks)
     add(c)
-    if on_card and c != {"K1 inference": 0, "K1 training": per, "K2": per}:
+    if on_card and c != launches(k1_train=per, k2=per):
         raise AssertionError(f"MoE LM gradient step launched {c}")
     model.scan_implementation = "ref"
     loss0, _, _, grads0, _ = _moe_grad_run(cfg, fwd, params, toks)
@@ -3977,7 +4149,7 @@ def phase_moe_ep(dev="cuda", config=None, batch=MOE_BATCH,
     per = cfg.n_layer
     cap = moe.moe_capacity(batch * prompt, cfg.n_experts, cfg.capacity_factor)
     block = cfg.n_experts * cap * cfg.d_model * 4  # (E, C, M) fp32 bytes
-    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+    launched = launches()
     for r, o in enumerate(ranks):
         if not o["logits_err"] <= 1e-3:
             raise AssertionError(f"ep2 rank {r}: logits {o['logits_err']:.3e}"
@@ -3990,8 +4162,8 @@ def phase_moe_ep(dev="cuda", config=None, batch=MOE_BATCH,
                                  f"{o['replicated_equal']}, held experts its "
                                  f"split {o['held_equal']}")
         for run in o["runs"]:
-            if on_card and run["launches"] != {
-                    "K1 inference": 0, "K1 training": per, "K2": per}:
+            if on_card and run["launches"] != launches(k1_train=per,
+                                                        k2=per):
                 raise AssertionError(f"ep2 rank {r} launched "
                                      f"{run['launches']}")
             want = dict(fwd_gathered=[n_moe, n_moe * block // world],
@@ -4250,7 +4422,7 @@ def phase_dstate_lm(d_state, dev="cuda", config=LM_CONFIG, batch=LMP_BATCH,
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
-    launched = {"K1 inference": 0, "K1 training": 0, "K2": 0}
+    launched = launches()
 
     def add(c):
         for k in launched:
@@ -4283,7 +4455,7 @@ def phase_dstate_lm(d_state, dev="cuda", config=LM_CONFIG, batch=LMP_BATCH,
         want = lm.prefill(ref_parts, toks)[0]
     add(c)
     prefill_err = _max_err(got, want)
-    if on_card and c != {"K1 inference": per, "K1 training": 0, "K2": 0}:
+    if on_card and c != launches(k1=per):
         raise AssertionError(f"{tag}: prefill launched {c}")
     if not prefill_err <= 1e-3:
         raise AssertionError(f"{tag}: prefill logits {prefill_err:.3e} "
@@ -4355,8 +4527,7 @@ def phase_dstate_lm(d_state, dev="cuda", config=LM_CONFIG, batch=LMP_BATCH,
                           grads={k: p.grad for k, p in m.named_parameters()})
     got, want = runs["kernels"], runs["plain"]
     add(got["launches"])
-    if on_card and got["launches"] != {"K1 inference": 0,
-                                       "K1 training": per, "K2": per}:
+    if on_card and got["launches"] != launches(k1_train=per, k2=per):
         raise AssertionError(f"{tag}: gradient step launched "
                              f"{got['launches']}")
     if abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
@@ -4436,8 +4607,7 @@ def phase_dstate_moe(d_state=DSTATE_MOE, dev="cuda", config=None,
             c = counts()
         runs[name] = dict(logits=logits, routes=routes, launches=c)
     got, want = runs["kernels"], runs["plain"]
-    if on_card and got["launches"] != {"K1 inference": cfg.n_layer,
-                                       "K1 training": 0, "K2": 0}:
+    if on_card and got["launches"] != launches(k1=cfg.n_layer):
         raise AssertionError(f"d_state {d_state} MoE LM forward launched "
                              f"{got['launches']}")
     logits_err = _max_err(got["logits"], want["logits"])
@@ -4608,8 +4778,7 @@ def dstate_entries(rows, paths):
     with N's rows, the launches of the paths at that d_state (the phase 13
     paths at theirs, every other path at ``N``) and the fp32 LM-shape row's
     times, ``n_layer`` launches each."""
-    at = {n: {"K1 inference": 0, "K1 training": 0, "K2": 0}
-          for n in DSTATE_NS}
+    at = {n: launches() for n in DSTATE_NS}
     for name, c in paths.items():
         n = int(name.split("dstate")[1]) if "dstate" in name else N
         for k in c:
@@ -4640,7 +4809,7 @@ def dstate_entries(rows, paths):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after phase 3b")
+                        help="stop after phase 3c")
     parser.add_argument("--dstate-only", action="store_true",
                         help="run phase 13 (d_state 1 to 256) alone after "
                              "the build")
@@ -4683,9 +4852,11 @@ def main():
     t0 = done("3 K1 inference", t0)
     fwd_rows, bwd_rows, ragged_err = phase_train_kernels(peaks)
     t0 = done("3b K1 training + K2", t0)
+    dw_rows = phase_dwconv(peaks)
+    t0 = done("3c 3-D depthwise conv", t0)
     if args.kernels_only:
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
-              "--kernels-only: stopped after phase 3b", flush=True)
+              "--kernels-only: stopped after phase 3c", flush=True)
         return
     serve_launched, serve_perf = phase_serve()
     t0 = done("4 serve", t0)
@@ -4738,8 +4909,7 @@ def main():
              "parallel": par_launched, "lm_parallel": lmp_launched,
              "moe_lm": moe_launched, "moe_ep": ep_launched,
              "int8_eval": int8_launched, **dstate_launched}
-    total = {k: sum(p[k] for p in paths.values())
-             for k in ("K1 inference", "K1 training", "K2")}
+    total = {k: sum(p[k] for p in paths.values()) for k in launches()}
     by_dstate = dstate_entries(dstate_perf["rows"], paths)
     k1 = _kernel_entry(
         "selective_scan_fwd",
@@ -4791,11 +4961,41 @@ def main():
             lmp_launched["K2"], lmp_perf["bwd_rows"], lm_step_text(),
             weight=LM_CONFIG["n_layer"],
             timed=lm_step_rows(lmp_perf["bwd_rows"])))
+    dw_source = "vivim_tpu_torch/kernels/csrc/dwconv3d.cu"
+    dw_replaces = (f"none: {JAX_PACKAGE}/nn/layers.py "
+                   "unrolled_depthwise_conv is plain XLA")
+    dw_timed = lambda which, batch: [r for r in dw_rows
+                                     if r.get("which") == which
+                                     and r["batch"] == batch]
+    dw_per = (f"{LAYERS_PER_STAGE} launches at each Mix-FFN stage shape "
+              f"(T {DW_FRAMES}, H = W and C of {DW_STAGES})")
+    dw = _kernel_entry(
+        "dwconv3d_fwd", dw_source, dw_replaces,
+        total["dwconv3d forward"], dw_timed("forward", 1),
+        f"serving forward, batch 1: {dw_per}, fp32, {TIMING}",
+        launches_by_path=paths,
+        library_ms_cudnn=sum(LAYERS_PER_STAGE * r["library_ms"]
+                             for r in dw_timed("forward", 1)),
+        ragged_max_abs_err=dw_rows[-1]["max_abs_err"],
+        training=_kernel_entry(
+            "dwconv3d_fwd (training step)", dw_source, dw_replaces,
+            total["dwconv3d forward"], dw_timed("forward", TRAIN_BATCH),
+            f"train step, batch {TRAIN_BATCH}: {dw_per}, fp32, {TIMING}",
+            library_ms_cudnn=sum(LAYERS_PER_STAGE * r["library_ms"]
+                                 for r in dw_timed("forward",
+                                                   TRAIN_BATCH))))
+    dw_bwd = _kernel_entry(
+        "dwconv3d_bwd + dwconv3d_bwd_sum", dw_source, dw_replaces,
+        total["dwconv3d backward"], dw_timed("backward", TRAIN_BATCH),
+        f"train step, batch {TRAIN_BATCH}: {dw_per}, fp32, {TIMING}",
+        launches_by_path=paths,
+        library_ms_cudnn=sum(LAYERS_PER_STAGE * r["library_ms"]
+                             for r in dw_timed("backward", TRAIN_BATCH)))
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     lm_summary = {k: v for k, v in lm_perf.items() if k != "scan_rows"}
     lmp_summary = {k: v for k, v in lmp_perf.items()
                    if k not in ("fwd_rows", "bwd_rows")}
-    print(json.dumps({"kernels": [k1, k2], "serve": serve_perf,
+    print(json.dumps({"kernels": [k1, k2, dw, dw_bwd], "serve": serve_perf,
                       "train": train_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
                       "lm": lm_summary, "remat": remat_perf,

@@ -509,3 +509,238 @@ def test_tiny_remat_step_keeps_the_card_generator(cuda, level):
     torch.testing.assert_close(m_r["loss"], m_n["loss"], rtol=1e-5, atol=0)
     for n, g in g_r.items():
         torch.testing.assert_close(g, g_n[n], rtol=1e-3, atol=2e-3, msg=n)
+
+
+# The Mix-FFN's 3-D depthwise conv (kernels/dwconv3d.py).  Tolerances: y
+# and dx (27 fp32 FMAs of unit-scale terms) rtol 1e-5 / atol 1e-5 against
+# float64 F.conv3d; dweight and dbias, fp32 sums over every position (up to
+# 61,440 at stage 0 of a training step), within 1e-4 of their largest
+# magnitude; bf16 tokens rtol 3e-2 / atol 5e-2 (TOL) against float64 on the
+# bf16 values.
+DW_TOL = dict(rtol=1e-5, atol=1e-5)
+DW_SUM_TOL = 1e-4
+# (batch, T, H, W, C): Vivim-b3's four Mamba stages at 5 x 256 px, batch 1
+# (serving) and 3 (training)
+DW_STAGES = tuple((b, 5, s, s, c) for b in (1, 3)
+                  for s, c in ((64, 256), (32, 512), (16, 1280), (8, 2048)))
+# T, H, W in {1, 2, 5, 7}, C in {1, 3, 16, 130}, batch 1 and 3
+DW_RAGGED = ((1, 1, 1, 1, 1), (3, 1, 2, 5, 3), (1, 2, 7, 1, 16),
+             (3, 5, 5, 2, 130), (1, 7, 1, 7, 3), (3, 2, 2, 2, 1),
+             (1, 5, 7, 5, 130), (3, 7, 5, 7, 16))
+
+
+def _dw_inputs(dev, case, seed=0):
+    """fp32 tokens, weight at its init scale, bias, cotangent."""
+    batch, T, H, W, C = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return (f(batch, T * H * W, C), f(C, 1, 3, 3, 3) / 27 ** 0.5,
+            0.1 * f(C), f(batch, T * H * W, C))
+
+
+def _dw_float64(x, w, b, dy, T, H, W):
+    """y and (dx, dweight, dbias) of float64 F.conv3d (the card's, TF32
+    irrelevant in float64), by autograd."""
+    x, w, b = (t.double().requires_grad_() for t in (x, w, b))
+    y = refs.dwconv3d_ref(x, w, b, T, H, W)
+    return y.detach(), torch.autograd.grad(y, (x, w, b), dy.double())
+
+
+def _dw_check(got_y, got, want_y, want, what, tol=DW_TOL,
+              sum_tol=DW_SUM_TOL):
+    if got_y is not None:
+        torch.testing.assert_close(got_y.double(), want_y, **tol,
+                                   msg=f"{what} y")
+    torch.testing.assert_close(got[0].double(), want[0], **tol,
+                               msg=f"{what} dx")
+    for name, g, v in zip(("dweight", "dbias"), got[1:], want[1:]):
+        err = (g.double() - v).abs().max().item()
+        scale = v.abs().max().item()
+        assert err <= sum_tol * scale, (
+            f"{what} {name}: {err:.3e} of {scale:.3e}")
+
+
+@pytest.mark.parametrize("case", DW_STAGES,
+                         ids=["b{}_t{}_h{}_w{}_c{}".format(*c)
+                              for c in DW_STAGES])
+def test_dwconv3d_kernels_at_vivim_stages(cuda, case):
+    """The forward (one launch) and the backward (one wrapper call, two
+    kernels) at the Vivim-b3 stage shapes, as the wrapper tiles them,
+    against float64 F.conv3d."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+
+    batch, T, H, W, C = case
+    x, w, b, dy = _dw_inputs(cuda, case)
+    c0 = (dk.LAUNCHES, dk.BWD_LAUNCHES)
+    y = dk.dwconv3d_fwd_cuda(x, w, b, T, H, W)
+    grads = dk.dwconv3d_bwd_cuda(x, dy, w, T, H, W)
+    assert (dk.LAUNCHES, dk.BWD_LAUNCHES) == (c0[0] + 1, c0[1] + 1)
+    torch.cuda.synchronize()
+    _dw_check(y, grads, *_dw_float64(x, w, b, dy, T, H, W), str(case))
+
+
+@pytest.mark.parametrize("case", DW_RAGGED,
+                         ids=["b{}_t{}_h{}_w{}_c{}".format(*c)
+                              for c in DW_RAGGED])
+def test_dwconv3d_kernels_at_ragged_shapes_and_tiles(cuda, case):
+    """Edge shapes, as the wrapper tiles them and with forced block rows
+    (1, 2 and 3: tiles that end mid-frame and cross frames), scalar lanes
+    forced too; and tokens read in place as a column slice of a wider
+    tensor (token stride 2C)."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+
+    batch, T, H, W, C = case
+    x, w, b, dy = _dw_inputs(cuda, case, seed=1)
+    want_y, want = _dw_float64(x, w, b, dy, T, H, W)
+    for rows in (None, 1, 2, 3):
+        for vec in (None, 1):
+            y = dk._fwd_launch(x, w, b, T, H, W, rows, vec)
+            grads = dk._bwd_launch(x, dy, w, T, H, W, True, rows)
+            torch.cuda.synchronize()
+            _dw_check(y, grads, want_y, want, f"{case} rows {rows} vec "
+                      f"{vec}")
+    wide = torch.cat([x, torch.randn_like(x)], 2)
+    xs = wide[..., :C]
+    assert xs.stride(1) == 2 * C and xs.stride(2) == 1
+    y = dk.dwconv3d_fwd_cuda(xs, w, b, T, H, W)
+    grads = dk.dwconv3d_bwd_cuda(xs, dy, w, T, H, W)
+    torch.cuda.synchronize()
+    _dw_check(y, grads, want_y, want, f"{case} strided")
+
+
+def test_dwconv3d_module_in_bf16(cuda):
+    """``DWConv3d`` on bf16 tokens and a bf16 module: cast up, the kernels
+    in fp32, cast back; y, dx and the weight and bias grads against
+    float64 F.conv3d on the bf16 values."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+    from vivim_tpu_torch.nn.layers import DWConv3d
+
+    case = (3, 5, 16, 16, 1280)
+    batch, T, H, W, C = case
+    x, w, b, dy = _dw_inputs(cuda, case, seed=2)
+    mod = DWConv3d(C).to(cuda)
+    with torch.no_grad():
+        mod.dwconv.weight.copy_(w)
+        mod.dwconv.bias.copy_(b)
+    mod = mod.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    c0 = (dk.LAUNCHES, dk.BWD_LAUNCHES)
+    y = mod(xb, T, H, W)
+    y.backward(dy.to(torch.bfloat16))
+    assert (dk.LAUNCHES, dk.BWD_LAUNCHES) == (c0[0] + 1, c0[1] + 1)
+    assert y.dtype == xb.grad.dtype == mod.dwconv.weight.grad.dtype \
+        == torch.bfloat16
+    conv = mod.dwconv
+    want_y, want = _dw_float64(xb.detach(), conv.weight.detach().reshape(
+        C, 1, 3, 3, 3), conv.bias.detach(), dy.to(torch.bfloat16), T, H, W)
+    rtol, atol = TOL[torch.bfloat16]
+    _dw_check(y, (xb.grad, conv.weight.grad, conv.bias.grad), want_y, want,
+              "bf16", tol=dict(rtol=rtol, atol=atol), sum_tol=1e-2)
+
+
+def test_dwconv3d_backward_is_deterministic(cuda):
+    """dweight and dbias (and dx) are the same bits on two runs: the
+    partials are summed in a fixed order, with no atomics."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+
+    case = DW_STAGES[4]  # batch 3, stage 0
+    batch, T, H, W, C = case
+    x, w, _, dy = _dw_inputs(cuda, case, seed=3)
+    first = dk.dwconv3d_bwd_cuda(x, dy, w, T, H, W)
+    second = dk.dwconv3d_bwd_cuda(x, dy, w, T, H, W)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("dx", "dweight", "dbias"), first, second):
+        assert torch.equal(a, c), name
+
+
+def test_dwconv3d_in_a_cuda_graph_counts_per_replay(cuda):
+    """Eight ``DWConv3d`` forwards (two per Vivim-b3 serving stage)
+    captured by ``cuda_graphs.capture``: the replay's outputs equal the
+    eager ones bit for bit, and ``LAUNCHES`` counts 8 per warm-up call and
+    per replay, none for the capture itself."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+    from vivim_tpu_torch.nn.layers import DWConv3d
+    from vivim_tpu_torch.utils import cuda_graphs
+
+    stages = DW_STAGES[:4]
+    mods = [DWConv3d(c[4]).to(cuda).eval() for c in stages for _ in (0, 1)]
+    inputs = tuple(_dw_inputs(cuda, c, seed=4)[0] for c in stages)
+
+    def run(*xs):
+        return tuple(m(xs[i // 2], *stages[i // 2][1:4])
+                     for i, m in enumerate(mods))
+
+    with torch.inference_mode():
+        eager = run(*inputs)
+        c0 = dk.LAUNCHES
+        graph = cuda_graphs.capture(run, tuple(x.clone() for x in inputs))
+        assert dk.LAUNCHES - c0 == 8 * cuda_graphs.WARMUP_CALLS
+        for k in range(3):
+            got = graph(*inputs)
+            assert dk.LAUNCHES - c0 == 8 * (cuda_graphs.WARMUP_CALLS + k + 1)
+    torch.cuda.synchronize()
+    for g, e in zip(got, eager):
+        assert torch.equal(g, e)
+
+
+def test_vivim_b3_step_conv_kernels_vs_cudnn(cuda, monkeypatch):
+    """One fp32 step (forward, loss, backward) of MiT-b3 Vivim at its
+    widths (5 x 64 px clips, batch 1, dropouts 0) with the conv kernels (8
+    forward and 8 backward calls) and with the conv as cuDNN ran it before
+    them (``F.conv3d`` in fp32, TF32 off, autograd through it): loss within
+    1e-5 relative, every gradient within rtol 1e-3 / atol 2e-3."""
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+    from vivim_tpu_torch.nn.layers import DWConv3d, init_weights, use_generator
+    from vivim_tpu_torch.nn.vivim import Vivim
+    from vivim_tpu_torch.train import loop
+    from vivim_tpu_torch.train.losses import LOSSES
+
+    args = type("Args", (), dict(segformer="b3", num_classes=3,
+                                 with_edge=False))()
+    _, cfg = build_model(args, device="cpu", seed=0)
+    cfg = dataclasses.replace(
+        cfg, drop_path_rate=0.0, dropout_rate=0.0,
+        segformer=dataclasses.replace(cfg.segformer, drop_path_rate=0.0,
+                                      classifier_dropout=0.0))
+    rng = np.random.default_rng(7)
+    clip = torch.from_numpy(rng.standard_normal(
+        (1, 5, 64, 64, 3)).astype(np.float32)).to(cuda)
+    masks = torch.from_numpy(np.eye(3, dtype=np.float32)[
+        rng.integers(0, 3, (1, 5, 64, 64))]).to(cuda)
+    out = []
+    for cudnn in (False, True):
+        if cudnn:
+            monkeypatch.setattr(dk.DWConv3dFn, "apply", refs.dwconv3d_ref)
+        model = init_weights(Vivim(cfg), torch.Generator().manual_seed(0))
+        model = use_generator(model.to(cuda).train(),
+                              torch.Generator(cuda).manual_seed(0))
+        c0 = (dk.LAUNCHES, dk.BWD_LAUNCHES)
+        logits, targets = loop.flatten_frames(model(clip), masks)
+        loss = LOSSES["recall_focused"](logits, targets, 3)
+        loss.backward()
+        launched = (dk.LAUNCHES - c0[0], dk.BWD_LAUNCHES - c0[1])
+        assert launched == ((0, 0) if cudnn else (8, 8))
+        out.append((loss.item(), {n: p.grad for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None}))
+    (loss_k, g_k), (loss_c, g_c) = out
+    conv_grads = {f"{n}.dwconv.{k}" for n, m in model.named_modules()
+                  if isinstance(m, DWConv3d) for k in ("weight", "bias")}
+    assert abs(loss_k - loss_c) <= 1e-5 * abs(loss_c)
+    assert set(g_k) == set(g_c) and len(conv_grads) == 16 \
+        and conv_grads <= set(g_k)
+    for n, g in g_k.items():
+        torch.testing.assert_close(g, g_c[n], rtol=1e-3, atol=2e-3, msg=n)
+
+
+def test_dwconv3d_refuses_what_the_kernels_do_not_take(cuda):
+    """bf16 tokens (``DWConv3d`` casts them up first) and a weight of
+    another shape raise before any launch."""
+    from vivim_tpu_torch.kernels import dwconv3d as dk
+
+    x, w, b, _ = _dw_inputs(cuda, (1, 2, 3, 4, 8))
+    with pytest.raises(ValueError, match="fp32"):
+        dk.dwconv3d_fwd_cuda(x.to(torch.bfloat16), w, b, 2, 3, 4)
+    with pytest.raises(ValueError, match="weight"):
+        dk.dwconv3d_fwd_cuda(x, w[:4], b, 2, 3, 4)

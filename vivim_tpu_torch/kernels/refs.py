@@ -25,6 +25,10 @@ CUDA kernels; on the GPU they are what the kernels are held against.
   step of the conv window and of the SSM state (the streaming LM's step).
 - ``mamba_inner_ref``: conv1d -> x_proj -> (dt, B, C) split -> dt_proj ->
   selective scan (z-gated), optionally + out_proj.
+- ``dwconv3d_ref`` / ``dwconv3d_bwd_ref``: the 3-D depthwise conv (3x3x3,
+  zero padding 1) of channels-last ``(batch, T*H*W, C)`` tokens and its
+  three gradients; ``dwconv3d_bwd_tiled_ref``: the backward kernel's
+  items, block rows and fixed-order partial sums, for the tests.
 
 Layout is time-major: activations are ``(batch, seqlen, dim)``.
 """
@@ -517,3 +521,86 @@ def mamba_inner_ref(
         if out_proj_bias is not None:
             y = y + out_proj_bias
     return y
+
+
+def dwconv3d_ref(x, weight, bias, T, H, W):
+    """3-D depthwise conv (3x3x3, stride 1, zero padding 1, groups = C) of
+    ``(batch, T*H*W, C)`` channels-last tokens over (T, H, W), by
+    ``F.conv3d`` in x's dtype; weight ``(C, 1, 3, 3, 3)``, bias ``(C,)`` or
+    None.  Returns the tokens' layout."""
+    batch, N, C = x.shape
+    xv = x.reshape(batch, T, H, W, C).permute(0, 4, 1, 2, 3)
+    y = F.conv3d(xv, weight, bias, padding=1, groups=C)
+    return y.permute(0, 2, 3, 4, 1).reshape(batch, N, C)
+
+
+def _dwconv3d_taps(x, T, H, W):
+    """Tap (i, j, k) of ``(batch, T*H*W, C)`` tokens, for i, j, k in
+    row-major order: the ``(batch, T, H, W, C)`` view of x[b, t+i-1, h+j-1,
+    w+k-1, c], 0 outside the frame."""
+    batch, _, C = x.shape
+    xp = F.pad(x.reshape(batch, T, H, W, C), (0, 0, 1, 1, 1, 1, 1, 1))
+    for i in range(3):
+        for j in range(3):
+            for k in range(3):
+                yield xp[:, i:i + T, j:j + H, k:k + W]
+
+
+def dwconv3d_bwd_ref(x, dy, weight, T, H, W, with_bias=True):
+    """The conv's gradients: (dx, dweight ``(C, 1, 3, 3, 3)``, dbias or
+    None).  dx is the same conv of dy with the taps mirrored and no bias;
+    dweight's tap (i, j, k) is the sum of dy times x's tap (i, j, k); dbias
+    the sum of dy."""
+    batch, N, C = x.shape
+    dx = dwconv3d_ref(dy, weight.flip((2, 3, 4)), None, T, H, W)
+    dy5 = dy.reshape(batch, T, H, W, C)
+    dweight = torch.stack([(dy5 * tap).sum((0, 1, 2, 3))
+                           for tap in _dwconv3d_taps(x, T, H, W)], 1)
+    dbias = dy.sum((0, 1)) if with_bias else None
+    return dx, dweight.reshape(C, 1, 3, 3, 3), dbias
+
+
+def dwconv3d_bwd_tiled_ref(x, dy, weight, T, H, W, rows, items_per_step,
+                           with_bias=True):
+    """The backward kernel's decomposition, in plain PyTorch: a model for
+    the tests (no code path calls it).  An item is the W outputs of one
+    (b, t, h) row, items numbered in (b, t, h) order.  A block row steps
+    through groups of ``items_per_step`` items: row r takes the groups r,
+    r + rows, r + 2 rows, ..., its thread y the y-th item of each.
+
+    - dx: each output's sum over the mirrored taps, k outer and (i, j)
+      inner, the order in which the kernel's walk along w adds them;
+    - a thread's partials of dweight's 27 taps and of dbias: its items'
+      sums, item after item;
+    - the block row's partial: its threads' summed in y order, one
+      ``(rows, 28, C)`` buffer;
+    - dweight and dbias: the rows summed in row order.
+
+    Returns what ``dwconv3d_bwd_ref`` returns."""
+    batch, N, C = x.shape
+    mirrored = weight.reshape(C, 27).flip(1)
+    dyt = list(_dwconv3d_taps(dy, T, H, W))
+    dx = torch.zeros_like(dy).reshape(batch, T, H, W, C)
+    for k in range(3):
+        for ij in range(9):
+            dx = dx + mirrored[:, 3 * ij + k] * dyt[3 * ij + k]
+    dy5 = dy.reshape(batch, T, H, W, C)
+    per_item = lambda v: v.sum(3).reshape(-1, C)  # each row's sum over w
+    items = torch.stack([per_item(dy5 * tap) for tap in
+                         _dwconv3d_taps(x, T, H, W)] + [per_item(dy5)], 1)
+    groups = -(-items.shape[0] // items_per_step)
+    steps = -(-groups // rows)
+    items = F.pad(items, (0, 0, 0, 0, 0, steps * rows * items_per_step
+                          - items.shape[0]))
+    items = items.reshape(steps, rows, items_per_step, 28, C)
+    threads = items[0]
+    for s in range(1, steps):  # each thread's items, in order
+        threads = threads + items[s]
+    part = threads[:, 0]
+    for y in range(1, items_per_step):  # the block's threads, in y order
+        part = part + threads[:, y]
+    total = part[0]
+    for r in range(1, rows):  # the block rows, in row order
+        total = total + part[r]
+    return (dx.reshape(batch, N, C), total[:27].t().reshape(C, 1, 3, 3, 3),
+            total[27] if with_bias else None)

@@ -3,8 +3,8 @@
 draws), 3-D depthwise conv, Mix-FFN Mlp, and seeded weight init.
 
 Port of the JAX package's ``nn/layers.py``.  Tokens stay channels-last
-``(B, N, C)``; ``DWConv3d`` permutes to NCDHW only around its
-``nn.Conv3d``.  State-dict keys are the reference Vivim's
+``(B, N, C)``; ``DWConv3d`` convolves them in that layout
+(``kernels/dwconv3d.py``).  State-dict keys are the reference Vivim's
 (``mlp.fc1``, ``mlp.dwconv.dwconv``, ``mlp.fc2``).
 
 Random numbers come only from explicit ``torch.Generator``s, as JAX's come
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from vivim_tpu_torch.kernels import dwconv3d
 from vivim_tpu_torch.parallel import comm
 from vivim_tpu_torch.utils.profiling import span
 
@@ -180,9 +181,10 @@ class DWConv3d(nn.Module):
 
     The conv runs in fp32 whatever the input dtype (input, weight and bias
     cast up, the output cast back), as the JAX package sums this conv's taps
-    in fp32; cuDNN's bf16 3-D depthwise weight gradient was also far slower
-    than its fp32 one (PERF.md).  Its span ``dwconv3d`` covers the forward
-    (the layout's permutes, the casts and cuDNN's per-group kernels)."""
+    in fp32: on the card one hand-written kernel forward and two backward
+    (``kernels/dwconv3d.py``), reading the tokens channels-last and the
+    weight in ``nn.Conv3d``'s layout; on the CPU ``F.conv3d``.  Its span
+    ``dwconv3d`` covers the forward (the casts and the kernel)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -197,15 +199,13 @@ class DWConv3d(nn.Module):
             whole = self(comm.seq_gather_partial(x, seq_group), nframes, H,
                          W)
             return whole.narrow(1, comm.rank(seq_group) * ls, ls)
-        B, N, C = x.shape
-        if N != nframes * H * W:
-            raise ValueError(f"{N} tokens != {nframes}x{H}x{W}")
+        if x.shape[1] != nframes * H * W:
+            raise ValueError(f"{x.shape[1]} tokens != {nframes}x{H}x{W}")
         with span("dwconv3d"):
-            xv = x.reshape(B, nframes, H, W, C).permute(0, 4, 1, 2, 3)
             conv = self.dwconv
-            y = F.conv3d(xv.float(), conv.weight.float(), conv.bias.float(),
-                         padding=1, groups=C).to(x.dtype)
-            return y.permute(0, 2, 3, 4, 1).reshape(B, N, C)
+            return dwconv3d.DWConv3dFn.apply(
+                x.float(), conv.weight.float(), conv.bias.float(), nframes,
+                H, W).to(x.dtype)
 
 
 class Mlp(nn.Module):

@@ -120,6 +120,21 @@ Phases, each of which raises on failure (exit code != 0):
    bench's defaults through the decode graph and through the eager loop
    (the mixer hook) in each dtype, tokens/s of both and their tokens
    equal, and in fp32 at top-k 0, temperature 1 from one seed;
+8b. Jamba (``JAMBA_CONFIG``: AI21-Jamba2-Mini's config.json, its first 8
+   layers, one period) in bf16 at full width: (a) K1 against its plain
+   version at the prefill's shape (8, 4096, 8192) in bf16, B and C at unit
+   RMS as the dt / B / C norms leave them, output and last state, with
+   device and plain ms and bound; (b) ``load_jamba`` of the config's
+   directory (seeded init, 13.3 B parameters on the card), a ``generate``
+   that captures the decode graph, then 3 requests of (8, 4096) prompts
+   and 16 new tokens with the counts zeroed just before them: 7 K1 a
+   prefill, none in the 48 replays, no capture, no conv; (c) the replayed
+   hybrid step (Mamba step, GQA step against the K/V cache, dropless MoE
+   step) within 1e-2 of the eager loop's scores, teacher-forced; (d) the
+   decode graph's K/V position after a request, and its keys and values at
+   the served positions within 0.05 (median, relative) of a prefill's over
+   the served sequence; (e) prefill ms, decode ms per step, experts read
+   per step, peak memory;
 9. remat, a trainer checkpoint into the infer CLI, and the host tools:
    (a) MiT-b3 Vivim built by the training CLIs' ``build_model`` at each
    ``-remat`` level (none, pre_scan, blocks; dropouts and drop-path on at
@@ -237,8 +252,8 @@ each K2; the LM phases must call it not at all.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3c (a
-quick check of the kernels on the card); ``--dstate-only`` runs phase 13
-alone after the build.
+quick check of the kernels on the card); ``--jamba-only`` runs phase 8b
+alone after the build, ``--dstate-only`` phase 13.
 """
 
 from __future__ import annotations
@@ -375,6 +390,27 @@ DSTATE_LONG_NS = (4, 64, 256)
 DSTATE_LM = (8, 64)
 DSTATE_MOE = 64
 DSTATE_GEN = 16
+# phase 8b: Jamba as the benchmark's Jamba cell serves it: AI21-Jamba2-Mini's
+# config.json as published, cut to its first 8 layers (one period: 7 Mamba
+# mixers with dt / B / C norms, GQA attention at layer 4, 16 experts top-2
+# at the odd layers), bf16, seeded weights; the cell's batch and prompt,
+# fewer new tokens, and the requests whose launches are counted
+JAMBA_CONFIG = {
+    "attn_layer_offset": 4, "attn_layer_period": 8,
+    "expert_layer_offset": 1, "expert_layer_period": 2,
+    "hidden_act": "silu", "hidden_size": 4096, "intermediate_size": 14336,
+    "mamba_conv_bias": True, "mamba_d_conv": 4, "mamba_d_state": 16,
+    "mamba_dt_rank": 256, "mamba_expand": 2, "mamba_proj_bias": False,
+    "max_position_embeddings": 262144, "model_type": "jamba",
+    "num_attention_heads": 32, "num_experts": 16, "num_experts_per_tok": 2,
+    "num_hidden_layers": 32, "num_key_value_heads": 8, "rms_norm_eps": 1e-06,
+    "sliding_window": None, "tie_word_embeddings": False,
+    "vocab_size": 65536}
+JAMBA_LAYERS = 8
+JAMBA_BATCH = 8
+JAMBA_PROMPT = 4096
+JAMBA_GEN = 16
+JAMBA_REQUESTS = 3
 
 
 def nvidia_smi(query):
@@ -2502,6 +2538,194 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
                           prefill_logits_err=logit_err,
                           teacher_scores_err=score_err, timing=timing,
                           peak_gib=peak / 2**30, scan_rows=rows)
+
+
+def jamba_scan_row(peaks):
+    """K1 (inference variant, z and last state) against its plain version
+    at Jamba's prefill shape, (JAMBA_BATCH, JAMBA_PROMPT, d_inner 8192) in
+    bf16, with B and C at unit RMS over d_state as Jamba's ``b_layernorm``
+    / ``c_layernorm`` (weights 1) leave them, and A, D and the dt bias
+    shared over the batch, as the model passes them."""
+    from vivim_tpu_torch.kernels import refs
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    b, L = JAMBA_BATCH, JAMBA_PROMPT
+    d = JAMBA_CONFIG["mamba_expand"] * JAMBA_CONFIG["hidden_size"]
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    u, delta, A, B, C, D, z, bias = scan_inputs(b, L, d, dtype, gen)
+    unit = lambda t: (t.float() * torch.rsqrt(
+        t.float().pow(2).mean(-1, keepdim=True) + 1e-6)).to(dtype)
+    B, C, A, D, bias = unit(B), unit(C), A[0], D[0], bias[0]
+    lc, grid = picked_chunk(b, L, d)
+    run = lambda: ss.selective_scan_fwd_cuda(
+        u, delta, A, B, C, D=D, z=z, delta_bias=bias, delta_softplus=True)
+    got = run()
+    torch.cuda.synchronize()
+    want, plain_ms = once_ms(lambda: refs.selective_scan_ref(
+        u, delta, A, B, C, D=D, z=z, delta_bias=bias, delta_softplus=True,
+        return_last_state=True))
+    rtol, atol = TOL[dtype]
+    for what, g, w in zip(("y", "last"), got, want):
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=rtol, atol=atol,
+            msg=f"K1 Jamba prefill shape ({b}, {L}, {d}) bf16 {what}")
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    scale = max(w.float().abs().max().item() for w in want)
+    del want
+    torch.cuda.empty_cache()
+    call_ms = cuda_ms(run, 5)
+    ms = device_ms(run, calls=3, repeats=3)
+    work = scan_work(b, L, d, N, got[0].element_size())
+    bound_ms, bound_by, term = bound(work, peaks)
+    del got, u, delta, B, C, z
+    torch.cuda.empty_cache()
+    layers = sum(not (i % JAMBA_CONFIG["attn_layer_period"]
+                      == JAMBA_CONFIG["attn_layer_offset"])
+                 for i in range(JAMBA_LAYERS))
+    row = dict(stage=f"jamba L={L}", batch=b, L=L, d=d, dtype="bfloat16",
+               l_chunk=lc, grid=grid, max_abs_err=err, max_abs=scale,
+               ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bound_term=term, mbytes=work[0] / 1e6,
+               calls_per_prefill=layers)
+    print(f"K1 Jamba prefill bfloat16 ({b}, {L}, {d}) "
+          f"{grid_text(lc, grid)}: y, last max_abs_err={err:.3e} (rtol "
+          f"{rtol}, atol {atol}; |y|, |last| max {scale:.3f}) "
+          f"device_ms={ms:.4f} (one call with its launch {call_ms:.4f}) "
+          f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.5f} ({term}; "
+          f"{work[0] / 1e6:.2f} MB, {work[2] / 1e6:.2f} M exps); per "
+          f"prefill ({layers} calls): device {layers * ms:.3f} ms, plain "
+          f"{layers * plain_ms:.1f} ms", flush=True)
+    return row
+
+
+def phase_jamba(peaks):
+    """Phase 8b: Jamba on the LM's serving path at full width.  (a) K1
+    against its plain version at the prefill's shape (``jamba_scan_row``);
+    (b) ``load_jamba`` of a directory holding the published config.json,
+    cut to ``JAMBA_LAYERS`` layers, in bf16 from the seeded init; one
+    ``generate`` (the decode graph's capture), then, with the counts
+    zeroed just before them, ``JAMBA_REQUESTS`` requests of (JAMBA_BATCH,
+    JAMBA_PROMPT) prompts and JAMBA_GEN new tokens: K1 launched once per
+    Mamba layer in each prefill and never in the replayed decode, no
+    capture, one replay per new token, no conv; (c) the replayed hybrid
+    decode step (the Mamba step, the GQA step against the K/V cache, the
+    dropless MoE step) against the eager loop of ``decode_step``, teacher-
+    forced on the replayed run's tokens; (d) the decode graph's K/V cache
+    after a request: its position, and the keys and values at the served
+    positions against a prefill's over the served sequence; (e) prefill ms
+    and decode ms per step (CUDA events) and the distinct experts a step
+    read."""
+    import functools
+
+    from vivim_tpu_torch.nn import jamba, lm, moe, streaming
+
+    t0 = time.perf_counter()
+    row = jamba_scan_row(peaks)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as snap:
+        with open(os.path.join(snap, "config.json"), "w") as f:
+            json.dump(JAMBA_CONFIG, f)
+        model, params = jamba.load_jamba(snap, "cuda", torch.bfloat16, seed=0,
+                                         num_hidden_layers=JAMBA_LAYERS)
+    cfg = model.cfg
+    n_mamba = sum(not cfg.is_attention(i) for i in range(JAMBA_LAYERS))
+    g = torch.Generator(device="cuda").manual_seed(21)
+    prompts = [torch.randint(0, cfg.vocab_size, (JAMBA_BATCH, JAMBA_PROMPT),
+                             generator=g, device="cuda")
+               for _ in range(JAMBA_REQUESTS + 1)]
+    run = lambda toks, **kw: lm.generate(model, params, toks, JAMBA_GEN,
+                                         top_k=1, output_scores=True, **kw)
+    reset_counts()
+    run(prompts[-1])                    # the capture
+    warm, warm_graphs = counts(), graph_counts()
+    if warm != launches(k1=n_mamba) or warm_graphs["captures"] != 1:
+        raise AssertionError(f"Jamba's first generate: {warm}, "
+                             f"{warm_graphs}")
+    read0 = int(moe.experts_read("cuda"))
+    reset_counts()
+    outs = [run(p) for p in prompts[:JAMBA_REQUESTS]]
+    torch.cuda.synchronize()
+    got, graphs = counts(), graph_counts()
+    want = launches(k1=n_mamba * JAMBA_REQUESTS)
+    want_graphs = {"captures": 0, "replays": JAMBA_GEN * JAMBA_REQUESTS}
+    if got != want or graphs != want_graphs:
+        raise AssertionError(f"{JAMBA_REQUESTS} Jamba generates launched "
+                             f"{got}, {graphs}; expected {want}, "
+                             f"{want_graphs}")
+    per_step = ((int(moe.experts_read("cuda")) - read0)
+                / (JAMBA_GEN * JAMBA_REQUESTS) / len(cfg.moe_layers()))
+    print(f"jamba: {JAMBA_REQUESTS} generates of ({JAMBA_BATCH}, "
+          f"{JAMBA_PROMPT}) + {JAMBA_GEN}: K1 {got['K1 inference']} ("
+          f"{n_mamba} a prefill, none in {graphs['replays']} decode "
+          f"replays), no capture, no conv; {per_step:.2f} distinct experts "
+          f"of {cfg.num_experts} a step in each MoE layer", flush=True)
+    # (c) the replayed step against the eager loop, teacher-forced
+    toks, scores = outs[0]
+    eager = functools.partial(streaming.mamba_step, norm_eps=cfg.rms_norm_eps)
+    e_toks, e_scores = run(prompts[0], teacher_outputs=toks,
+                           mixer_step=eager)
+    if not torch.equal(e_toks, toks):
+        raise AssertionError("Jamba's teacher-forced eager tokens differ "
+                             "from the teacher")
+    step_err = (scores - e_scores).abs().max().item()
+    agree = (e_scores.argmax(-1) == toks[:, JAMBA_PROMPT:]).float().mean()
+    if not step_err <= 1e-2:
+        raise AssertionError(f"Jamba's replayed decode scores "
+                             f"{step_err:.3e} from the eager loop's")
+    print(f"jamba: replayed decode vs the eager loop, teacher-forced: "
+          f"scores max_abs_err={step_err:.3e} (atol 1e-2; |scores| max "
+          f"{scores.abs().max().item():.3f}); the eager argmax equal to the "
+          f"replayed token at {100 * agree.item():.1f} %", flush=True)
+    # (d) the decode graph's K/V cache after the last replayed request: its
+    # position advanced once a step, and the keys and values it wrote at
+    # the served positions those of a prefill over the served sequence
+    dg = model._decoding_cache
+    a = next(i for i in range(JAMBA_LAYERS) if cfg.is_attention(i))
+    cache, pos = dg.states[a], dg.states[dg.n_layer + a]
+    parts = lm.split_params(model, params)
+    full = outs[-1][0]
+    with torch.no_grad():
+        _, caches, positions = lm.prefill(parts, full,
+                                          max_len=full.shape[1])
+    if int(pos) != full.shape[1] or int(positions[a]) != int(pos):
+        raise AssertionError(f"Jamba's K/V position {int(pos)} after "
+                             f"{JAMBA_GEN} steps from {JAMBA_PROMPT}")
+    got_kv = cache[:, :, :, JAMBA_PROMPT:].float()
+    want_kv = caches[a][:, :, :, JAMBA_PROMPT:].float()
+    rel = (got_kv - want_kv).norm(dim=-1) / want_kv.norm(dim=-1)
+    kv_median, kv_max = rel.median().item(), rel.max().item()
+    if not kv_median <= 0.05:
+        raise AssertionError(f"Jamba's decoded keys and values lie "
+                             f"{kv_median:.3e} (median, relative) from the "
+                             "prefill's")
+    print(f"jamba: K/V position {int(pos)} after {JAMBA_GEN} replayed "
+          f"steps; the {JAMBA_GEN} decoded positions' keys and values "
+          f"within {kv_median:.3e} (median) and {kv_max:.3e} (max) relative "
+          f"of a prefill over the served sequence (median bound 0.05)",
+          flush=True)
+    del outs, toks, scores, e_toks, e_scores, caches, positions, full
+    del got_kv, want_kv
+    # (e) prefill and decode ms
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: lm.prefill(
+            parts, prompts[0], max_len=JAMBA_PROMPT + JAMBA_GEN), 3)
+    generate_ms = cuda_ms(lambda: run(prompts[1]), 3)
+    decode_ms = (generate_ms - prefill_ms) / JAMBA_GEN
+    peak = torch.cuda.max_memory_allocated()
+    print(f"jamba: prefill {prefill_ms:.1f} ms, generate {generate_ms:.1f} "
+          f"ms, so {decode_ms:.3f} ms a decode step with its draw; peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    del model, params, parts, prompts
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"jamba: phase {secs:.1f} s", flush=True)
+    return got, dict(scan_row=row, launches=got, graphs=graphs,
+                     experts_per_step=per_step, decode_err=step_err,
+                     kv_rel_median=kv_median, kv_rel_max=kv_max,
+                     prefill_ms=prefill_ms, decode_ms=decode_ms,
+                     peak_gib=peak / 2**30, secs=secs)
 
 
 def remat_run(level, batches, dev, segformer="b3", check=None):
@@ -4810,6 +5034,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3c")
+    parser.add_argument("--jamba-only", action="store_true",
+                        help="run phase 8b (Jamba) alone after the build")
     parser.add_argument("--dstate-only", action="store_true",
                         help="run phase 13 (d_state 1 to 256) alone after "
                              "the build")
@@ -4842,6 +5068,11 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
     peaks = card_peaks(kind)
+    if args.jamba_only:
+        phase_jamba(peaks)
+        print(f"total: {time.perf_counter() - t_start:.1f} s; "
+              "--jamba-only: phase 8b alone", flush=True)
+        return
     if args.dstate_only:
         phase_dstate(peaks)
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
@@ -4873,6 +5104,8 @@ def main():
     t0 = done("7 binary and edge training", t0)
     lm_launched, lm_perf = phase_lm(peaks)
     t0 = done("8 LM serving", t0)
+    jamba_launched, jamba_perf = phase_jamba(peaks)
+    t0 = done("8b Jamba", t0)
     with work:
         reset_counts()
         remat_perf = phase_remat()
@@ -4904,7 +5137,8 @@ def main():
 
     paths = {"serve": serve_launched, "train": train_launched,
              "train_cli": cli_launched, "binary_edge": binary_launched,
-             "lm": lm_launched, "remat": remat_launched,
+             "lm": lm_launched, "jamba": jamba_launched,
+             "remat": remat_launched,
              "infer_ckpt": infer_launched, "profile": tools_launched,
              "parallel": par_launched, "lm_parallel": lmp_launched,
              "moe_lm": moe_launched, "moe_ep": ep_launched,
@@ -4929,6 +5163,12 @@ def main():
             f"{LM_CONFIG['n_layer']} per generate, fp32, {TIMING}",
             weight=LM_CONFIG["n_layer"],
             timed=[r for r in lm_perf["scan_rows"] if r["L"] == LM_PROMPT]),
+        jamba_prefill=dict(
+            jamba_perf["scan_row"],
+            per=(f"Jamba prefill: "
+                 f"{jamba_perf['scan_row']['calls_per_prefill']} inference "
+                 f"launches at ({JAMBA_BATCH}, {JAMBA_PROMPT}, 8192), bf16, "
+                 f"{TIMING}")),
         by_dstate=by_dstate["K1"],
         training_by_dstate=by_dstate["K1-train"],
         training_variant=_kernel_entry(
@@ -4998,7 +5238,10 @@ def main():
     print(json.dumps({"kernels": [k1, k2, dw, dw_bwd], "serve": serve_perf,
                       "train": train_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
-                      "lm": lm_summary, "remat": remat_perf,
+                      "lm": lm_summary,
+                      "jamba": {k: v for k, v in jamba_perf.items()
+                                if k != "scan_row"},
+                      "remat": remat_perf,
                       "infer_ckpt": infer_perf, "tools": tools_perf,
                       "parallel": par_perf, "lm_parallel": lmp_summary,
                       "moe_lm": moe_perf, "moe_ep": ep_perf,

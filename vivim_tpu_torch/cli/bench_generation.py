@@ -20,12 +20,20 @@ Usage (on the card unless ``--device cpu``):
 
 ``--tp_shards N`` decodes tensor-parallel (``parallel/tensor_parallel.
 tp_generate``) over N ranks, one process each; only rank 0 prints.
+
+A ``--hf_dir`` whose ``config.json`` says ``"model_type": "jamba"`` runs
+Jamba (``nn/jamba.py::load_jamba``: its weights where the directory holds
+them, else a seeded init; ``--n_layer`` cuts it to its first layers) through
+the same ``generate``, on one device, in fp32 or bf16:
+  python -m vivim_tpu_torch.cli.bench_generation --hf_dir /path/jamba \
+      --n_layer 8 --dtype bfloat16 --batch 8 --promptlen 4096 --genlen 128
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -35,7 +43,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--vocab", type=int, default=50277)
     p.add_argument("--d_model", type=int, default=768)
-    p.add_argument("--n_layer", type=int, default=24)
+    p.add_argument("--n_layer", type=int, default=None,
+                   help="layers of a seeded Mamba LM (24 when not given), "
+                        "or the first layers of a Jamba --hf_dir")
     p.add_argument("--hf_dir", type=str, default=None,
                    help="local HF mamba snapshot dir (config.json + "
                         "pytorch_model.bin); overrides the dim flags")
@@ -87,12 +97,26 @@ def main(argv=None):
     from vivim_tpu_torch.cli.lm_eval_harness import load_lm
     from vivim_tpu_torch.nn.lm import generate
 
+    hybrid = args.hf_dir is not None and _model_type(args.hf_dir) == "jamba"
+    if hybrid and (args.tp_shards > 1 or args.dtype == "int8"
+                   or args.ckpt):
+        raise SystemExit("a Jamba --hf_dir runs on one device in float32 "
+                         "or bfloat16, from the directory's own weights")
     device, mesh = init_model_parallel(
         args.tp_shards, "model", "--tp_shards", args.device,
         args.dist_backend, "bench_generation")
-    model, params = load_lm(args.ckpt, args.vocab, args.d_model,
-                            args.n_layer, hf_dir=args.hf_dir,
-                            hf_repo=args.hf_repo, device=device)
+    if hybrid:
+        from vivim_tpu_torch.nn.jamba import load_jamba
+
+        cut = {} if args.n_layer is None else {
+            "num_hidden_layers": args.n_layer}
+        model, params = load_jamba(
+            args.hf_dir, device, torch.bfloat16 if args.dtype == "bfloat16"
+            else torch.float32, **cut)
+    else:
+        model, params = load_lm(args.ckpt, args.vocab, args.d_model,
+                                args.n_layer or 24, hf_dir=args.hf_dir,
+                                hf_repo=args.hf_repo, device=device)
     dev = next(model.parameters()).device
     if args.dtype == "bfloat16":
         params = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
@@ -163,6 +187,11 @@ def main(argv=None):
     if tokenizer is not None:
         print(tokenizer.batch_decode(out.tolist())[0])
     return out
+
+
+def _model_type(hf_dir):
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        return json.load(f).get("model_type")
 
 
 if __name__ == "__main__":

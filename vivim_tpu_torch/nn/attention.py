@@ -1,0 +1,88 @@
+"""Grouped-query causal self-attention with a static K/V cache: the
+attention layers of a hybrid LM (``nn/jamba.py``).
+
+transformers' ``JambaAttention`` (modeling_jamba.py): ``q_proj``,
+``k_proj``, ``v_proj``, ``o_proj`` without biases, ``n_kv`` key/value heads
+shared by ``n_heads / n_kv`` query heads each, scores scaled by
+``head_dim ** -0.5``, a causal mask, the softmax in fp32, and no positional
+encoding (Jamba's attention has none: its Mamba layers carry the order).
+
+- ``gqa_prefill``: the prompt's causal attention through
+  ``F.scaled_dot_product_attention`` (its softmax runs in fp32), writing the
+  prompt's keys and values into a new cache of ``max_len`` positions;
+- ``gqa_step``: one token against that cache, through the same SDPA call
+  with a mask.  The cache is updated in place at a device-side position and
+  every position past it is masked, so the step has static shapes and no
+  host read: a CUDA graph captures it.
+
+The cache of a layer is one tensor (B, 2, n_kv, max_len, head_dim) (keys
+then values) in the activations' dtype, and its position a (1,) int64
+tensor: the number of positions filled.  ``KV_BYTES`` counts the bytes of
+every cache ``gqa_prefill`` allocates in this process.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vivim_tpu_torch.nn.quant import matmul_t
+
+KV_BYTES = 0
+
+
+def _heads(t, n, head_dim):
+    """(..., n * head_dim) -> (..., n, head_dim)."""
+    return t.reshape(*t.shape[:-1], n, head_dim)
+
+
+def _qkv(params, x, n_heads, n_kv):
+    head_dim = params["q_proj.weight"].shape[0] // n_heads
+    q = _heads(matmul_t(x, params["q_proj.weight"]), n_heads, head_dim)
+    k = _heads(matmul_t(x, params["k_proj.weight"]), n_kv, head_dim)
+    v = _heads(matmul_t(x, params["v_proj.weight"]), n_kv, head_dim)
+    return q, k, v
+
+
+def gqa_prefill(params, x, n_heads, n_kv, max_len=None):
+    """x (B, L, d_model) -> (out (B, L, d_model), cache (B, 2, n_kv,
+    max_len, head_dim) holding the prompt's keys and values at positions
+    below L, position (1,) int64 = L)."""
+    global KV_BYTES
+    b, L, _ = x.shape
+    q, k, v = _qkv(params, x, n_heads, n_kv)
+    max_len = L if max_len is None else max_len
+    cache = x.new_zeros(b, 2, n_kv, max_len, k.shape[-1])
+    KV_BYTES += cache.numel() * cache.element_size()
+    cache[:, 0, :, :L] = k.transpose(1, 2)
+    cache[:, 1, :, :L] = v.transpose(1, 2)
+    group = n_heads // n_kv
+    # (B, heads, L, head_dim); each key/value head serves its group of
+    # query heads
+    q = q.transpose(1, 2)
+    k = k.transpose(1, 2).repeat_interleave(group, 1)
+    v = v.transpose(1, 2).repeat_interleave(group, 1)
+    y = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    y = y.transpose(1, 2).reshape(b, L, -1)
+    pos = torch.full((1,), L, dtype=torch.long, device=x.device)
+    return matmul_t(y, params["o_proj.weight"]), cache, pos
+
+
+def gqa_step(params, x, cache, pos, n_heads, n_kv):
+    """x (B, d_model), one token at position ``pos`` -> (out (B, d_model),
+    the cache with its key and value written at ``pos`` (in place), pos +
+    1)."""
+    b = x.shape[0]
+    q, k, v = _qkv(params, x, n_heads, n_kv)
+    head_dim = k.shape[-1]
+    cache.index_copy_(3, pos, torch.stack([k, v], 1)[:, :, :, None])
+    # one position's query heads of a key/value head are that head's
+    # queries: (B, n_kv, group, head_dim) against (B, n_kv, max_len,
+    # head_dim), every position past ``pos`` masked
+    q = q.reshape(b, n_kv, n_heads // n_kv, head_dim)
+    seen = (torch.arange(cache.shape[3], device=x.device) <= pos)[None, None,
+                                                                   None]
+    y = F.scaled_dot_product_attention(q, cache[:, 0], cache[:, 1],
+                                       attn_mask=seen)
+    return matmul_t(y.reshape(b, -1), params["o_proj.weight"]), cache, \
+        pos + 1

@@ -25,6 +25,15 @@ MambaLMHeadModel (mixer_seq_simple.py:83-233) and its generation loop
   instead).  The model keeps one, keyed on the batch, the compute dtype
   and the parameters' tensors; on the CPU the same buffers run eagerly.
 
+The same functions serve a hybrid LM (``nn/jamba.py``): its model splits
+its own dict into ``Layer``s (``split_params``), each a Mamba mixer or a
+grouped-query attention layer (``nn/attention.py``) after its pre-norm,
+then optionally a feed-forward after its own pre-norm (a SwiGLU MLP or the
+dropless MoE block of ``nn/moe.py``).  A Mamba layer carries its (conv
+state, ssm state) and an attention layer its (K/V cache, position) in the
+same two lists, so prefill, decode and the decode graph hold both kinds of
+state side by side.
+
 The token loop runs every one of ``max_new_tokens`` steps whatever eos
 says, and keeps ``done`` on the device: nothing in a step waits for the
 host.
@@ -41,7 +50,7 @@ import torch
 from torch import nn
 
 from vivim_tpu_torch.kernels import selective_scan as _scan
-from vivim_tpu_torch.nn import quant, streaming
+from vivim_tpu_torch.nn import attention, quant, streaming
 from vivim_tpu_torch.nn.mamba import MambaV3
 from vivim_tpu_torch.utils import cuda_graphs
 from vivim_tpu_torch.utils.profiling import span
@@ -221,23 +230,51 @@ def sub_params(params, prefix):
 
 
 @dataclasses.dataclass
+class Layer:
+    """One layer of a split dict: the mixer after the pre-norm ``norm``, a
+    Mamba mixer or (``attention``) a grouped-query attention layer; then,
+    where ``ff`` is given, a feed-forward after the pre-norm ``ff_norm``:
+    ``ff(x)`` over a sequence, ``ff_step(x)`` over one token inside a
+    captured decode step."""
+
+    mixer: dict
+    norm: dict
+    attention: bool = False
+    ff_norm: dict | None = None
+    ff: object = None
+    ff_step: object = None
+
+
+@dataclasses.dataclass
 class LMParts:
     """A flat parameter dict split once per call into what the forwards
     read (per-token code must not walk the dict)."""
 
     emb: object
-    layers: list          # [(mixer params, norm params)] per layer
+    layers: list          # [Layer] per layer
     norm_f: dict
     apply_norm: object
     dtype: torch.dtype
     residual_in_fp32: bool
     implementation: str | None
+    head: object = None   # an untied head's weight; None: the embedding's
+    n_heads: int = 0      # the attention layers' query and key/value heads
+    n_kv_heads: int = 0
+    ssm_norm_eps: float = 1e-6   # the dt / B / C norms' (where a mixer has)
+    logits_dtype: torch.dtype | None = None   # None: the head's
 
     def residual(self, h):
         return h.float() if self.residual_in_fp32 else h
 
+    def logits(self, h):
+        out = quant.lm_head(h, self.emb if self.head is None else self.head)
+        return out if self.logits_dtype is None else out.to(
+            self.logits_dtype)
+
 
 def split_params(model: MambaLM, params) -> LMParts:
+    if hasattr(model, "split_params"):   # a hybrid LM splits its own dict
+        return model.split_params(params)
     return parts_for(model.cfg, params, model.scan_implementation)
 
 
@@ -246,8 +283,8 @@ def parts_for(cfg: MambaLMConfig, params, implementation=None) -> LMParts:
     mixers' leaves are this rank's split of them)."""
     return LMParts(
         emb=params["backbone.embedding.weight"],
-        layers=[(sub_params(params, f"backbone.layers.{i}.mixer."),
-                 sub_params(params, f"backbone.layers.{i}.norm."))
+        layers=[Layer(sub_params(params, f"backbone.layers.{i}.mixer."),
+                      sub_params(params, f"backbone.layers.{i}.norm."))
                 for i in range(cfg.n_layer)],
         norm_f=sub_params(params, "backbone.norm_f."),
         apply_norm=norm_fn_for(cfg), dtype=quant.compute_dtype(params),
@@ -271,7 +308,7 @@ def forward_parts(parts: LMParts, tokens, mixer_prefill=None):
     through ``mixer_prefill(mixer params, x)`` (``mamba_prefill`` when
     None; the hook a tensor-parallel forward uses)."""
     h, _, _ = _backbone(parts, tokens, mixer_prefill)
-    return quant.lm_head(h, parts.emb)
+    return parts.logits(h)
 
 
 def filter_logits(logits, temperature, top_k, top_p):
@@ -305,55 +342,84 @@ def _sample_logits(generator, logits, temperature, top_k, top_p):
             ).argmax(-1)
 
 
-def _backbone(parts: LMParts, tokens, mixer_prefill=None):
+def _feed_forward(parts: LMParts, layer: Layer, h, ff):
+    """``h`` plus the layer's feed-forward ``ff`` (``layer.ff`` or
+    ``layer.ff_step``) of its pre-normed ``h``."""
+    x = parts.apply_norm(layer.ff_norm, h).to(parts.dtype)
+    return h + ff(x).to(h.dtype)
+
+
+def _backbone(parts: LMParts, tokens, mixer_prefill=None, max_len=None):
     """The tokens (B, L) through every layer and ``norm_f``: (hidden states
     (B, L, d_model), conv states, ssm states), one state of each per
-    layer."""
+    layer (an attention layer's: its K/V cache of ``max_len`` positions, L
+    when None, and its position)."""
     mixer_prefill = mixer_prefill or functools.partial(
-        streaming.mamba_prefill, implementation=parts.implementation)
+        streaming.mamba_prefill, implementation=parts.implementation,
+        norm_eps=parts.ssm_norm_eps)
     h = parts.residual(quant.embed_lookup(parts.emb, tokens,
                                           dtype=parts.dtype))
     conv_states, ssm_states = [], []
-    for mp, np_ in parts.layers:
-        out, cs, ss = mixer_prefill(mp,
-                                    parts.apply_norm(np_, h).to(parts.dtype))
+    for layer in parts.layers:
+        x = parts.apply_norm(layer.norm, h).to(parts.dtype)
+        if layer.attention:
+            with span("lm.attn"):
+                out, cs, ss = attention.gqa_prefill(
+                    layer.mixer, x, parts.n_heads, parts.n_kv_heads, max_len)
+        else:
+            out, cs, ss = mixer_prefill(layer.mixer, x)
         h = h + out.to(h.dtype)
+        if layer.ff is not None:
+            h = _feed_forward(parts, layer, h, layer.ff)
         conv_states.append(cs)
         ssm_states.append(ss)
     h = parts.apply_norm(parts.norm_f, h).to(parts.dtype)
     return h, conv_states, ssm_states
 
 
-def prefill(parts: LMParts, tokens, mixer_prefill=None):
+def prefill(parts: LMParts, tokens, mixer_prefill=None, max_len=None):
     """The prompt (B, L0) through every layer: (last logits (B, V), conv
-    states, ssm states), one of each per layer."""
-    h, conv_states, ssm_states = _backbone(parts, tokens, mixer_prefill)
-    return quant.lm_head(h[:, -1], parts.emb), conv_states, ssm_states
+    states, ssm states), one of each per layer; ``max_len``: the positions
+    an attention layer's K/V cache holds (the prompt and every token decode
+    will add)."""
+    h, conv_states, ssm_states = _backbone(parts, tokens, mixer_prefill,
+                                           max_len)
+    return parts.logits(h[:, -1]), conv_states, ssm_states
 
 
 def decode_step(parts: LMParts, token, conv_states, ssm_states,
                 mixer_step=None):
     """One token (B,) through every layer from the carried states:
-    (logits (B, V), new conv states, new ssm states)."""
-    mixer_step = mixer_step or streaming.mamba_step
+    (logits (B, V), new conv states, new ssm states).  An attention layer
+    writes its K/V cache in place and returns it with its position + 1."""
+    mixer_step = mixer_step or functools.partial(
+        streaming.mamba_step, norm_eps=parts.ssm_norm_eps)
     h = parts.residual(quant.embed_lookup(parts.emb, token,
                                           dtype=parts.dtype))
     new_cs, new_ss = [], []
-    for (mp, np_), cs, ss in zip(parts.layers, conv_states, ssm_states):
-        out, cs, ss = mixer_step(mp, parts.apply_norm(np_, h).to(parts.dtype),
-                                 cs, ss)
+    for layer, cs, ss in zip(parts.layers, conv_states, ssm_states):
+        x = parts.apply_norm(layer.norm, h).to(parts.dtype)
+        if layer.attention:
+            out, cs, ss = attention.gqa_step(layer.mixer, x, cs, ss,
+                                             parts.n_heads, parts.n_kv_heads)
+        else:
+            out, cs, ss = mixer_step(layer.mixer, x, cs, ss)
         h = h + out.to(h.dtype)
+        if layer.ff_step is not None:
+            h = _feed_forward(parts, layer, h, layer.ff_step)
         new_cs.append(cs)
         new_ss.append(ss)
     h = parts.apply_norm(parts.norm_f, h).to(parts.dtype)
-    return quant.lm_head(h, parts.emb), new_cs, new_ss
+    return parts.logits(h), new_cs, new_ss
 
 
 class DecodeGraph:
-    """``decode_step`` over static buffers: a token (B,), each layer's conv
-    state (B, W, d_inner) and fp32 ssm state (B, d_inner, N), and the
-    logits (B, V).  Each call steps the static states in place and returns
-    the static logits, which the next call overwrites.  On the card the
+    """``decode_step`` over static buffers: a token (B,), each Mamba layer's
+    conv state (B, W, d_inner) and fp32 ssm state (B, d_inner, N), each
+    attention layer's K/V cache (B, 2, n_kv, max_len, head_dim) and int64
+    position (1,), and the logits (B, V).  Each call steps the static
+    states in place and returns the static logits, which the next call
+    overwrites.  On the card the
     step is one CUDA graph (``cuda_graphs.capture``), warmed up and
     captured here on zero states, before ``start`` loads any live state;
     on the CPU it runs eagerly."""
@@ -373,7 +439,8 @@ class DecodeGraph:
         logits, cs, ss = decode_step(self.parts, token, self.states[:n],
                                      self.states[n:])
         for dst, src in zip(self.states, cs + ss):
-            dst.copy_(src)
+            if dst is not src:   # a K/V cache is stepped in place
+                dst.copy_(src)
         return logits
 
     def start(self, conv_states, ssm_states):
@@ -427,9 +494,10 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
     an eager loop of ``decode_step``, else the model's ``DecodeGraph``.
 
     Spans (``utils/profiling.py::span``): ``lm.generate`` holds the
-    prefill's ``lm.forward``, each token's ``lm.draw`` (the draw, the eos
-    mask, the score's copy), the decode graph's ``graph.key`` and, on the
-    card, each token's ``graph.replay``.
+    prefill's ``lm.forward`` (and in it each attention layer's ``lm.attn``
+    and each MoE block's ``lm.moe``), each token's ``lm.draw`` (the draw,
+    the eos mask, the score's copy), the decode graph's ``graph.key`` and,
+    on the card, each token's ``graph.replay``.
     """
     with span("lm.generate"):
         dev = tokens.device
@@ -438,8 +506,9 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
             generator = torch.Generator(device=dev).manual_seed(0)
         parts = split_params(model, params)
         with span("lm.forward"):
-            logits, conv_states, ssm_states = prefill(parts, tokens,
-                                                      mixer_prefill)
+            logits, conv_states, ssm_states = prefill(
+                parts, tokens, mixer_prefill,
+                tokens.shape[1] + max_new_tokens)
         if mixer_prefill is None and mixer_step is None:
             step = decode_graph(model, parts, params, conv_states,
                                 ssm_states).start(conv_states, ssm_states)

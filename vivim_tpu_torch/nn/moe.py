@@ -18,6 +18,13 @@ batched expert products, so every shape is static.
   ``mixer_{i}`` (a single-direction ``MambaV3``, the reference Mamba names
   inside), ``moe_norm_{i}``, ``moe_{i}`` and ``norm_f``; the head is tied.
 
+- ``dropless_moe`` / ``dropless_moe_step``: the dropless top-k block of
+  Mixtral and Jamba (transformers' ``JambaSparseMoeBlock``): a softmax over
+  all experts in fp32, the top k probabilities as the gates, not
+  renormalised, and every token computed by every expert it chose (no
+  capacity, nothing dropped), each expert a SwiGLU MLP.  It is separate
+  from the Switch block above and shares none of its dispatch.
+
 The router runs in fp32 whatever the activations' dtype (logits, softmax,
 the slot counts); slots are integers.  The expert GELU is the tanh
 approximation, ``jax.nn.gelu``'s default (``F.gelu`` defaults to erf).
@@ -39,6 +46,108 @@ from torch import nn
 from vivim_tpu_torch.nn import lm as lm_lib
 from vivim_tpu_torch.nn import streaming
 from vivim_tpu_torch.nn.mamba import MambaV3
+from vivim_tpu_torch.nn.quant import matmul_t
+from vivim_tpu_torch.utils.profiling import span
+
+
+# device counts of the dropless block.  ROUTED (MoE layers, experts) int64:
+# the tokens each expert of each layer was given in the eager prefill
+# (``counters`` makes it; nothing captured holds it, so it may be replaced).
+# EXPERTS_READ[device] () int64: the distinct experts chosen in each decode
+# step, summed over steps and layers; a captured step adds to the tensor it
+# was captured with, so each device's is made once (``experts_read``) and
+# never replaced.
+ROUTED = None
+EXPERTS_READ = {}
+
+
+def counters(n_layers: int, n_experts: int, device):
+    """Make ``ROUTED`` for this shape on ``device`` where it is missing or
+    of another shape or device."""
+    global ROUTED
+    dev = torch.device(device)
+    if (ROUTED is None or tuple(ROUTED.shape) != (n_layers, n_experts)
+            or ROUTED.device != dev):
+        ROUTED = torch.zeros(n_layers, n_experts, dtype=torch.long,
+                             device=dev)
+
+
+def experts_read(device):
+    """``device``'s ``EXPERTS_READ`` count, made on first use."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in EXPERTS_READ:
+        EXPERTS_READ[dev] = torch.zeros((), dtype=torch.long, device=dev)
+    return EXPERTS_READ[dev]
+
+
+def swiglu(params, x, prefix=""):
+    """``down(silu(gate(x)) * up(x))`` of ``{prefix}{gate,up,down}_proj.
+    weight`` (transformers' ``JambaMLP``, hidden_act silu)."""
+    g = matmul_t(x, params[f"{prefix}gate_proj.weight"])
+    u = matmul_t(x, params[f"{prefix}up_proj.weight"])
+    return matmul_t(F.silu(g) * u, params[f"{prefix}down_proj.weight"])
+
+
+def _route(params, xt, top_k):
+    """fp32 softmax over every expert, then the top k: (gates (T, k) fp32,
+    experts (T, k) int64)."""
+    logits = xt.float() @ params["router.weight"].float().t()
+    return torch.topk(torch.softmax(logits, -1), top_k, dim=-1)
+
+
+def dropless_moe(params, x, top_k: int, layer: int | None = None):
+    """The dropless top-k block over a whole sequence: x (..., M) -> (...,
+    M).  ``params``: ``router.weight`` (E, M) and ``experts.{e}.
+    {gate,up,down}_proj.weight``.  The tokens are sorted by expert and each
+    expert runs once on its own (the group sizes are read on the host, so
+    this runs eagerly, in the span ``lm.moe``); the gated outputs are
+    summed per token in fp32.
+    ``layer``: the row of ``ROUTED`` this block counts into (None: no
+    count; ``counters`` makes them first)."""
+    with span("lm.moe"):
+        M = x.shape[-1]
+        xt = x.reshape(-1, M)
+        gates, experts = _route(params, xt, top_k)
+        E = params["router.weight"].shape[0]
+        flat = experts.reshape(-1)
+        counts = torch.bincount(flat, minlength=E)
+        if layer is not None:
+            ROUTED[layer] += counts
+        order = torch.argsort(flat, stable=True)
+        rows = order // top_k                   # the token of each choice
+        xs = xt[rows]
+        ys = torch.empty_like(xs)
+        start = 0
+        for e, n in enumerate(counts.tolist()):
+            if n:
+                ys[start:start + n] = swiglu(params, xs[start:start + n],
+                                             f"experts.{e}.")
+            start += n
+        out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
+        out.index_add_(0, rows, ys.float() * gates.reshape(-1)[order, None])
+        return out.to(x.dtype).reshape(x.shape)
+
+
+def dropless_moe_step(params, x, top_k: int):
+    """The same block with static shapes, for a decode step a CUDA graph
+    captures: x (B, M) -> (B, M).  Every expert runs on every token and its
+    output is weighted by the token's gate for it, 0 where the token did
+    not choose it: the same sum as ``dropless_moe``, with no host read.
+    The step's distinct chosen experts are added to the device's
+    ``EXPERTS_READ``."""
+    gates, experts = _route(params, x, top_k)
+    E = params["router.weight"].shape[0]
+    weight = torch.zeros(x.shape[0], E, dtype=torch.float32,
+                         device=x.device).scatter_(1, experts, gates)
+    chosen = torch.zeros(E, dtype=torch.bool, device=x.device)
+    experts_read(x.device).add_(
+        chosen.scatter_(0, experts.reshape(-1), True).sum())
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(E):
+        out.addcmul_(swiglu(params, x, f"experts.{e}."), weight[:, e, None])
+    return out.to(x.dtype)
 
 
 def moe_capacity(n_tokens: int, n_experts: int,

@@ -11,7 +11,11 @@ dict under the reference Mamba's names (``in_proj.weight``,
 ``conv1d.weight`` (d_inner, 1, width), ``conv1d.bias``, ``x_proj.weight``,
 ``dt_proj.weight``, ``dt_proj.bias``, ``A_log``, ``D``,
 ``out_proj.weight``); ``in_proj.weight`` / ``out_proj.weight`` may be int8
-QTensors (``nn.quant``).  Activations are time-major.
+QTensors (``nn.quant``).  A Jamba mixer's dict also holds RMSNorm weights of
+dt, B and C (``dt_layernorm.weight``, ``b_layernorm.weight``,
+``c_layernorm.weight``, transformers' ``JambaMambaMixer``): where it does,
+they normalise the three parts of ``x_proj``'s output before ``dt_proj``
+and the scan, with ``norm_eps``.  Activations are time-major.
 
 Given a process ``group``, ``mamba_prefill`` and ``mamba_step`` run one
 rank's channel split of a tensor-parallel mixer (``parallel.
@@ -61,6 +65,23 @@ def _x_proj(params, xc, group):
     return x_dbl if group is None else comm.AllReduceSum.apply(x_dbl, group)
 
 
+def _dt_b_c(params, x_dbl, dt_rank, n, norm_eps):
+    """The scan's (dt before ``dt_proj``, B, C) from ``x_proj``'s output,
+    each through its RMSNorm when ``params`` holds one (computed in fp32,
+    back in the activations' dtype, times the weight)."""
+    parts = (x_dbl[..., :dt_rank], x_dbl[..., dt_rank:dt_rank + n],
+             x_dbl[..., dt_rank + n:])
+    if "dt_layernorm.weight" not in params:
+        return parts
+    out = []
+    for t, name in zip(parts, ("dt", "b", "c")):
+        f = t.float()
+        f = f * torch.rsqrt((f * f).mean(-1, keepdim=True) + norm_eps)
+        out.append(params[f"{name}_layernorm.weight"].to(t.dtype)
+                   * f.to(t.dtype))
+    return out
+
+
 def _out_proj(params, y, group=None):
     out = matmul_t(y, params["out_proj.weight"])
     if group is not None:
@@ -78,7 +99,7 @@ def _ssm_params(params):
     return conv_w, dt_rank, n, -torch.exp(params["A_log"].float())
 
 
-def mamba_step(params, x, conv_state, ssm_state, group=None):
+def mamba_step(params, x, conv_state, ssm_state, group=None, norm_eps=1e-6):
     """One decode step (mamba_simple.py:356-401).
 
     x: (B, d_model) token activations; conv_state: (B, W, d_inner);
@@ -91,16 +112,17 @@ def mamba_step(params, x, conv_state, ssm_state, group=None):
     conv_w, dt_rank, n, A = _ssm_params(params)
     xw, conv_state = causal_conv1d_update(
         xw, conv_state, conv_w, params.get("conv1d.bias"), "silu")
-    x_dbl = _x_proj(params, xw, group)
-    dt = x_dbl[..., :dt_rank] @ params["dt_proj.weight"].t().to(xw.dtype)
+    dt, B, C = _dt_b_c(params, _x_proj(params, xw, group), dt_rank, n,
+                       norm_eps)
+    dt = dt @ params["dt_proj.weight"].t().to(xw.dtype)
     y, ssm_state = selective_state_update_ref(
-        ssm_state, xw, dt, A, x_dbl[..., dt_rank:dt_rank + n],
-        x_dbl[..., dt_rank + n:], D=params["D"].float(), z=z,
+        ssm_state, xw, dt, A, B, C, D=params["D"].float(), z=z,
         dt_bias=params["dt_proj.bias"].float(), dt_softplus=True)
     return _out_proj(params, y, group), conv_state, ssm_state
 
 
-def mamba_prefill(params, x, implementation=None, group=None):
+def mamba_prefill(params, x, implementation=None, group=None,
+                  norm_eps=1e-6):
     """The prompt's full forward, emitting the states for ``mamba_step``.
 
     x: (B, L, d_model).  Returns (out (B, L, d_model), conv_state (the last
@@ -117,11 +139,11 @@ def mamba_prefill(params, x, implementation=None, group=None):
     pad = torch.nn.functional.pad(xw, (0, 0, max(width - x.shape[1], 0), 0))
     conv_state = pad[:, -width:].contiguous()
     xc = causal_conv1d(xw, conv_w, params.get("conv1d.bias"), "silu")
-    x_dbl = _x_proj(params, xc, group)
-    delta = x_dbl[..., :dt_rank] @ params["dt_proj.weight"].t().to(xc.dtype)
+    dt, B, C = _dt_b_c(params, _x_proj(params, xc, group), dt_rank, n,
+                       norm_eps)
+    delta = dt @ params["dt_proj.weight"].t().to(xc.dtype)
     y, ssm_state = selective_scan(
-        xc, delta, A, x_dbl[..., dt_rank:dt_rank + n],
-        x_dbl[..., dt_rank + n:], D=params["D"].float(), z=z,
+        xc, delta, A, B, C, D=params["D"].float(), z=z,
         delta_bias=params["dt_proj.bias"].float(), delta_softplus=True,
         return_last_state=True, implementation=implementation)
     return _out_proj(params, y, group), conv_state, ssm_state

@@ -58,15 +58,28 @@ Phases, each of which raises on failure (exit code != 0):
    eager forward's K1 kernels; the forward graph's roots, forks and joins
    from its DOT dump (cudaGraphDebugDotPrint);
 5. train: the same model, ``recall_focused``, batch 3: ``Trainer.fit`` for
-   one epoch of 4 fp32 steps and a validation pass of 2 batches, then 3
+   one epoch of 4 fp32 steps (the third captures the step and replays it,
+   the fourth replays it) and a validation pass of 2 batches, then 3
    steps of ``make_train_step`` in bf16; every train step must launch
    K1-training 8 times and K2 8 times, every validation forward the
    inference K1 8 times; loss and grad norm finite; the checkpoint written
    must restore; step ms, clips/s, peak memory and a torch.profiler split
-   of one fp32 and one bf16 step by kernel group;
+   of one replayed fp32 and one replayed bf16 step by kernel group;
 5b. one fp32 step at full width, batch 1, dropouts 0, through the kernels
    and through the plain scan: loss within 1e-5 relative, every
    parameter's gradient within rtol 1e-3 / atol 2e-3;
+5c. the replayed train step (``REPLAY_STEPS`` steps of batch 3: 2 eager,
+   the capture, replays) against eager steps from the same start (one
+   model copied, one generator seed), in fp32, in bf16 with
+   ``grad_accum=3`` and in fp32 with the edge loss: launches per step
+   equal, every step's metrics read after the last step, the generator's
+   state equal, and loss, Jaccard, grad norm, parameters, buffers and
+   both moments within 1e-6 (a leaf against the larger of its norm and
+   the median leaf's), with a second eager fp32 run for the card's own
+   floor; then ``Trainer.fit`` both ways over 2 epochs of 4 steps, and
+   epoch 2 again after restoring epoch 1's checkpoint in place and in a
+   new Trainer: every epoch's ``train/loss`` mean and every final state
+   within 1e-6 of the eager run's; step ms and peak memory both ways;
 6. train CLI: write a synthetic tree of 512 x 512 PNGs (4 cases of
    ``CLI_FRAMES`` annotated frames, smooth frames with noise and blob
    masks) in the raw fold layout ``fold_{0,1}/{train,val}/<case>/<n>_x/``,
@@ -253,7 +266,8 @@ each K2; the LM phases must call it not at all.
 Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3c (a
 quick check of the kernels on the card); ``--jamba-only`` runs phase 8b
-alone after the build, ``--dstate-only`` phase 13.
+alone after the build, ``--dstate-only`` phase 13, ``--train-replay-only``
+phase 5c.
 """
 
 from __future__ import annotations
@@ -336,6 +350,7 @@ LM_DECODE_STEPS = 16
 # first checked against none's, the median over the rest), and at the
 # larger batch where the memory remat saves shows
 REMAT_STEPS = 4
+REPLAY_STEPS = 6            # phase 5c: train steps each way
 REMAT_BIG_BATCH = 12
 REMAT_BIG_STEPS = 3
 # phase 10: the global batch of each mode's step, the clips per video of
@@ -1551,6 +1566,7 @@ def phase_train(dev="cuda", segformer="b3", size=256, clip_len=5,
     from vivim_tpu_torch.train import loop
     from vivim_tpu_torch.train.logging import MetricLogger
     from vivim_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from vivim_tpu_torch.utils import cuda_graphs
 
     dev = torch.device(dev)
     on_card = dev.type == "cuda"
@@ -1625,11 +1641,16 @@ def phase_train(dev="cuda", segformer="b3", size=256, clip_len=5,
     print(f"train bf16: peak memory {peak_bf16 / 2**30:.2f} GiB", flush=True)
 
     if on_card:
+        # profiled: replays (a new step's first calls run eagerly, and
+        # phase_profile's unprofiled call captures)
         fp32_step = loop.make_train_step(model, "recall_focused", 3)
         b0 = {k: torch.from_numpy(v).to(dev) for k, v in train[0].items()}
-        phase_profile("train step fp32",
+        for _ in range(cuda_graphs.WARMUP_CALLS):
+            fp32_step(trainer.state, b0)
+        phase_profile("train step fp32 (replayed)",
                       lambda: fp32_step(trainer.state, b0), n_runs=2)
-        phase_profile("train step bf16", lambda: step(state, b0), n_runs=2)
+        phase_profile("train step bf16 (replayed)", lambda: step(state, b0),
+                      n_runs=2)
     return launched, dict(fp32=fp32, bf16=bf16, peak_gib=peak / 2**30,
                           peak_bf16_gib=peak_bf16 / 2**30)
 
@@ -1700,6 +1721,340 @@ def phase_train_vs_plain(dev="cuda", segformer="b3", size=256, clip_len=5):
           f"|grad| max {max(m for _, m in x_proj):.3e}; kernel step "
           f"{secs_k:.2f} s, plain-scan step {secs_r:.1f} s", flush=True)
     return worst
+
+
+def eager_train_step(*args, **kw):
+    """``loop.make_train_step`` with its replay rule off: every step runs
+    eagerly, the reference phase 5c holds the replayed steps against."""
+    from unittest import mock
+
+    from vivim_tpu_torch.train import loop
+
+    with mock.patch.object(loop, "replayable", lambda *a: False):
+        return loop.make_train_step(*args, **kw)
+
+
+def train_snapshot(state):
+    """The train state on the host: the model's parameters and buffers,
+    both moments (fp32) under the optimizer's names, the counts and the
+    generator's state."""
+    host = lambda xs: [x.detach().float().cpu() if x.is_floating_point()
+                       else x.detach().cpu() for x in xs]
+    sd = state.model.state_dict()
+    names = state.opt.names
+    return {"model": dict(zip(sd, host(sd.values()))),
+            "mu": dict(zip(names, host(state.opt.mu))),
+            "nu": dict(zip(names, host(state.opt.nu))),
+            "count": state.opt.count, "step": state.step,
+            "generator": state.generator.get_state()}
+
+
+def leaf_gap(got, want):
+    """(the largest ||a - b|| over max(||b||, the median leaf's ||b||) of
+    the tensors of two {name: tensor} dicts, that leaf): a leaf whose
+    gradient is rounding noise, as a bias a train-mode BatchNorm cancels,
+    is judged at the median leaf's scale; integer tensors must be
+    equal."""
+    norms = {k: b.double().norm().item() for k, b in want.items()
+             if b.is_floating_point()}
+    med = statistics.median(norms.values())
+    worst = (0.0, None)
+    for k, b in want.items():
+        a = got[k]
+        if k not in norms:
+            if not torch.equal(a, b):
+                raise AssertionError(f"integer tensor {k} differs")
+            continue
+        gap = (a.double() - b.double()).norm().item() / max(norms[k], med,
+                                                            1e-30)
+        worst = max(worst, (gap, k), key=lambda g: g[0])
+    return worst
+
+
+def state_gaps(got, want, what):
+    """{part: (its largest leaf gap, that leaf)} of two
+    ``train_snapshot``s, whose counts and generator states must be
+    equal."""
+    if (got["count"], got["step"]) != (want["count"], want["step"]):
+        raise AssertionError(f"{what}: counts {got['count']}, {got['step']} "
+                             f"vs {want['count']}, {want['step']}")
+    if not torch.equal(got["generator"], want["generator"]):
+        raise AssertionError(f"{what}: the generator's state differs")
+    return {"params": leaf_gap(got["model"], want["model"]),
+            "mu": leaf_gap(got["mu"], want["mu"]),
+            "nu": leaf_gap(got["nu"], want["nu"])}
+
+
+def _metric_gaps(got, want):
+    """{metric: (the largest relative gap over the steps, that step)}."""
+    return {k: max(((abs(g[k] - w[k]) / max(abs(w[k]), 1e-30), i)
+                    for i, (g, w) in enumerate(zip(got, want))),
+                   key=lambda x: x[0]) for k in want[0]}
+
+
+def run_gaps(got, want, what):
+    """Every gap of run ``got`` to run ``want`` (``_train_run``'s)."""
+    return {**_metric_gaps(got["metrics"], want["metrics"]),
+            **state_gaps(got["snap"], want["snap"], what)}
+
+
+def check_against_floor(what, gaps, floor, tol=1e-6, factor=10):
+    """Each gap of the replayed run to the eager one at most the larger of
+    ``tol`` and ``factor`` times the same gap between two eager runs (the
+    card's own run-to-run floor, from atomics-based kernels); returns the
+    text of both."""
+    over = {k: (g, floor[k][0]) for k, (g, _) in gaps.items()
+            if g > max(tol, factor * floor[k][0])}
+    if over:
+        raise AssertionError(f"{what}: (replayed, eager vs eager) gaps "
+                             f"{over} above max({tol:g}, {factor} x the "
+                             "eager floor)")
+    fmt = lambda d: ", ".join(f"{k} {g:.2e} ({w})" for k, (g, w) in d.items())
+    return f"replayed vs eager: {fmt(gaps)}; eager vs eager: {fmt(floor)}"
+
+
+def _train_run(step, state, batches, dev):
+    """``step`` over ``batches`` from ``state``: the launches of each step,
+    each step's metrics read after the last step, the state's snapshot,
+    replays, captures, ms of each step to a synchronize and peak GiB."""
+    from vivim_tpu_torch.train import loop
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    replayed = loop.REPLAYED_STEPS
+    log, kept, ms = [], [], []
+    for b in batches:
+        c0 = counts()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        log.append({k: v - c0[k] for k, v in counts().items()})
+        kept.append(m)
+    metrics = [{k: float(v) for k, v in m.items()} for m in kept]
+    return dict(launches=log, metrics=metrics, snap=train_snapshot(state),
+                replayed=loop.REPLAYED_STEPS - replayed,
+                captures=graph_counts()["captures"], ms=ms,
+                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                          if on_card else 0.0))
+
+
+def atomics_probe(dev, frames=TRAIN_BATCH * 5, size=256, hidden=768):
+    """{op: whether its backward gives bitwise equal results twice}, each
+    op's backward run twice on the same inputs and cotangent at the fp32
+    b3 step's shapes: the bilinear resizes of channels-last maps (the
+    decoder's scales to 64 px, the logits to the input's 256 px), whose
+    CUDA backward sums with atomics, and the first patch embedding's cuDNN
+    convolution."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(dev).manual_seed(0)
+
+    def resize(out_px):
+        return lambda x: F.interpolate(x.permute(0, 3, 1, 2), size=(out_px,
+                                       out_px), mode="bilinear",
+                                       align_corners=False)
+
+    def twice(fn, *shapes):
+        xs = [torch.randn(sh, device=dev, generator=g, requires_grad=True)
+              for sh in shapes]
+        dy = torch.randn(fn(*xs).shape, device=dev, generator=g)
+        a, b = (torch.autograd.grad(fn(*xs), xs, dy) for _ in range(2))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    return {
+        "upsample_bilinear2d backward, logits 64 -> 256 px": twice(
+            resize(size), (frames, size // 4, size // 4, 3)),
+        "upsample_bilinear2d backward, decoder 8 -> 64 px": twice(
+            resize(size // 4), (frames, size // 32, size // 32, hidden)),
+        "cuDNN conv2d backward, patch embedding 7x7 stride 4": twice(
+            lambda x, w: F.conv2d(x, w, stride=4, padding=3),
+            (frames, 3, size, size), (64, 3, 7, 7)),
+    }
+
+
+def phase_train_replay(dev="cuda", segformer="b3", size=256, clip_len=5,
+                       batch=TRAIN_BATCH, n_steps=REPLAY_STEPS):
+    """Phase 5c: the replayed train step against eager steps from the same
+    start (a deep copy of one model, one generator seed), in fp32, in bf16
+    with ``grad_accum=3`` and with the edge loss, beside a second eager run
+    (the floor the card's atomics-based kernels set); then ``Trainer.fit``
+    the same ways over two epochs, and resumes mid-run."""
+    import copy
+
+    import numpy as np
+
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.train import loop
+    from vivim_tpu_torch.train.edge_loss import make_multiclass_edge_criterion
+    from vivim_tpu_torch.utils import cuda_graphs
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    per_pass = LAYERS_PER_STAGE * len(STAGES)
+    data = make_requests(n_steps, clip_len, size, 3, seed=7, batch=batch)
+    rng = np.random.default_rng(8)
+    out = {}
+    cases = (("fp32", {}, False),
+             ("bf16 grad_accum 3", dict(compute_dtype=torch.bfloat16,
+                                        grad_accum=3), False),
+             ("fp32 edge loss",
+              dict(edge_loss_fn=make_multiclass_edge_criterion()), True))
+    for label, kw, with_edge in cases:
+        args = argparse.Namespace(segformer=segformer, num_classes=3,
+                                  with_edge=with_edge)
+        base, _ = build_model(args, device=dev, seed=0)
+        batches = []
+        for d in data:
+            b = {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+            if with_edge:
+                b["edges"] = torch.from_numpy(
+                    (rng.random(d["masks"].shape[:-1] + (1,)) < 0.2)
+                    .astype(np.float32)).to(dev)
+            batches.append(b)
+        runs = {}
+        for way in ("replayed", "eager", "eager again"):
+            model = copy.deepcopy(base)
+            state = loop.create_train_state(model, 1e-4, 1e-2, n_steps,
+                                            seed=1)
+            make = (loop.make_train_step if way == "replayed"
+                    else eager_train_step)
+            step = make(model, "recall_focused", 3, **kw)
+            runs[way] = _train_run(step, state, batches, dev)
+            del model, state, step
+            torch.cuda.empty_cache()
+        rep, eag = runs["replayed"], runs["eager"]
+        want = vivim_step(per_pass * kw.get("grad_accum", 1))
+        for way, r in runs.items():
+            for i, n in enumerate(r["launches"]):
+                if on_card and n != want:
+                    raise AssertionError(f"{label} {way} step {i} launched "
+                                         f"{n}, expected {want}")
+        replays = (n_steps - cuda_graphs.WARMUP_CALLS, 1) if on_card else (
+            0, 0)   # the CPU's steps run eagerly
+        if (rep["replayed"], rep["captures"]) != replays or eag["replayed"]:
+            raise AssertionError(
+                f"{label}: {rep['replayed']} replayed steps and "
+                f"{rep['captures']} captures; eager replayed "
+                f"{eag['replayed']}")
+        gaps = run_gaps(rep, eag, label)
+        floor = run_gaps(runs["eager again"], eag, f"{label} eager again")
+        text = check_against_floor(label, gaps, floor)
+        ops = ""
+        if label == "fp32":
+            probe = atomics_probe(dev, frames=batch * clip_len, size=size,
+                                  hidden=base.cfg.hidden_size)
+            out["bitwise_equal_backward"] = probe
+            ops = f"; backward bitwise equal twice: {probe}"
+        med = lambda r: statistics.median(r["ms"][cuda_graphs.WARMUP_CALLS:])
+        w = cuda_graphs.WARMUP_CALLS
+        print(f"train replay {label}: {n_steps} steps of batch {batch} "
+              f"each way, {rep['replayed']} replayed after {w} eager; "
+              f"launches per step {rep['launches'][-1]} each way; generator "
+              f"states equal; largest relative gaps (a leaf against "
+              f"max(its norm, the median leaf's); metrics: (gap, step)): "
+              f"{text}{ops}; step ms to a synchronize, median of the last "
+              f"{n_steps - w}: replayed {med(rep):.1f} (the capture's step "
+              f"{rep['ms'][w]:.0f}), eager {med(eag):.1f}; peak memory "
+              f"replayed {rep['peak_gib']:.2f} GiB, eager "
+              f"{eag['peak_gib']:.2f} GiB", flush=True)
+        out[label] = dict(
+            gaps={k: v[0] for k, v in gaps.items()},
+            floor={k: v[0] for k, v in floor.items()},
+            replayed_ms=med(rep), eager_ms=med(eag),
+            peak_gib=rep["peak_gib"], eager_peak_gib=eag["peak_gib"])
+        del base, batches
+        torch.cuda.empty_cache()
+    out["trainer"] = _trainer_replay(dev, segformer, size, clip_len, batch)
+    return out
+
+
+def _trainer_replay(dev, segformer, size, clip_len, batch):
+    """Phase 5c's Trainer part: ``fit`` over two epochs of 4 steps, replayed
+    and eagerly twice, then epoch 2 again from epoch 1's checkpoint,
+    restored in place (the replayed Trainer keeps its graph) and in a new
+    Trainer: every epoch's ``train/loss`` mean and every final state held
+    against the eager run's, as phase 5c's steps are."""
+    import copy
+    import shutil
+    from unittest import mock
+
+    from vivim_tpu_torch.cli.common import build_model
+    from vivim_tpu_torch.train import loop
+    from vivim_tpu_torch.train.logging import MetricLogger
+    from vivim_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    class Recording(Trainer):
+        def train_epoch(self):
+            em = super().train_epoch()
+            self.epoch_losses.append(em["train/loss"])
+            return em
+
+    base, _ = build_model(model_args(segformer), device=dev, seed=0)
+    loader = Requests(make_requests(4, clip_len, size, 3, seed=9,
+                                    batch=batch))
+
+    def trainer(way, tmp):
+        rule = (contextlib.nullcontext() if way.startswith("replayed") else
+                mock.patch.object(loop, "replayable", lambda *a: False))
+        with rule:
+            t = Recording(copy.deepcopy(base),
+                          TrainerConfig(epochs=2, log_every=1, seed=0,
+                                        device=str(dev)),
+                          loader, [], os.path.join(tmp, way, "ckpt"),
+                          MetricLogger(os.path.join(tmp, way, "logs")))
+        t.epoch_losses = []
+        return t
+
+    def snap_run(t):
+        return {"metrics": [{"train/loss": x} for x in t.epoch_losses],
+                "snap": train_snapshot(t.state)}
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for way in ("replayed", "eager", "eager again"):
+            t = trainer(way, tmp)
+            t.cfg.epochs = 1
+            t.fit()
+            mid = os.path.join(tmp, f"{way}_mid.pt")
+            shutil.copy(t.ckpt.last_path(), mid)
+            t.cfg.epochs = 2
+            t.fit()
+            res[way] = snap_run(t)
+            if way == "replayed":
+                t.resume(mid)
+                t.fit()
+                res["replayed, resumed in place"] = snap_run(t)
+            del t
+            torch.cuda.empty_cache()
+        t = trainer("replayed in a new Trainer", tmp)
+        t.fit(resume_path=os.path.join(tmp, "replayed_mid.pt"))
+        res["replayed, resumed in a new Trainer"] = snap_run(t)
+        del t
+        torch.cuda.empty_cache()
+    losses = {k: [m["train/loss"] for m in r["metrics"]]
+              for k, r in res.items()}
+    if [len(v) for v in losses.values()] != [2, 3, 2, 2, 1]:
+        raise AssertionError(f"epochs run: {losses}")
+    # each run's (epoch 1, its last epoch 2) against the eager run's
+    first = res["replayed"]["metrics"][0]
+    for what in ("replayed, resumed in place",
+                 "replayed, resumed in a new Trainer"):
+        res[what]["metrics"] = [first, res[what]["metrics"][-1]]
+    eag = res["eager"]
+    floor = run_gaps(res["eager again"], eag, "Trainer eager again")
+    text = {what: check_against_floor(
+                f"Trainer {what}", run_gaps(res[what], eag, what), floor)
+            for what in ("replayed", "replayed, resumed in place",
+                         "replayed, resumed in a new Trainer")}
+    print("train replay Trainer.fit: 2 epochs of 4 steps each way, then "
+          "epoch 2 again from epoch 1's checkpoint in place and in a new "
+          f"Trainer; epoch train/loss means {losses}; "
+          + "; ".join(f"{k}: {v}" for k, v in text.items()), flush=True)
+    return text
 
 
 def write_png_tree(root, n_cases=CLI_CASES, n_frames=CLI_FRAMES,
@@ -5039,6 +5394,9 @@ def main():
     parser.add_argument("--dstate-only", action="store_true",
                         help="run phase 13 (d_state 1 to 256) alone after "
                              "the build")
+    parser.add_argument("--train-replay-only", action="store_true",
+                        help="run phase 5c (the replayed train step) alone "
+                             "after the build")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -5078,6 +5436,11 @@ def main():
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
               "--dstate-only: phase 13 alone", flush=True)
         return
+    if args.train_replay_only:
+        print(json.dumps({"train_replay": phase_train_replay()}))
+        print(f"total: {time.perf_counter() - t_start:.1f} s; "
+              "--train-replay-only: phase 5c alone", flush=True)
+        return
 
     rows = phase_kernels(peaks)
     t0 = done("3 K1 inference", t0)
@@ -5095,6 +5458,8 @@ def main():
     t0 = done("5 train", t0)
     phase_train_vs_plain()
     t0 = done("5b train vs plain scan", t0)
+    replay_perf = phase_train_replay()
+    t0 = done("5c replayed train step", t0)
     # phase 6's trees and runs stay here for phase 9
     work = tempfile.TemporaryDirectory()
     cli_launched, cli_perf = phase_train_cli(
@@ -5236,7 +5601,7 @@ def main():
     lmp_summary = {k: v for k, v in lmp_perf.items()
                    if k not in ("fwd_rows", "bwd_rows")}
     print(json.dumps({"kernels": [k1, k2, dw, dw_bwd], "serve": serve_perf,
-                      "train": train_perf,
+                      "train": train_perf, "train_replay": replay_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
                       "lm": lm_summary,
                       "jamba": {k: v for k, v in jamba_perf.items()

@@ -14,6 +14,7 @@ skips here.  No JAX, so on the card:
 import argparse
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -225,15 +226,50 @@ def test_launches_count_by_containment_on_any_thread():
     assert read("train.backward_launches") == 2
     assert read("train.optimizer_launches") == 1
     assert spans.launches(_run(p), "train.step") == 6
+    assert read("train.step_launches") == 6
     two = _profile(p.host + [("train.step", 1.0, 1.5),
                              ("train.backward", 1.0, 1.5),
                              ("cudaLaunchKernel", 1.2, 1.3)], units=2)
     assert metric("train.backward_launches")(_run(two)) == 1.5
 
 
+def test_a_replayed_step_counts_its_graph_launch_once():
+    """A replayed train step: the generators' seed and offset fills and
+    one graph launch in ``train.step``; its phases' spans never open, so
+    their readers give None."""
+    p = _profile([
+        ("train.step", 0.0, 0.5),
+        ("cudaMemcpyAsync", 0.01, 0.02),   # the static inputs
+        ("graph.replay", 0.03, 0.4),
+        *[("cudaLaunchKernel", 0.05 + 0.01 * i, 0.055 + 0.01 * i)
+          for i in range(4)],
+        ("cudaGraphLaunch", 0.1, 0.3),
+        ("cudaMemcpyAsync", 0.41, 0.42),   # the outputs' clones
+    ], units=1)
+    assert metric("train.step_launches")(_run(p)) == 5
+    for name in ("train.forward_launches", "train.backward_launches",
+                 "train.optimizer_launches"):
+        assert metric(name)(_run(p)) is None
+
+
+def test_replayed_share_reads_the_step_counters(monkeypatch):
+    read = metric("train.replayed_share")
+    monkeypatch.setattr(loop, "STEPS", 0)
+    monkeypatch.setattr(loop, "REPLAYED_STEPS", 0)
+    assert read(None) is None
+    monkeypatch.setattr(loop, "STEPS", 200)
+    monkeypatch.setattr(loop, "REPLAYED_STEPS", 198)
+    assert read(None) == pytest.approx(99.0)
+    monkeypatch.delattr(loop, "REPLAYED_STEPS")
+    assert read(None) is None
+    monkeypatch.delitem(sys.modules, loop.__name__)
+    assert read(None) is None
+
+
 NEW_SPAN_METRICS = [
     "train.forward_launches", "train.backward_launches",
-    "train.optimizer_launches", "serve.graph_key_ms", "lm.forward_launches"]
+    "train.optimizer_launches", "serve.graph_key_ms", "lm.forward_launches",
+    "train.step_launches"]
 
 
 @pytest.mark.parametrize("name", NEW_SPAN_METRICS)

@@ -11,11 +11,24 @@ reference harness's (multiclass_training_folds.py):
   masks flatten to (B*T, ...), targets are the masks' argmax;
 - the train metric is the micro Jaccard over the flattened frames.
 
-PyTorch runs eagerly, so a "step" is a plain function that updates the
-``TrainState`` in place (the model's parameters and BatchNorm statistics,
-the optimizer moments, the step count) and returns it with its metrics.
-The random layers draw from the state's generator, which the step hands to
-the model (``nn.layers.use_generator``).
+A "step" is a function that updates the ``TrainState`` in place (the
+model's parameters and BatchNorm statistics, the optimizer moments, the
+step count) and returns it with its metrics.  The random layers draw from
+the state's generator, which the step hands to the model
+(``nn.layers.use_generator``).
+
+On one card the step is the JAX package's jitted step: a CUDA graph,
+captured from the step's own eager code and replayed, so that a step costs
+the host one graph launch and the copies of its inputs
+(``make_train_step``).  The first ``cuda_graphs.WARMUP_CALLS`` calls of a
+batch signature run eagerly, as real steps that also warm up the kernels'
+builds and the libraries' workspaces; the next call captures the step and
+replays it at once.  A replay draws from the state's generator what an
+eager step would (the generator is registered with the graph) and takes
+its learning rate and bias corrections from the optimizer's step count on
+the device (``AdamW.device_count``).  Everywhere else the same code runs
+eagerly: the CPU, more than one rank, a ZeRO state, and a model that
+recomputes layers in the backward (``replayable``).
 
 Data parallel (a ``mesh`` with a ``data`` axis of more than one rank, one
 process per rank): each rank's train step takes its own block of the
@@ -46,10 +59,16 @@ from vivim_tpu_torch.parallel import comm
 from vivim_tpu_torch.parallel.mesh import shard_batch
 from vivim_tpu_torch.train import losses as losses_lib
 from vivim_tpu_torch.train.metrics import confusion_matrix, per_class_confusion
+from vivim_tpu_torch.utils import cuda_graphs
 from vivim_tpu_torch.utils.profiling import span
 
 # the JAX package's name for the device-side confusion matrix
 confusion_matrix_device = confusion_matrix
+
+# train steps run in this process, and those of them run as the replay of a
+# captured step
+STEPS = 0
+REPLAYED_STEPS = 0
 
 
 def _no_decay_mask(model: nn.Module, decay_mask: str = "tagged"):
@@ -109,6 +128,10 @@ class AdamW:
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # the step count on the parameters' device (``device_count``), and
+        # the ``count`` it was last set from or advanced to
+        self._count_t = None
+        self._count_t_at = 0
         # (per-leaf norms, live indices) -> global norm; None: the norm of
         # the leaves here (ZeRO sums its slices' over the data axis)
         self.reduce_norm = None
@@ -116,11 +139,50 @@ class AdamW:
     def schedule(self, step: int) -> float:
         return cosine_lr(self.lr, self.total_steps, self.eta_min_ratio, step)
 
+    def device_count(self):
+        """The step count as a float64 0-dim tensor on the parameters'
+        device, which ``step(on_device=True)`` reads and advances; set here
+        from ``count`` where that moved alone (an eager step,
+        ``load_state_dict``).  Call it outside a capture."""
+        if self._count_t is None:
+            self._count_t = torch.zeros((), dtype=torch.float64,
+                                        device=self.params[0].device)
+            self._count_t_at = 0
+        if self._count_t_at != self.count:
+            self._count_t.fill_(self.count)
+            self._count_t_at = self.count
+        return self._count_t
+
+    def replayed(self):
+        """Count a ``step(on_device=True)`` that ran (a replay of one): it
+        advanced the device's count, and ``count`` follows it."""
+        self.count += 1
+        self._count_t_at = self.count
+
+    def _device_scalars(self):
+        """(lr, 1 - b1**t, sqrt(1 - b2**t)) as float32 0-dim tensors,
+        computed in float64 from the device's count before the step in the
+        order of ``cosine_lr`` and ``step``'s, which advance it to t."""
+        t = self.device_count()
+        total = max(self.total_steps, 1)
+        frac = torch.clamp(t, max=total) / total
+        lr = self.lr * ((1.0 - self.eta_min_ratio) * 0.5
+                        * (1.0 + torch.cos(math.pi * frac))
+                        + self.eta_min_ratio)
+        t.add_(1)
+        return (lr.float(), (1.0 - self.b1 ** t).float(),
+                torch.sqrt(1.0 - self.b2 ** t).float())
+
     @torch.no_grad()
-    def step(self):
+    def step(self, on_device: bool = False):
         """Clip, update every parameter that has a gradient; returns the
         global gradient norm before clipping (a 0-dim tensor), or None
-        without clipping."""
+        without clipping.  ``on_device``: the learning rate and the bias
+        corrections come from ``device_count``, so the step reads no host
+        value and can be captured; ``count`` is then left for ``replayed``,
+        and the update is scaled by the rate and then subtracted, two
+        roundings where the eager form adds it with the rate as a scalar
+        factor (a parameter may differ by an ulp)."""
         live = [i for i, p in enumerate(self.params) if p.grad is not None]
         params = [self.params[i] for i in live]
         grads = [p.grad for p in params]
@@ -132,8 +194,13 @@ class AdamW:
             # optax scales by max/norm only when norm > max: the factor is 1
             torch._foreach_mul_(grads, self.clip_norm
                                 / torch.clamp(norm, min=self.clip_norm))
-        lr = self.schedule(self.count)
-        self.count += 1
+        if on_device:
+            lr, c1, c2 = self._device_scalars()
+        else:
+            lr = self.schedule(self.count)
+            self.count += 1
+            c1 = 1.0 - self.b1 ** self.count
+            c2 = math.sqrt(1.0 - self.b2 ** self.count)
         mu = [self.mu[i].float() for i in live]  # the fp32 ones themselves
         nu = [self.nu[i] for i in live]
         torch._foreach_lerp_(mu, grads, 1.0 - self.b1)
@@ -145,16 +212,20 @@ class AdamW:
                 self.mu[i].copy_(m)
             mu = [self.mu[i].float() for i in live]
         denom = torch._foreach_sqrt(nu)
-        torch._foreach_div_(denom, math.sqrt(1.0 - self.b2 ** self.count))
+        torch._foreach_div_(denom, c2)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu, denom)
-        torch._foreach_div_(upd, 1.0 - self.b1 ** self.count)
+        torch._foreach_div_(upd, c1)
         decayed = [j for j, i in enumerate(live) if self.decays[i]]
         if decayed and self.weight_decay:
             torch._foreach_add_([upd[j] for j in decayed],
                                 [params[j] for j in decayed],
                                 alpha=self.weight_decay)
-        torch._foreach_add_(params, upd, alpha=-lr)
+        if on_device:
+            torch._foreach_mul_(upd, lr)
+            torch._foreach_sub_(params, upd)
+        else:
+            torch._foreach_add_(params, upd, alpha=-lr)
         return norm
 
     def state_dict(self):
@@ -162,6 +233,8 @@ class AdamW:
 
     def load_state_dict(self, sd):
         self.count = int(sd["count"])
+        if self._count_t is not None:
+            self.device_count()
         for dst, src in zip(self.mu + self.nu, list(sd["mu"]) + list(sd["nu"])):
             dst.copy_(src)
 
@@ -318,6 +391,77 @@ def split_eval_batch(batch, mesh):
     return shard_batch(batch, mesh), True
 
 
+def _ranks(mesh) -> int:
+    return math.prod(mesh.shape.values()) if mesh is not None else 1
+
+
+def replayable(model, mesh) -> bool:
+    """Whether ``make_train_step``'s step of ``model`` over ``mesh`` may run
+    as a replayed CUDA graph (then it does on a CUDA batch and a state that
+    is not ZeRO-sharded): one rank, and no layer that recomputes in the
+    backward (``remat_pre_scan``, ``remat_blocks``, the SegFormer's
+    ``remat_layers``: ``nn.layers.checkpoint`` sets generator states on the
+    host) or shards its tokens over ranks (a model built on a mesh)."""
+    if _ranks(mesh) > 1:
+        return False
+    for m in model.modules():
+        cfg = getattr(m, "cfg", None)
+        if _ranks(getattr(cfg, "mesh", None)) > 1 or any(
+                getattr(owner, flag, False) for owner in (m, cfg)
+                for flag in ("remat_pre_scan", "remat_blocks",
+                             "remat_layers")):
+            return False
+    return True
+
+
+class _StepGraphs:
+    """The captured steps of one ``make_train_step``: per batch signature
+    (the inputs' shapes, dtypes and device), the eager calls so far or the
+    ``cuda_graphs.Graph``.  They hold one state's tensors (its model's
+    parameters, updated in place, its optimizer's moments and count, its
+    generator): a call with another state, optimizer or generator drops
+    them.  The entries share one memory pool, since replays run one at a
+    time."""
+
+    def __init__(self, run, names):
+        self.run, self.names = run, names
+        self.graphs = {}
+        self.owner = (None, None, None)
+        self.pool = None
+
+    def __call__(self, state, batch):
+        global REPLAYED_STEPS
+        owner = (state, state.opt, state.generator)
+        if any(a is not b for a, b in zip(owner, self.owner)):
+            self.graphs.clear()
+            self.owner = owner
+        inputs = [batch[n] for n in self.names]
+        sig = tuple(cuda_graphs.signature(x) for x in inputs)
+        graph = self.graphs.get(sig, 0)
+        if isinstance(graph, int):
+            if graph < cuda_graphs.WARMUP_CALLS:
+                self.graphs[sig] = graph + 1
+                return self.run(state, batch)
+            graph = self.graphs[sig] = self.capture(state, inputs)
+        state.opt.device_count()
+        outputs = graph(*inputs)
+        state.opt.replayed()
+        REPLAYED_STEPS += 1
+        # the next replay overwrites the static outputs
+        return tuple(None if t is None else t.clone() for t in outputs)
+
+    def capture(self, state, inputs):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        # set before the capture: a fill inside it would be replayed
+        state.opt.device_count()
+        return cuda_graphs.capture(
+            lambda *xs: self.run(state, dict(zip(self.names, xs)),
+                                 on_device=True),
+            tuple(x.clone() for x in inputs), self.pool, warmup=0,
+            generators=(state.generator,))
+
+
 def make_train_step(model, loss_fn: Callable | str = "recall_focused",
                     num_classes: int = 3, compute_dtype=None,
                     grad_accum: int = 1, edge_loss_fn=None, mesh=None):
@@ -334,14 +478,29 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
     micro-batches; their gradients and losses are averaged, their Jaccard
     counts summed, the BatchNorm statistics thread through them in turn,
     and one optimizer update follows.  Metrics: ``loss``, ``jaccard``,
-    ``grad_norm`` (before clipping), as 0-dim tensors.  ``mesh``: data
-    parallel over its ``data`` axis (see the module docstring): ``batch``
-    is this rank's block, and its micro-batches are its blocks of the
-    global ones (``DataLoader(micro_batches=grad_accum)``).  Spans
-    (``utils/profiling.py::span``): ``train.step`` holds each
-    micro-batch's ``train.forward`` (forward, loss, counts) and
+    ``grad_norm`` (before clipping), as 0-dim tensors that later steps do
+    not overwrite.  ``mesh``: data parallel over its ``data`` axis (see the
+    module docstring): ``batch`` is this rank's block, and its
+    micro-batches are its blocks of the global ones
+    (``DataLoader(micro_batches=grad_accum)``).
+
+    Replay (the module docstring): where ``replayable(model, mesh)``, a
+    CUDA batch and a state without ZeRO, the call after the first
+    ``cuda_graphs.WARMUP_CALLS`` eager ones of a batch signature captures
+    the step, and it and every later call of that signature replay it:
+    the state's identity, its optimizer's and its generator's, and the
+    parameters' addresses must then hold (a state changes in place, as
+    ``load_state_dict`` and ``CheckpointManager.restore`` change it; a new
+    state captures anew).  A replayed step leaves ``p.grad`` to the graph
+    (meaningful only after an eager step), draws from ``state.generator``
+    and advances it as an eager step does, and counts in ``opt.count`` and
+    ``state.step`` as one.  ``STEPS`` and ``REPLAYED_STEPS`` count the
+    steps and the replayed ones.
+
+    Spans (``utils/profiling.py::span``): ``train.step`` holds an eager
+    step's micro-batches' ``train.forward`` (forward, loss, counts) and
     ``train.backward``, then ``train.optimizer`` (the gradients' reduction,
-    the clip and AdamW).
+    the clip and AdamW); a replayed step's holds ``graph.replay``.
     """
     if isinstance(loss_fn, str):
         loss_fn = losses_lib.LOSSES[loss_fn]
@@ -349,13 +508,15 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     group = data_group(mesh)
 
-    def step(state: TrainState, batch):
+    def run(state: TrainState, batch, on_device=False):
+        """The step's work on ``batch``: (loss, jaccard, grad_norm);
+        ``on_device``: AdamW's ``step(on_device=True)``."""
         clip, masks = batch["clip"], batch["masks"]
         B = clip.shape[0]
         if B % grad_accum:
             raise ValueError(
                 f"batch size {B} not divisible by grad_accum={grad_accum}")
-        with span("train.step"), contextlib.ExitStack() as opt_span:
+        with contextlib.ExitStack() as opt_span:
             model.train()
             use_generator(model, state.generator)
             model.stats_group = group
@@ -388,19 +549,36 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
                 # parameters' release
                 opt_span.enter_context(span("train.optimizer"))
                 average_grads(state, mesh)
-            grad_norm = state.opt.step()
-            opt_span.close()
-            state.step += 1
-            if group is not None:  # the global batch's loss and counts
-                total = comm.all_reduce_sum(
-                    torch.cat([loss_sum.reshape(1), counts]), group)
-                loss_sum = total[0] / comm.size(group)
-                counts = total[1:]
-            tp, fp, fn = counts
-        return state, {"loss": loss_sum / grad_accum,
-                       "jaccard": tp / torch.clamp(tp + fp + fn, min=1),
-                       "grad_norm": grad_norm}
+            grad_norm = state.opt.step(on_device)
+        if group is not None:  # the global batch's loss and counts
+            total = comm.all_reduce_sum(
+                torch.cat([loss_sum.reshape(1), counts]), group)
+            loss_sum = total[0] / comm.size(group)
+            counts = total[1:]
+        tp, fp, fn = counts
+        return (loss_sum / grad_accum, tp / torch.clamp(tp + fp + fn, min=1),
+                grad_norm)
 
+    names = ("clip", "masks") + (("edges",) if edge_loss_fn is not None
+                                 else ())
+    graphs = _StepGraphs(run, names) if replayable(model, mesh) else None
+
+    def replays(state: TrainState, batch):
+        """Whether a call on ``state`` and ``batch`` goes through the
+        captured steps (eager warm-ups included)."""
+        return (graphs is not None and batch["clip"].is_cuda
+                and state.zero is None)
+
+    def step(state: TrainState, batch):
+        global STEPS
+        with span("train.step"):
+            out = (graphs(state, batch) if replays(state, batch)
+                   else run(state, batch))
+        state.step += 1
+        STEPS += 1
+        return state, dict(zip(("loss", "jaccard", "grad_norm"), out))
+
+    step.replays, step.graphs = replays, graphs
     return step
 
 

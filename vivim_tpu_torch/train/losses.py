@@ -108,8 +108,11 @@ def class_balanced_focal_loss(logits, targets, num_classes=None, gamma=2.0,
         w = counts[-1] / (C * (counts[:-1] + _EPS))
         alpha = w / w.sum()
     else:
-        alpha = torch.as_tensor(alpha, dtype=torch.float32,
-                                device=logits.device)
+        # filled on the device: a copy from pageable host memory cannot be
+        # captured in the replayed train step
+        alpha = torch.stack([logits.new_full((), float(a),
+                                             dtype=torch.float32)
+                             for a in alpha])
     focal_w = t * (1.0 - p) ** gamma + (1.0 - t) * p ** gamma
     bce = -t * torch.log(p + _EPS) - (1.0 - t) * torch.log(1.0 - p + _EPS)
     return (alpha * focal_w * bce).mean((0, 1, 2)).sum()

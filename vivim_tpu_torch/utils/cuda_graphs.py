@@ -1,10 +1,12 @@
-"""Compile once, replay many: CUDA graphs over the port's serving calls.
+"""Compile once, replay many: CUDA graphs over the port's serving calls
+and its train step.
 
 The JAX package runs its serving forward (``cli/infer.py``'s jitted
-``forward``) and its decode loop (``nn/lm.py``'s jitted scan) as compiled
-executables: ``jax.jit`` traces a function once per input signature and
-replays the compiled program with no per-op dispatch from the host.  On the
-card the port's counterpart is a CUDA graph, and ``GraphedCall`` is the
+``forward``), its decode loop (``nn/lm.py``'s jitted scan) and its train
+step (``train/loop.py``'s jitted step) as compiled executables:
+``jax.jit`` traces a function once per input signature and replays the
+compiled program with no per-op dispatch from the host.  On the card the
+port's counterpart is a CUDA graph, and ``GraphedCall`` is the
 counterpart of ``jax.jit``:
 
 - key: the inputs' shapes, dtypes and device, and the address, shape,
@@ -24,6 +26,11 @@ counterpart of ``jax.jit``:
 - CPU inputs: ``fn`` is called directly.
 
 There is no fallback: a capture or replay that fails raises.
+
+The train step (``train/loop.py::make_train_step``) keys and warms up its
+own captures, since a call advances the training state: its warm-ups are
+real eager steps, and it captures through ``capture`` with no warm-up
+call and the state's generator registered.
 
 ``CAPTURES`` and ``REPLAYS`` count captures and replays in this process.
 The kernel wrappers count their launches in Python (``count_launches``
@@ -117,21 +124,26 @@ class Graph:
         return self.outputs
 
 
-def capture(fn, static, pool=None):
+def capture(fn, static, pool=None, warmup=WARMUP_CALLS, generators=()):
     """``fn(*static)`` (CUDA tensors) as a ``Graph`` over ``static``:
-    ``WARMUP_CALLS`` calls on a side stream (kernel builds, cuBLAS and
-    cuDNN workspaces, lazy init), then the capture into ``pool`` (a
-    private pool when None)."""
+    ``warmup`` calls on a side stream (kernel builds, cuBLAS and cuDNN
+    workspaces, lazy init), then the capture into ``pool`` (a private
+    pool when None).  ``generators``: the explicit ``torch.Generator``s
+    ``fn`` draws from, registered with the graph, so that each replay
+    draws what a call would draw and advances them as a call would (the
+    default CUDA generator always is)."""
     global CAPTURES, CAPTURE_S
     t0 = time.perf_counter()
     with torch.cuda.device(static[0].device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
+            for _ in range(warmup):
                 fn(*static)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
         before = _counts()
         # thread_local: the data loader's threads may run meanwhile
         with torch.cuda.graph(graph, pool=pool,

@@ -200,23 +200,13 @@ def test_dropless_block_matches_a_per_token_loop(models):
     assert gap(moe.dropless_moe_step(params, x, 2), want) < 1e-5
 
 
-def test_routed_counts_every_token_twice(models):
-    port, reference, _ = models
+def test_generate_reads_two_to_four_experts_per_layer_and_step(models):
+    port, _, _ = models
     params = lm.lm_params(port)
-    port.split_params(params)            # makes ROUTED
-    moe.ROUTED.zero_()
-    with torch.no_grad():
-        port(tokens(2, 11))
-    assert moe.ROUTED.shape == (4, 4)
-    assert moe.ROUTED.sum(1).tolist() == [2 * 11 * 2] * 4
-    moe.ROUTED.zero_()
     read = int(moe.experts_read("cpu"))
     lm.generate(port, params, tokens(2, 5), 3, top_k=1)
-    # the prefill's 2 x 5 tokens; the decode steps count only the experts
-    # they read
-    assert moe.ROUTED.sum(1).tolist() == [2 * 5 * 2] * 4
     # each of the 3 steps (the last one's too) reads 2 to 4 distinct
-    # experts in each of 4 layers
+    # experts in each of 4 layers; the prefill counts none
     assert 3 * 4 * 2 <= int(moe.experts_read("cpu")) - read <= 3 * 4 * 4
 
 

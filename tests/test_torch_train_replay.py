@@ -1,28 +1,33 @@
 """The replayed train step's parts on the CPU (``train/loop.py``).
 
 A CUDA graph captures only on the card, so these hold what surrounds it:
-AdamW's step count on the device against the Python schedule, the rule
-that sends a step through the captured path or runs it eagerly, and the
-captured path's bookkeeping (eager warm-ups, the capture, replays, the
-outputs kept per step, the generator and the counts) with
-``cuda_graphs.capture`` replaced by a stand-in that reruns the captured
-call on its static buffers at each replay, as a graph replays its
-kernels.  ``chip_smoke.py`` holds the real capture against eager steps on
-the card.  No JAX.
+AdamW's step count on the device against the Python schedule, AdamW
+against the JAX package's optimizer, the rule that sends a step through
+the captured path or runs it eagerly, and the captured path's
+bookkeeping (eager warm-ups, the capture, replays, the outputs kept per
+step, the generator and the count, restored or moved by eager steps)
+with ``cuda_graphs.capture`` replaced by a stand-in that reruns the
+captured call on its static buffers at each replay, as a graph replays
+its kernels.  ``chip_smoke.py`` holds the real capture against eager
+steps on the card.
 """
 
 import dataclasses
 import math
 import types
 
+import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
+from vivim_tpu.train import loop as jloop
 from vivim_tpu_torch.nn.layers import init_weights
 from vivim_tpu_torch.nn.vivim import Vivim, VivimConfig
 from vivim_tpu_torch.parallel.mesh import Mesh
 from vivim_tpu_torch.train import loop
+from vivim_tpu_torch.train.checkpoints import CheckpointManager
 from vivim_tpu_torch.utils import cuda_graphs
 
 torch.set_num_threads(1)
@@ -41,55 +46,71 @@ def _opt(total=TOTAL):
     return model, loop.AdamW(model, 1e-3, 0.01, total)
 
 
+def _grads(model, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    for p in model.parameters():
+        p.grad = scale * torch.randn(p.shape, generator=g)
+
+
 def test_device_schedule_matches_the_python_one():
     """The learning rate and both bias corrections from the device's count
     are the Python doubles' float32 roundings within one ulp, at every
-    step from 0 to past the schedule's end, and after ``load_state_dict``
-    moves the count."""
-    _, opt = _opt()
+    step from 0 to past the schedule's end, after ``load_state_dict``
+    moves the count, and after eager steps move it."""
+    model, opt = _opt()
     b1, b2 = opt.b1, opt.b2
 
     def check(k):
+        assert opt.count == k
         lr, c1, c2 = opt._device_scalars()
         assert _ulps(lr, loop.cosine_lr(1e-3, TOTAL, 0.01, k)) <= 1
         assert _ulps(c1, 1.0 - b1 ** (k + 1)) <= 1
         assert _ulps(c2, math.sqrt(1.0 - b2 ** (k + 1))) <= 1
         assert all(t.dtype == torch.float32 for t in (lr, c1, c2))
-        opt.replayed()
-        assert opt.count == k + 1 and float(opt.device_count()) == k + 1
+        assert type(opt.count) is int and opt.count == k + 1
 
     for k in range(TOTAL + 3):
         check(k)
     opt.load_state_dict({"count": 3, "mu": opt.mu, "nu": opt.nu})
-    assert float(opt._count_t) == 3
     check(3)
-    opt.count = 5   # an eager step's count: the device's follows it
-    check(5)
+    for k in range(2):
+        _grads(model, k)
+        opt.step()
+    check(6)
 
 
-def _grads(model, seed):
-    g = torch.Generator().manual_seed(seed)
-    for p in model.parameters():
-        p.grad = torch.randn(p.shape, generator=g)
-
-
-def test_device_update_matches_the_eager_update():
-    """The same gradients through ``step()`` and ``step(on_device=True)``
-    over the schedule and past it: equal norms and moments, parameters
-    within float32 rounding of the last product."""
-    (m_e, o_e), (m_d, o_d) = _opt(), _opt()
-    m_d.load_state_dict(m_e.state_dict())
+def test_update_matches_the_jax_optimizer():
+    """``AdamW.step`` against the JAX package's optimizer (optax's
+    global-norm clip, then AdamW on the cosine schedule with the tagged
+    decay mask) from the same gradients, the clip binding on every other
+    step, over the schedule and past its end: norms, moments and
+    parameters within float32 rounding, and one count per update."""
+    model, opt = _opt()
+    tx, _ = jloop.make_optimizer(1e-3, 0.01, TOTAL)
+    host = lambda xs: {n: jax.numpy.asarray(x.detach().numpy().copy())
+                       for n, x in zip(opt.names, xs)}
+    params = host(opt.params)
+    state = tx.init(params)
     for k in range(TOTAL + 3):
-        _grads(m_e, k)
-        _grads(m_d, k)
-        n_e = o_e.step()
-        n_d = o_d.step(on_device=True)
-        o_d.replayed()
-        assert torch.equal(n_e, n_d) and o_e.count == o_d.count == k + 1
-        for a, b in zip(o_e.mu + o_e.nu, o_d.mu + o_d.nu):
-            assert torch.equal(a, b)
-        for a, b in zip(m_e.parameters(), m_d.parameters()):
-            torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-9)
+        _grads(model, k, scale=(0.2, 5.0)[k % 2])
+        grads = host([p.grad for p in opt.params])
+        norm = opt.step()
+        upd, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, upd)
+        assert opt.count == k + 1
+        torch.testing.assert_close(float(norm),
+                                   float(optax.global_norm(grads)),
+                                   rtol=1e-6, atol=0)
+        adam = state[1][0]
+        for mine, theirs in ((opt.params, params), (opt.mu, adam.mu),
+                             (opt.nu, adam.nu)):
+            for name, got in zip(opt.names, mine):
+                # a leaf to float32 rounding of its largest element: the
+                # moments round in another order (optax's, not lerp's)
+                want = torch.from_numpy(np.array(theirs[name]))
+                torch.testing.assert_close(
+                    got.detach(), want, rtol=1e-6,
+                    atol=1e-6 * float(want.abs().max()))
 
 
 # --- the rule and the captured path
@@ -197,9 +218,9 @@ def _replay_steps(state, step, batches):
 def test_captured_path_steps_as_eager_steps_do(captured):
     """5 steps through the captured path (2 eager, the capture and its
     replay, 2 more replays) against 5 eager steps from the same start,
-    dropout on: equal losses, Jaccard, norms and generator states, the
-    same counts, parameters and moments within float32 rounding of AdamW's
-    last product; each step's metrics keep their values after the later
+    dropout on: the same counts, and losses, Jaccard, norms, generator
+    states, parameters and moments bitwise equal (both ways run one AdamW
+    update form); each step's metrics keep their values after the later
     steps overwrite the static outputs."""
     n = 5
     (s_e, step_e), (s_r, step_r) = _pair(n)
@@ -217,13 +238,12 @@ def test_captured_path_steps_as_eager_steps_do(captured):
     assert loop.STEPS - steps == n
     for g, w in zip(got, want):
         for k in ("loss", "jaccard", "grad_norm"):
-            torch.testing.assert_close(g[k], w[k], rtol=1e-6, atol=0, msg=k)
+            assert torch.equal(g[k], w[k]), k
     assert s_r.step == s_e.step == s_r.opt.count == s_e.opt.count == n
-    assert float(s_r.opt.device_count()) == n
     assert torch.equal(s_r.generator.get_state(), s_e.generator.get_state())
     for a, b in zip(s_r.opt.params + s_r.opt.mu + s_r.opt.nu,
                     s_e.opt.params + s_e.opt.mu + s_e.opt.nu):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
+        assert torch.equal(a, b)
 
 
 def test_a_new_state_captures_anew(captured):
@@ -244,19 +264,30 @@ def test_a_new_state_captures_anew(captured):
     assert len(captured) == 3 and len(step.graphs.graphs) == 2
 
 
-def test_a_count_moved_on_the_host_reaches_the_replays(captured):
-    """``load_state_dict`` (a checkpoint's restore) and eager steps of
-    another shape move ``opt.count`` alone; the next replay's schedule
-    starts from it."""
+def test_a_restored_count_and_eager_steps_of_another_shape_reach_the_replays(
+        captured, tmp_path):
+    """A ``CheckpointManager`` restore and eager steps of another shape
+    move the optimizer's one count, and the next replay's schedule starts
+    from it: a replay after the restore repeats, bit for bit, the step
+    that followed the save."""
     (s, step), _ = _pair(8)
     b = _batch(0)
-    _replay_steps(s, step, [b] * 3)
-    s.opt.load_state_dict({"count": 6, "mu": s.opt.mu, "nu": s.opt.nu})
-    assert float(s.opt._count_t) == 6
+    _replay_steps(s, step, [b] * 3)   # 2 eager, the capture's replay
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(s, s.step, {})
     _replay_steps(s, step, [b])
-    assert s.opt.count == 7 and float(s.opt.device_count()) == 7
+    after = [p.clone() for p in s.opt.params]
+    assert s.opt.count == 4
     small = {k: v[:, :1] for k, v in b.items()}
-    _replay_steps(s, step, [small])   # eager: the host's count alone
-    assert s.opt.count == 8 and s.opt._count_t_at == 7
+    _replay_steps(s, step, [small])   # eager: another shape warms up
+    assert s.opt.count == 5
     _replay_steps(s, step, [b])
-    assert s.opt.count == 9 and float(s.opt.device_count()) == 9
+    assert s.opt.count == 6
+    ckpt.restore(s)
+    assert s.step == s.opt.count == 3
+    _replay_steps(s, step, [b])
+    assert type(s.opt.count) is int and s.opt.count == 4
+    assert len(captured) == 1
+    for a, p in zip(after, s.opt.params):
+        assert torch.equal(a, p)
+

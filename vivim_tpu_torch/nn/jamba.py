@@ -256,12 +256,9 @@ class JambaLM(nn.Module):
 
     def split_params(self, params) -> lm_lib.LMParts:
         """A flat dict under this model's names as ``lm.LMParts``: what
-        ``lm.prefill``, ``lm.decode_step`` and ``lm.generate`` read.  Makes
-        ``moe.ROUTED`` on the dict's device."""
+        ``lm.prefill``, ``lm.decode_step`` and ``lm.generate`` read."""
         cfg, sub = self.cfg, lm_lib.sub_params
         emb = params["model.embed_tokens.weight"]
-        moe_layers = cfg.moe_layers()
-        moe.counters(len(moe_layers), cfg.num_experts, emb.device)
         top_k = cfg.num_experts_per_tok
         layers = []
         for i in range(cfg.num_hidden_layers):
@@ -269,9 +266,7 @@ class JambaLM(nn.Module):
             attn = cfg.is_attention(i)
             ff = sub(params, pre + "feed_forward.")
             if cfg.has_experts(i):
-                k = moe_layers.index(i)
-                run = functools.partial(moe.dropless_moe, ff, top_k=top_k,
-                                        layer=k)
+                run = functools.partial(moe.dropless_moe, ff, top_k=top_k)
                 step = functools.partial(moe.dropless_moe_step, ff,
                                          top_k=top_k)
             else:

@@ -50,26 +50,11 @@ from vivim_tpu_torch.nn.quant import matmul_t
 from vivim_tpu_torch.utils.profiling import span
 
 
-# device counts of the dropless block.  ROUTED (MoE layers, experts) int64:
-# the tokens each expert of each layer was given in the eager prefill
-# (``counters`` makes it; nothing captured holds it, so it may be replaced).
-# EXPERTS_READ[device] () int64: the distinct experts chosen in each decode
-# step, summed over steps and layers; a captured step adds to the tensor it
-# was captured with, so each device's is made once (``experts_read``) and
-# never replaced.
-ROUTED = None
+# the dropless block's device count.  EXPERTS_READ[device] () int64: the
+# distinct experts chosen in each decode step, summed over steps and layers;
+# a captured step adds to the tensor it was captured with, so each device's
+# is made once (``experts_read``) and never replaced.
 EXPERTS_READ = {}
-
-
-def counters(n_layers: int, n_experts: int, device):
-    """Make ``ROUTED`` for this shape on ``device`` where it is missing or
-    of another shape or device."""
-    global ROUTED
-    dev = torch.device(device)
-    if (ROUTED is None or tuple(ROUTED.shape) != (n_layers, n_experts)
-            or ROUTED.device != dev):
-        ROUTED = torch.zeros(n_layers, n_experts, dtype=torch.long,
-                             device=dev)
 
 
 def experts_read(device):
@@ -97,15 +82,13 @@ def _route(params, xt, top_k):
     return torch.topk(torch.softmax(logits, -1), top_k, dim=-1)
 
 
-def dropless_moe(params, x, top_k: int, layer: int | None = None):
+def dropless_moe(params, x, top_k: int):
     """The dropless top-k block over a whole sequence: x (..., M) -> (...,
     M).  ``params``: ``router.weight`` (E, M) and ``experts.{e}.
     {gate,up,down}_proj.weight``.  The tokens are sorted by expert and each
     expert runs once on its own (the group sizes are read on the host, so
     this runs eagerly, in the span ``lm.moe``); the gated outputs are
-    summed per token in fp32.
-    ``layer``: the row of ``ROUTED`` this block counts into (None: no
-    count; ``counters`` makes them first)."""
+    summed per token in fp32."""
     with span("lm.moe"):
         M = x.shape[-1]
         xt = x.reshape(-1, M)
@@ -113,8 +96,6 @@ def dropless_moe(params, x, top_k: int, layer: int | None = None):
         E = params["router.weight"].shape[0]
         flat = experts.reshape(-1)
         counts = torch.bincount(flat, minlength=E)
-        if layer is not None:
-            ROUTED[layer] += counts
         order = torch.argsort(flat, stable=True)
         rows = order // top_k                   # the token of each choice
         xs = xt[rows]

@@ -24,11 +24,11 @@ the host one graph launch and the copies of its inputs
 batch signature run eagerly, as real steps that also warm up the kernels'
 builds and the libraries' workspaces; the next call captures the step and
 replays it at once.  A replay draws from the state's generator what an
-eager step would (the generator is registered with the graph) and takes
-its learning rate and bias corrections from the optimizer's step count on
-the device (``AdamW.device_count``).  Everywhere else the same code runs
-eagerly: the CPU, more than one rank, a ZeRO state, and a model that
-recomputes layers in the backward (``replayable``).
+eager step would (the generator is registered with the graph); like every
+step, it takes its learning rate and bias corrections from the
+optimizer's step count on the device (``AdamW``).  Everywhere else the
+same code runs eagerly: the CPU, more than one rank, a ZeRO state, and a
+model that recomputes layers in the backward (``replayable``).
 
 Data parallel (a ``mesh`` with a ``data`` axis of more than one rank, one
 process per rank): each rank's train step takes its own block of the
@@ -127,43 +127,28 @@ class AdamW:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
-        # the step count on the parameters' device (``device_count``), and
-        # the ``count`` it was last set from or advanced to
-        self._count_t = None
-        self._count_t_at = 0
+        # the step count, float64 on the parameters' device: every step
+        # reads and advances it there, so a step reads no host value and
+        # can be captured
+        self._count_t = torch.zeros((), dtype=torch.float64,
+                                    device=self.params[0].device)
         # (per-leaf norms, live indices) -> global norm; None: the norm of
         # the leaves here (ZeRO sums its slices' over the data axis)
         self.reduce_norm = None
 
+    @property
+    def count(self) -> int:
+        """The updates taken (read from the device)."""
+        return int(self._count_t)
+
     def schedule(self, step: int) -> float:
         return cosine_lr(self.lr, self.total_steps, self.eta_min_ratio, step)
 
-    def device_count(self):
-        """The step count as a float64 0-dim tensor on the parameters'
-        device, which ``step(on_device=True)`` reads and advances; set here
-        from ``count`` where that moved alone (an eager step,
-        ``load_state_dict``).  Call it outside a capture."""
-        if self._count_t is None:
-            self._count_t = torch.zeros((), dtype=torch.float64,
-                                        device=self.params[0].device)
-            self._count_t_at = 0
-        if self._count_t_at != self.count:
-            self._count_t.fill_(self.count)
-            self._count_t_at = self.count
-        return self._count_t
-
-    def replayed(self):
-        """Count a ``step(on_device=True)`` that ran (a replay of one): it
-        advanced the device's count, and ``count`` follows it."""
-        self.count += 1
-        self._count_t_at = self.count
-
     def _device_scalars(self):
         """(lr, 1 - b1**t, sqrt(1 - b2**t)) as float32 0-dim tensors,
-        computed in float64 from the device's count before the step in the
-        order of ``cosine_lr`` and ``step``'s, which advance it to t."""
-        t = self.device_count()
+        computed in float64 from the count before the step in the order of
+        ``cosine_lr``; advances the count to t."""
+        t = self._count_t
         total = max(self.total_steps, 1)
         frac = torch.clamp(t, max=total) / total
         lr = self.lr * ((1.0 - self.eta_min_ratio) * 0.5
@@ -174,15 +159,12 @@ class AdamW:
                 torch.sqrt(1.0 - self.b2 ** t).float())
 
     @torch.no_grad()
-    def step(self, on_device: bool = False):
+    def step(self):
         """Clip, update every parameter that has a gradient; returns the
         global gradient norm before clipping (a 0-dim tensor), or None
-        without clipping.  ``on_device``: the learning rate and the bias
-        corrections come from ``device_count``, so the step reads no host
-        value and can be captured; ``count`` is then left for ``replayed``,
-        and the update is scaled by the rate and then subtracted, two
-        roundings where the eager form adds it with the rate as a scalar
-        factor (a parameter may differ by an ulp)."""
+        without clipping.  The update is scaled by the rate, then
+        subtracted: optax's ``scale_by_learning_rate`` then
+        ``apply_updates``."""
         live = [i for i, p in enumerate(self.params) if p.grad is not None]
         params = [self.params[i] for i in live]
         grads = [p.grad for p in params]
@@ -194,13 +176,7 @@ class AdamW:
             # optax scales by max/norm only when norm > max: the factor is 1
             torch._foreach_mul_(grads, self.clip_norm
                                 / torch.clamp(norm, min=self.clip_norm))
-        if on_device:
-            lr, c1, c2 = self._device_scalars()
-        else:
-            lr = self.schedule(self.count)
-            self.count += 1
-            c1 = 1.0 - self.b1 ** self.count
-            c2 = math.sqrt(1.0 - self.b2 ** self.count)
+        lr, c1, c2 = self._device_scalars()
         mu = [self.mu[i].float() for i in live]  # the fp32 ones themselves
         nu = [self.nu[i] for i in live]
         torch._foreach_lerp_(mu, grads, 1.0 - self.b1)
@@ -221,20 +197,15 @@ class AdamW:
             torch._foreach_add_([upd[j] for j in decayed],
                                 [params[j] for j in decayed],
                                 alpha=self.weight_decay)
-        if on_device:
-            torch._foreach_mul_(upd, lr)
-            torch._foreach_sub_(params, upd)
-        else:
-            torch._foreach_add_(params, upd, alpha=-lr)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(params, upd)
         return norm
 
     def state_dict(self):
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
     def load_state_dict(self, sd):
-        self.count = int(sd["count"])
-        if self._count_t is not None:
-            self.device_count()
+        self._count_t.fill_(int(sd["count"]))
         for dst, src in zip(self.mu + self.nu, list(sd["mu"]) + list(sd["nu"])):
             dst.copy_(src)
 
@@ -443,9 +414,7 @@ class _StepGraphs:
                 self.graphs[sig] = graph + 1
                 return self.run(state, batch)
             graph = self.graphs[sig] = self.capture(state, inputs)
-        state.opt.device_count()
         outputs = graph(*inputs)
-        state.opt.replayed()
         REPLAYED_STEPS += 1
         # the next replay overwrites the static outputs
         return tuple(None if t is None else t.clone() for t in outputs)
@@ -453,11 +422,8 @@ class _StepGraphs:
     def capture(self, state, inputs):
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        # set before the capture: a fill inside it would be replayed
-        state.opt.device_count()
         return cuda_graphs.capture(
-            lambda *xs: self.run(state, dict(zip(self.names, xs)),
-                                 on_device=True),
+            lambda *xs: self.run(state, dict(zip(self.names, xs))),
             tuple(x.clone() for x in inputs), self.pool, warmup=0,
             generators=(state.generator,))
 
@@ -508,9 +474,8 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     group = data_group(mesh)
 
-    def run(state: TrainState, batch, on_device=False):
-        """The step's work on ``batch``: (loss, jaccard, grad_norm);
-        ``on_device``: AdamW's ``step(on_device=True)``."""
+    def run(state: TrainState, batch):
+        """The step's work on ``batch``: (loss, jaccard, grad_norm)."""
         clip, masks = batch["clip"], batch["masks"]
         B = clip.shape[0]
         if B % grad_accum:
@@ -549,7 +514,7 @@ def make_train_step(model, loss_fn: Callable | str = "recall_focused",
                 # parameters' release
                 opt_span.enter_context(span("train.optimizer"))
                 average_grads(state, mesh)
-            grad_norm = state.opt.step(on_device)
+            grad_norm = state.opt.step()
         if group is not None:  # the global batch's loss and counts
             total = comm.all_reduce_sum(
                 torch.cat([loss_sum.reshape(1), counts]), group)

@@ -41,6 +41,13 @@ Phases, each of which raises on failure (exit code != 0):
    replay ms, one eager call's ms, the kernels' us, the plain
    versions' ms, cuDNN's ms on the route the port took before the kernels
    (``F.conv3d`` with autograd), and the bytes bound;
+3d. hold the decode step's kernels (``kernels/mamba_step.py``:
+   ``conv_step`` and ``ssm_step``, which step the conv window and the ssm
+   state in place) against their plain versions over 4 steps at
+   mamba-130m's layer (1, 1536) with d_state 16, 64 and 256 in fp32 and at
+   Jamba's (8, 8192, 16) in bf16, x, z, B and C as strided views; print
+   each kernel's replay us, one eager call's us, the plain version's us
+   and the bytes bound;
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
    ``run_inference``, whose forward, argmax and confusion counts are one
@@ -129,7 +136,9 @@ Phases, each of which raises on failure (exit code != 0):
    tokens) within 1e-3 of the same model on the plain scan; (f) prefill
    ms, decode ms per token (CUDA events), kernels per token and the
    device's busy share of a decode step (torch.profiler), peak memory, for
-   the decode graph's replay and the eager step; (g) ``generate`` at the
+   the decode graph's replay and the eager step, each launching the
+   decode step's two kernels once a layer (``mamba_step.LAUNCHES``: 2 x 24
+   a token in every dtype, in (b) and (c) too); (g) ``generate`` at the
    bench's defaults through the decode graph and through the eager loop
    (the mixer hook) in each dtype, tokens/s of both and their tokens
    equal, and in fp32 at top-k 0, temperature 1 from one seed;
@@ -141,7 +150,8 @@ Phases, each of which raises on failure (exit code != 0):
    directory (seeded init, 13.3 B parameters on the card), a ``generate``
    that captures the decode graph, then 3 requests of (8, 4096) prompts
    and 16 new tokens with the counts zeroed just before them: 7 K1 a
-   prefill, none in the 48 replays, no capture, no conv; (c) the replayed
+   prefill, none in the 48 replays, no capture, no conv, the decode step's
+   two kernels 2 x 7 a replay; (c) the replayed
    hybrid step (Mamba step, GQA step against the K/V cache, dropless MoE
    step) within 1e-2 of the eager loop's scores, teacher-forced; (d) the
    decode graph's K/V position after a request, and its keys and values at
@@ -264,7 +274,7 @@ MambaLayer, with ``blocks`` remat's recompute, and a conv backward beside
 each K2; the LM phases must call it not at all.
 
 Each phase prints its seconds.  Without CUDA the script exits non-zero
-before printing any result.  ``--kernels-only`` stops after phase 3c (a
+before printing any result.  ``--kernels-only`` stops after phase 3d (a
 quick check of the kernels on the card); ``--jamba-only`` runs phase 8b
 alone after the build, ``--dstate-only`` phase 13, ``--train-replay-only``
 phase 5c.
@@ -346,6 +356,10 @@ LM_RAGGED = 37
 LM_DTYPES = ("float32", "bfloat16", "int8")
 LM_E2E_GEN = 32
 LM_DECODE_STEPS = 16
+# phase 3d: the decode step's kernels at mamba-130m's layer (batch 1,
+# d_inner 1536) at three d_state and at Jamba's (batch 8, d_inner 8192)
+STEP_SHAPES = ((1, 1536, 16, torch.float32), (1, 1536, 64, torch.float32),
+               (1, 1536, 256, torch.float32), (8, 8192, 16, torch.bfloat16))
 # phase 9: make_train_step steps per remat level at the training batch (the
 # first checked against none's, the median over the rest), and at the
 # larger batch where the memory remat saves shows
@@ -1112,6 +1126,109 @@ def phase_dwconv(peaks):
     return rows
 
 
+def step_work(batch, d, n, width, elem, which):
+    """(bytes, fp32 operations, exps) of one decode step kernel.
+    ``conv_step`` reads and writes the window (W per channel and row),
+    reads x, the weight and bias and writes the output; ``ssm_step`` reads
+    and writes the fp32 state, reads x, dt, z, B, C, A_log, D and the dt
+    bias and writes the output: each byte once.  Exps: silu's; per state
+    A's and the decay's, per channel softplus's and silu's."""
+    if which == "conv_step":
+        return ((batch * d * (2 * width + 2) + d * (width + 1)) * elem,
+                batch * d * (2 * width + 4), batch * d)
+    return (batch * d * n * 8 + (batch * (4 * d + 2 * n) + d * (n + 2))
+            * elem, batch * d * (6 * n + 10), batch * d * (2 * n + 2))
+
+
+def step_inputs(batch, d, n, dtype, gen, width=4, dt_rank=8):
+    """The decode step's operands as ``streaming.mamba_step`` passes them:
+    x and z the halves of an in_proj output, the conv weight viewed from
+    (d, 1, W), B and C column views of an x_proj output."""
+    f = lambda *s, scale=1.0: scale * torch.randn(*s, generator=gen,
+                                                  device="cuda")
+    xz = f(batch, 2 * d).to(dtype)
+    x_dbl = f(batch, dt_rank + 2 * n).to(dtype)
+    A_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device="cuda")).repeat(d, 1)
+    conv = dict(x=xz[:, :d], conv_state=f(batch, width, d).to(dtype),
+                weight=f(d, 1, width, scale=0.5).to(dtype)[:, 0, :].t(),
+                bias=f(d, scale=0.1).to(dtype))
+    ssm = dict(ssm_state=f(batch, d, n), x=f(batch, d).to(dtype),
+               dt=f(batch, d, scale=0.5).to(dtype), A_log=A_log.to(dtype),
+               B=x_dbl[:, dt_rank:dt_rank + n], C=x_dbl[:, dt_rank + n:],
+               D=f(d).to(dtype), z=xz[:, d:], dt_bias=f(d, scale=0.3).to(
+                   dtype))
+    return conv, ssm
+
+
+def phase_step_kernels(peaks):
+    """Phase 3d: the decode step's kernels against their plain versions
+    (``kernels/mamba_step.py``) over 4 steps on copies of the states, then
+    timed: replay us (10 calls in a CUDA graph), one eager call's us, the
+    plain version's us, the bytes bound."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for batch, d, n, dtype in STEP_SHAPES:
+        conv, ssm = step_inputs(batch, d, n, dtype, gen)
+        plain_conv = dict(conv, conv_state=conv["conv_state"].clone())
+        plain_ssm = dict(ssm, ssm_state=ssm["ssm_state"].clone())
+        rtol, atol = TOL[dtype]
+        errs = {"conv_step": 0.0, "ssm_step": 0.0}
+        for _ in range(4):
+            got = mk.conv_step(**conv), mk.ssm_step(**ssm)
+            want = (mk.plain_conv_step(**plain_conv),
+                    mk.plain_ssm_step(**plain_ssm))
+            torch.cuda.synchronize()
+            for which, g, w in zip(errs, got, want):
+                torch.testing.assert_close(
+                    g.float(), w.float(), rtol=rtol, atol=atol,
+                    msg=f"{which} ({batch}, {d}, {n}) {dtype_name(dtype)}")
+                errs[which] = max(errs[which],
+                                  (g.float() - w.float()).abs().max().item())
+            if not torch.equal(conv["conv_state"], plain_conv["conv_state"]):
+                raise AssertionError(f"conv_step ({batch}, {d}) window")
+            torch.testing.assert_close(
+                ssm["ssm_state"], plain_ssm["ssm_state"],
+                rtol=TOL[torch.float32][0], atol=TOL[torch.float32][1],
+                msg=f"ssm_step ({batch}, {d}, {n}) state")
+            errs["ssm_step"] = max(errs["ssm_step"], (
+                ssm["ssm_state"] - plain_ssm["ssm_state"]).abs().max().item())
+        torch.cuda.synchronize()
+        for which, run, plain in (
+                ("conv_step", lambda: mk.conv_step(**conv),
+                 lambda: mk.plain_conv_step(**plain_conv)),
+                ("ssm_step", lambda: mk.ssm_step(**ssm),
+                 lambda: mk.plain_ssm_step(**plain_ssm))):
+            call_ms = cuda_ms(run, 20)
+            ms = device_ms(run)
+            plain()
+            plain_ms = cuda_ms(plain, 20)
+            lanes = (mk.ssm_lanes(batch, d, n)[0] if which == "ssm_step"
+                     else None)
+            work = step_work(batch, d, n, conv["conv_state"].shape[1],
+                             torch.finfo(dtype).bits // 8, which)
+            bound_ms, bound_by, term = bound(work, peaks)
+            rows.append(dict(stage="decode step", which=which, batch=batch,
+                             d=d, n=n, dtype=dtype_name(dtype),
+                             max_abs_err=errs[which], ms=ms, call_ms=call_ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bound_term=term,
+                             mbytes=work[0] / 1e6,
+                             lanes=lanes))
+            print(f"{which:9s} ({batch}, {d}, N {n:3d}) {dtype_name(dtype):8s}"
+                  f"{'' if lanes is None else f' lanes {lanes}'}"
+                  f": max_abs_err={errs[which]:.3e} replay_us="
+                  f"{1e3 * ms:.2f} (one eager call {1e3 * call_ms:.2f}) "
+                  f"plain_us={1e3 * plain_ms:.2f} bound_us="
+                  f"{1e3 * bound_ms:.3f} ({term}; {work[0] / 1e3:.1f} KB; "
+                  f"{bound_ms / ms * 100:.1f} % of it)", flush=True)
+        del conv, ssm, plain_conv, plain_ssm
+    torch.cuda.synchronize()
+    return rows
+
+
 class Requests:
     """In-memory batches of numpy dicts as an iterable loader."""
 
@@ -1180,12 +1297,22 @@ def counts():
 
 def reset_counts():
     from vivim_tpu_torch.kernels import dwconv3d as dk
+    from vivim_tpu_torch.kernels import mamba_step as mk
     from vivim_tpu_torch.kernels import selective_scan as ss
     from vivim_tpu_torch.utils import cuda_graphs
 
     ss.LAUNCHES = ss.TRAIN_LAUNCHES = ss.BWD_LAUNCHES = 0
     dk.LAUNCHES = dk.BWD_LAUNCHES = 0
+    mk.LAUNCHES = 0
     cuda_graphs.CAPTURES = cuda_graphs.REPLAYS = 0
+
+
+def step_launches():
+    """The decode step's kernel launches (``conv_step`` and ``ssm_step``,
+    2 a Mamba mixer a token) since ``reset_counts``."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+
+    return mk.LAUNCHES
 
 
 def graph_counts():
@@ -2702,12 +2829,21 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
             bench[dtype] = json.loads(line)
             print(f"lm bench_generation --dtype {dtype}: {line}", flush=True)
         launched, graphs = counts(), graph_counts()
+        stepped = step_launches()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
     per_gen = cfg.n_layer
     want = launches(k1=len(LM_DTYPES) * (repeats + 1) * per_gen)
     if on_card and launched != want:
         raise AssertionError(f"bench_generation launched {launched}, "
                              f"expected {want}")
+    # the decode step's two kernels once a layer in each graph's warm-up
+    # calls and replays
+    want_steps = graph_launches(2 * cfg.n_layer, len(LM_DTYPES),
+                                len(LM_DTYPES) * (repeats + 1) * gen_len)
+    if on_card and stepped != want_steps:
+        raise AssertionError(f"bench_generation launched the decode step's "
+                             f"kernels {stepped} times, expected "
+                             f"{want_steps}")
     # a model per CLI run, so a decode graph each; a replay per token
     want_graphs = {"captures": len(LM_DTYPES) if on_card else 0,
                    "replays": len(LM_DTYPES) * (repeats + 1) * gen_len
@@ -2720,6 +2856,7 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
                 or not r["tokens_per_sec"] > 0:
             raise AssertionError(f"bench line {dtype}: {r}")
     print(f"lm: bench launches {launched} ({per_gen} K1 per generate), "
+          f"decode step kernels {stepped} (2 x {cfg.n_layer} a token), "
           f"decode graphs {graphs}, peak memory {peak / 2**30:.2f} GiB",
           flush=True)
 
@@ -2729,21 +2866,23 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
     toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
                          device=dev_)
     q8 = quantize_lm_params(params, activation_dtype=torch.bfloat16)
-    step_launches = []
 
     def counting_step(mp, x, cs, ssm):
-        c0 = ss.LAUNCHES
+        c0, k0 = ss.LAUNCHES, step_launches()
         out = streaming.mamba_step(mp, x, cs, ssm)
-        step_launches.append(ss.LAUNCHES - c0)
+        mixer_launches.append((ss.LAUNCHES - c0, step_launches() - k0))
         return out
 
+    mixer_launches = []
     reset_counts()
     lm.generate(model, params, toks, 16, top_k=1, mixer_step=counting_step,
                 generator=torch.Generator(device=dev_).manual_seed(1))
     per = {"generate": counts()["K1 inference"]}
-    if len(step_launches) != 16 * cfg.n_layer or any(step_launches):
-        raise AssertionError(f"decode steps launched {sum(step_launches)} "
-                             f"K1 over {len(step_launches)} mixer steps")
+    if len(mixer_launches) != 16 * cfg.n_layer or any(
+            k1 or k != (2 if on_card else 0) for k1, k in mixer_launches):
+        raise AssertionError(f"decode steps launched (K1, step kernels) "
+                             f"{set(mixer_launches)} in "
+                             f"{len(mixer_launches)} mixer steps")
     # through the decode graph: K1 in the prefill alone, a replay per token
     lm.generate(model, params, toks, 16, top_k=1,
                 generator=torch.Generator(device=dev_).manual_seed(1))
@@ -2752,8 +2891,10 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
                 generator=torch.Generator(device=dev_).manual_seed(1))
     per["graph generate"] = counts()["K1 inference"]
     graphs = graph_counts()
-    if on_card and graphs != {"captures": 0, "replays": 16}:
-        raise AssertionError(f"16 graph decode steps: {graphs}")
+    if on_card and (graphs != {"captures": 0, "replays": 16}
+                    or step_launches() != 16 * 2 * cfg.n_layer):
+        raise AssertionError(f"16 graph decode steps: {graphs}, "
+                             f"{step_launches()} step kernel launches")
     text = "".join(chr(97 + i % 26) for i in range(prompt))
     for name, p in (("score fp32", params), ("score int8", q8)):
         core = MambaEvalCore(model, p, CharTokenizer(cfg.vocab_size))
@@ -2766,9 +2907,9 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
         raise AssertionError(f"K1 launches {per}; expected {per_gen} per "
                              "generate and per scoring forward")
     print(f"lm: K1 launches per eager / graph generate / fp32 / int8 "
-          f"scoring forward {per}: 0 in {len(step_launches)} eager decode "
-          f"mixer steps and in {graphs['replays']} decode graph replays",
-          flush=True)
+          f"scoring forward {per}: 0 in {len(mixer_launches)} eager decode "
+          f"mixer steps and in {graphs['replays']} decode graph replays; "
+          f"the decode step's kernels 2 a mixer step in both", flush=True)
 
     # (d) K1 against its plain version at the LM shapes
     rows = lm_scan_rows(peaks, d_inner) if on_card else []
@@ -2818,6 +2959,16 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
                 lm.decode_step(parts, tok, cs, ssm)
 
             replay = lm.decode_graph(model, parts, p, cs, ssm).start(cs, ssm)
+            k0 = step_launches()
+            replay(tok)
+            k1 = step_launches()
+            step()
+            k2 = step_launches()
+            if on_card and (k1 - k0, k2 - k1) != (2 * cfg.n_layer,) * 2:
+                raise AssertionError(
+                    f"lm {dtype}: a replay and an eager step launched the "
+                    f"decode step's kernels {k1 - k0} and {k2 - k1} times, "
+                    f"expected {2 * cfg.n_layer}")
             if on_card:
                 prefill_ms = cuda_ms(lambda: lm.prefill(parts, toks), 5)
                 decode_ms = cuda_ms(
@@ -2832,8 +2983,6 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
                                       "replay)", lambda: replay(tok),
                                       n_runs=5)
             else:
-                step()
-                replay(tok)
                 prefill_ms = decode_ms = graph_ms = prof = gprof = None
         timing[dtype] = dict(prefill_ms=prefill_ms,
                              decode_ms_per_token=decode_ms,
@@ -2890,6 +3039,7 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
           "from one seed: graph decode's equal the eager loop's", flush=True)
     print(f"lm: phase {time.perf_counter() - t0:.1f} s", flush=True)
     return launched, dict(bench=bench, per_call_launches=per,
+                          step_kernel_launches=stepped,
                           prefill_logits_err=logit_err,
                           teacher_scores_err=score_err, timing=timing,
                           peak_gib=peak / 2**30, scan_rows=rows)
@@ -2995,26 +3145,31 @@ def phase_jamba(peaks):
     reset_counts()
     run(prompts[-1])                    # the capture
     warm, warm_graphs = counts(), graph_counts()
-    if warm != launches(k1=n_mamba) or warm_graphs["captures"] != 1:
+    if (warm != launches(k1=n_mamba) or warm_graphs["captures"] != 1
+            or step_launches() != graph_launches(2 * n_mamba, 1, JAMBA_GEN)):
         raise AssertionError(f"Jamba's first generate: {warm}, "
-                             f"{warm_graphs}")
+                             f"{warm_graphs}, {step_launches()} step kernel "
+                             "launches")
     read0 = int(moe.experts_read("cuda"))
     reset_counts()
     outs = [run(p) for p in prompts[:JAMBA_REQUESTS]]
     torch.cuda.synchronize()
-    got, graphs = counts(), graph_counts()
+    got, graphs, stepped = counts(), graph_counts(), step_launches()
     want = launches(k1=n_mamba * JAMBA_REQUESTS)
     want_graphs = {"captures": 0, "replays": JAMBA_GEN * JAMBA_REQUESTS}
-    if got != want or graphs != want_graphs:
+    want_steps = 2 * n_mamba * JAMBA_GEN * JAMBA_REQUESTS
+    if got != want or graphs != want_graphs or stepped != want_steps:
         raise AssertionError(f"{JAMBA_REQUESTS} Jamba generates launched "
-                             f"{got}, {graphs}; expected {want}, "
-                             f"{want_graphs}")
+                             f"{got}, {graphs}, {stepped} step kernels; "
+                             f"expected {want}, {want_graphs}, {want_steps}")
     per_step = ((int(moe.experts_read("cuda")) - read0)
                 / (JAMBA_GEN * JAMBA_REQUESTS) / len(cfg.moe_layers()))
     print(f"jamba: {JAMBA_REQUESTS} generates of ({JAMBA_BATCH}, "
           f"{JAMBA_PROMPT}) + {JAMBA_GEN}: K1 {got['K1 inference']} ("
           f"{n_mamba} a prefill, none in {graphs['replays']} decode "
-          f"replays), no capture, no conv; {per_step:.2f} distinct experts "
+          f"replays), no capture, no conv, the decode step's kernels "
+          f"{stepped} (2 x {n_mamba} a replay); {per_step:.2f} distinct "
+          f"experts "
           f"of {cfg.num_experts} a step in each MoE layer", flush=True)
     # (c) the replayed step against the eager loop, teacher-forced
     toks, scores = outs[0]
@@ -3077,6 +3232,7 @@ def phase_jamba(peaks):
     secs = time.perf_counter() - t0
     print(f"jamba: phase {secs:.1f} s", flush=True)
     return got, dict(scan_row=row, launches=got, graphs=graphs,
+                     step_kernel_launches=stepped,
                      experts_per_step=per_step, decode_err=step_err,
                      kv_rel_median=kv_median, kv_rel_max=kv_max,
                      prefill_ms=prefill_ms, decode_ms=decode_ms,
@@ -5388,7 +5544,7 @@ def dstate_entries(rows, paths):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after phase 3c")
+                        help="stop after phase 3d")
     parser.add_argument("--jamba-only", action="store_true",
                         help="run phase 8b (Jamba) alone after the build")
     parser.add_argument("--dstate-only", action="store_true",
@@ -5448,9 +5604,11 @@ def main():
     t0 = done("3b K1 training + K2", t0)
     dw_rows = phase_dwconv(peaks)
     t0 = done("3c 3-D depthwise conv", t0)
+    step_rows = phase_step_kernels(peaks)
+    t0 = done("3d decode step kernels", t0)
     if args.kernels_only:
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
-              "--kernels-only: stopped after phase 3c", flush=True)
+              "--kernels-only: stopped after phase 3d", flush=True)
         return
     serve_launched, serve_perf = phase_serve()
     t0 = done("4 serve", t0)
@@ -5596,11 +5754,26 @@ def main():
         launches_by_path=paths,
         library_ms_cudnn=sum(LAYERS_PER_STAGE * r["library_ms"]
                              for r in dw_timed("backward", TRAIN_BATCH)))
+    step_source = "vivim_tpu_torch/kernels/csrc/mamba_step.cu"
+    step_replaces = (f"none: {JAX_PACKAGE}/nn/streaming.py mamba_step is "
+                     "plain XLA")
+    step_launched = (lm_perf["step_kernel_launches"]
+                     + jamba_perf["step_kernel_launches"])
+    step_per = (f"a generate request's decode: {LM_GEN} tokens x "
+                f"{LM_CONFIG['n_layer']} layers at (1, "
+                f"{2 * LM_CONFIG['d_model']}, {N}), fp32, {TIMING}")
+    step_entries = [_kernel_entry(
+        which, step_source, step_replaces, step_launched,
+        [r for r in step_rows if r["which"] == which], step_per,
+        weight=LM_GEN * LM_CONFIG["n_layer"],
+        timed=[r for r in step_rows if r["which"] == which and r["n"] == N
+               and r["batch"] == 1]) for which in ("conv_step", "ssm_step")]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     lm_summary = {k: v for k, v in lm_perf.items() if k != "scan_rows"}
     lmp_summary = {k: v for k, v in lmp_perf.items()
                    if k not in ("fwd_rows", "bwd_rows")}
-    print(json.dumps({"kernels": [k1, k2, dw, dw_bwd], "serve": serve_perf,
+    print(json.dumps({"kernels": [k1, k2, dw, dw_bwd, *step_entries],
+                      "serve": serve_perf,
                       "train": train_perf, "train_replay": replay_perf,
                       "train_cli": cli_perf, "binary_edge": binary_perf,
                       "lm": lm_summary,

@@ -98,7 +98,8 @@ def stuck_position():
     real = attention.gqa_step
 
     def stuck(params, x, cache, pos, n_heads, n_kv):
-        out, cache, _ = real(params, x, cache, pos, n_heads, n_kv)
+        # the step reads the position but advances a copy of it
+        out, cache, _ = real(params, x, cache, pos.clone(), n_heads, n_kv)
         return out, cache, pos
     return mock.patch.object(attention, "gqa_step", stuck)
 
@@ -120,8 +121,7 @@ def one_slot_state():
     real = streaming.mamba_step
 
     def step(params, x, conv_state, ssm_state, *args, **kw):
-        ssm_state = torch.cat([torch.zeros_like(ssm_state[:1]),
-                               ssm_state[1:]])
+        ssm_state[:1].zero_()   # the step writes the state in place
         return real(params, x, conv_state, ssm_state, *args, **kw)
     return mock.patch.object(streaming, "mamba_step", step)
 

@@ -744,3 +744,166 @@ def test_dwconv3d_refuses_what_the_kernels_do_not_take(cuda):
         dk.dwconv3d_fwd_cuda(x.to(torch.bfloat16), w, b, 2, 3, 4)
     with pytest.raises(ValueError, match="weight"):
         dk.dwconv3d_fwd_cuda(x, w[:4], b, 2, 3, 4)
+
+
+# the decode step's kernels (kernels/mamba_step.py): (batch, d_inner, N,
+# activation dtype, ragged): mamba-130m's layer, Jamba's, ragged d and N,
+# N from 1 to 256 (1 to 16 lanes a channel, 1 to 16 states a lane); a
+# ragged case steps a state whose channel stride is N + 1
+MS_CASES = [(1, 1536, 16, torch.float32, False),
+            (8, 8192, 16, torch.bfloat16, False),
+            (3, 160, 1, torch.float32, False),
+            (3, 200, 12, torch.bfloat16, True),
+            (2, 160, 16, torch.float32, True),
+            (2, 96, 64, torch.float32, False),
+            (3, 72, 200, torch.float32, True),
+            (1, 96, 256, torch.float32, False)]
+
+
+def _step_inputs(dev, batch, d, n, dtype, ragged=False, width=4, seed=0):
+    """A mixer's step operands as ``mamba_step`` passes them: x and z the
+    halves of an in_proj output, the conv weight viewed from (d, 1, W), B
+    and C column views of an x_proj output (dt_rank 8 first)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    xz = f(batch, 2 * d).to(dtype)
+    x_dbl = f(batch, 8 + 2 * n).to(dtype)
+    state = f(batch, d, n + ragged)[..., ragged:]
+    A_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=dev)).repeat(d, 1)
+    conv = dict(x=xz[:, :d], conv_state=f(batch, width, d).to(dtype),
+                weight=f(d, 1, width, scale=0.5).to(dtype)[:, 0, :].t(),
+                bias=f(d, scale=0.1).to(dtype))
+    ssm = dict(ssm_state=state, x=f(batch, d).to(dtype),
+               dt=f(batch, d, scale=0.5).to(dtype), A_log=A_log.to(dtype),
+               B=x_dbl[:, 8:8 + n], C=x_dbl[:, 8 + n:], D=f(d).to(dtype),
+               z=xz[:, d:], dt_bias=f(d, scale=0.3).to(dtype))
+    return conv, ssm
+
+
+@pytest.mark.parametrize("case", MS_CASES, ids=str)
+def test_mamba_step_kernels_match_plain_versions(cuda, case):
+    """4 steps of each kernel against its plain version on copies of the
+    states: the outputs within the file's tolerance, the conv window the
+    same bits, the ssm state within the fp32 tolerance; one launch a
+    call."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+
+    batch, d, n, dtype, ragged = case
+    conv, ssm = _step_inputs(cuda, batch, d, n, dtype, ragged)
+    plain_conv = dict(conv, conv_state=conv["conv_state"].clone())
+    plain_ssm = dict(ssm, ssm_state=ssm["ssm_state"].clone())
+    rtol, atol = TOL[dtype]
+    for step in range(4):
+        c0 = mk.LAUNCHES
+        got = mk.conv_step(**conv), mk.ssm_step(**ssm)
+        assert mk.LAUNCHES == c0 + 2
+        want = mk.plain_conv_step(**plain_conv), mk.plain_ssm_step(
+            **plain_ssm)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == dtype
+            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                       atol=atol, msg=f"step {step}")
+        assert torch.equal(conv["conv_state"], plain_conv["conv_state"])
+        torch.testing.assert_close(ssm["ssm_state"], plain_ssm["ssm_state"],
+                                   rtol=TOL[torch.float32][0],
+                                   atol=TOL[torch.float32][1])
+
+
+@pytest.mark.parametrize("n", [16, 24])
+def test_ssm_step_at_every_lane_count_matches_plain_version(cuda, n):
+    """Each lane count the kernel takes (1 to 16 threads a channel, up to
+    16 states a thread), forced past ``ssm_lanes``' pick."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+
+    _, ssm = _step_inputs(cuda, 3, 200, n, torch.float32, seed=3)
+    want_state = ssm["ssm_state"].clone()
+    want = mk.plain_ssm_step(**dict(ssm, ssm_state=want_state))
+    rtol, atol = TOL[torch.float32]
+    for lanes in (1, 2, 4, 8, 16):
+        if -(-n // lanes) > mk.MAX_PER_LANE:
+            continue
+        state = ssm["ssm_state"].clone()
+        got = mk._ssm_launch(**dict(ssm, ssm_state=state), lanes=lanes)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=f"{lanes} lanes")
+        torch.testing.assert_close(state, want_state, rtol=rtol, atol=atol,
+                                   msg=f"{lanes} lanes, state")
+
+
+def test_mamba_step_kernels_in_a_cuda_graph_count_per_replay(cuda):
+    """Both kernels captured by ``cuda_graphs.capture``: 2 launches per
+    warm-up call and per replay, the replayed states and outputs those of
+    eager calls on copies, bit for bit."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+    from vivim_tpu_torch.utils import cuda_graphs
+
+    conv, ssm = _step_inputs(cuda, 1, 1536, 16, torch.float32)
+    eager_conv = dict(conv, conv_state=conv["conv_state"].clone())
+    eager_ssm = dict(ssm, ssm_state=ssm["ssm_state"].clone())
+
+    def run(x):
+        return mk.conv_step(**dict(conv, x=x)), mk.ssm_step(**ssm)
+
+    with torch.inference_mode():
+        c0 = mk.LAUNCHES
+        graph = cuda_graphs.capture(run, (conv["x"].clone(),))
+        assert mk.LAUNCHES - c0 == 2 * cuda_graphs.WARMUP_CALLS
+        for _ in range(cuda_graphs.WARMUP_CALLS):   # what the warm-ups did
+            mk.conv_step(**eager_conv), mk.ssm_step(**eager_ssm)
+        c0 = mk.LAUNCHES
+        for k in range(3):
+            got = graph(conv["x"])
+            want = mk.conv_step(**eager_conv), mk.ssm_step(**eager_ssm)
+        assert mk.LAUNCHES - c0 == 3 * 2 + 3 * 2
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(conv["conv_state"], eager_conv["conv_state"])
+    assert torch.equal(ssm["ssm_state"], eager_ssm["ssm_state"])
+
+
+def test_lm_decode_graph_steps_through_the_kernels(cuda):
+    """A replayed decode step of a 2-layer LM launches both kernels once a
+    layer and equals the eager ``decode_step`` on copies of its states."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+    from vivim_tpu_torch.nn import lm
+    from vivim_tpu_torch.nn.layers import init_weights
+
+    model = init_weights(lm.MambaLM(lm.MambaLMConfig(
+        vocab_size=50, d_model=64, n_layer=2)),
+        torch.Generator().manual_seed(0)).to(cuda).eval()
+    params = lm.lm_params(model)
+    parts = lm.split_params(model, params)
+    prompt = torch.ones(2, 5, dtype=torch.long, device=cuda)
+    with torch.no_grad():
+        _, cs, ss = lm.prefill(parts, prompt)
+        step = lm.decode_graph(model, parts, params, cs, ss).start(cs, ss)
+        for t in range(4):
+            tok = torch.full((2,), t + 3, dtype=torch.long, device=cuda)
+            c0 = mk.LAUNCHES
+            got = step(tok)
+            assert mk.LAUNCHES - c0 == 2 * 2
+            want, cs, ss = lm.decode_step(parts, tok, cs, ss)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.cuda.synchronize()
+
+
+def test_mamba_step_refuses_what_the_kernels_do_not_take(cuda):
+    """fp64 activations, a bf16 ssm state and a state without unit d_state
+    stride raise before any launch."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+
+    conv, ssm = _step_inputs(cuda, 2, 64, 16, torch.float32)
+    c0 = mk.LAUNCHES
+    with pytest.raises(ValueError, match="float64"):
+        mk.conv_step(**dict(conv, x=conv["x"].double()))
+    with pytest.raises(ValueError, match="ssm_state"):
+        mk.ssm_step(**dict(ssm, ssm_state=ssm["ssm_state"].bfloat16()))
+    with pytest.raises(ValueError, match="stride"):
+        mk.ssm_step(**dict(ssm, ssm_state=ssm["ssm_state"].transpose(
+            1, 2).contiguous().transpose(1, 2)))
+    assert mk.LAUNCHES == c0

@@ -149,7 +149,8 @@ def _variants(model):
 def test_decode_graph_steps_equal_plain_decode_steps(kind):
     """8 steps of the static-state decode from a prefill equal a chain of
     plain ``decode_step`` calls bit for bit: logits and every state; the
-    prefill's states are read, not stepped."""
+    prefill's states are read, not stepped (the chain steps its own copies
+    in place)."""
     model = _lm(rms_norm=True, residual_in_fp32=True)
     params = _variants(model)[kind]
     parts = tlm.split_params(model, params)
@@ -159,7 +160,7 @@ def test_decode_graph_steps_equal_plain_decode_steps(kind):
         _, cs, ssm = tlm.prefill(parts, prompt)
         before = [s.clone() for s in cs + ssm]
         step = tlm.decode_graph(model, parts, params, cs, ssm).start(cs, ssm)
-        want_cs, want_ss = cs, ssm
+        want_cs, want_ss = [s.clone() for s in cs], [s.clone() for s in ssm]
         for t in rng.integers(0, 50, (8, 2)):
             tok = torch.from_numpy(t)
             got = step(tok).clone()

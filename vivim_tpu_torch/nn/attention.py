@@ -70,8 +70,9 @@ def gqa_prefill(params, x, n_heads, n_kv, max_len=None):
 
 def gqa_step(params, x, cache, pos, n_heads, n_kv):
     """x (B, d_model), one token at position ``pos`` -> (out (B, d_model),
-    the cache with its key and value written at ``pos`` (in place), pos +
-    1)."""
+    the cache with its key and value written at ``pos``, pos + 1): both
+    stepped in place, so the returned cache and position are the given
+    tensors."""
     b = x.shape[0]
     q, k, v = _qkv(params, x, n_heads, n_kv)
     head_dim = k.shape[-1]
@@ -85,4 +86,4 @@ def gqa_step(params, x, cache, pos, n_heads, n_kv):
     y = F.scaled_dot_product_attention(q, cache[:, 0], cache[:, 1],
                                        attn_mask=seen)
     return matmul_t(y.reshape(b, -1), params["o_proj.weight"]), cache, \
-        pos + 1
+        pos.add_(1)

@@ -15,9 +15,9 @@ MambaLMHeadModel (mixer_seq_simple.py:83-233) and its generation loop
   (``lm_params``: the model's own tensors, a bf16 copy, or an int8 dict of
   ``nn.quant.quantize_lm_params``): the prompt through
   ``streaming.mamba_prefill`` (K1 on the card, one launch per layer), then
-  every token through ``streaming.mamba_step`` (plain PyTorch: no scan
-  kernel) with temperature / top-k / top-p sampling on an explicit
-  ``torch.Generator``.
+  every token through ``streaming.mamba_step`` (two kernels on the card
+  that step the conv and ssm states in place) with temperature / top-k /
+  top-p sampling on an explicit ``torch.Generator``.
 - ``DecodeGraph``: ``decode_step`` over static token, state and logits
   buffers, captured once as a CUDA graph on the card and replayed for
   every token (the reference's CUDA-graph decode cache,
@@ -389,9 +389,10 @@ def prefill(parts: LMParts, tokens, mixer_prefill=None, max_len=None):
 
 def decode_step(parts: LMParts, token, conv_states, ssm_states,
                 mixer_step=None):
-    """One token (B,) through every layer from the carried states:
-    (logits (B, V), new conv states, new ssm states).  An attention layer
-    writes its K/V cache in place and returns it with its position + 1."""
+    """One token (B,) through every layer from the carried states, each
+    stepped in place: (logits (B, V), conv states, ssm states), the lists of
+    the same tensors.  A Mamba layer's states are its window and ssm state,
+    an attention layer's its K/V cache and position."""
     mixer_step = mixer_step or functools.partial(
         streaming.mamba_step, norm_eps=parts.ssm_norm_eps)
     h = parts.residual(quant.embed_lookup(parts.emb, token,
@@ -418,9 +419,9 @@ class DecodeGraph:
     conv state (B, W, d_inner) and fp32 ssm state (B, d_inner, N), each
     attention layer's K/V cache (B, 2, n_kv, max_len, head_dim) and int64
     position (1,), and the logits (B, V).  Each call steps the static
-    states in place and returns the static logits, which the next call
-    overwrites.  On the card the
-    step is one CUDA graph (``cuda_graphs.capture``), warmed up and
+    states in place (``decode_step`` writes every state where it lies) and
+    returns the static logits, which the next call overwrites.  On the card
+    the step is one CUDA graph (``cuda_graphs.capture``), warmed up and
     captured here on zero states, before ``start`` loads any live state;
     on the CPU it runs eagerly."""
 
@@ -436,12 +437,8 @@ class DecodeGraph:
 
     def _step(self, token):
         n = self.n_layer
-        logits, cs, ss = decode_step(self.parts, token, self.states[:n],
-                                     self.states[n:])
-        for dst, src in zip(self.states, cs + ss):
-            if dst is not src:   # a K/V cache is stepped in place
-                dst.copy_(src)
-        return logits
+        return decode_step(self.parts, token, self.states[:n],
+                           self.states[n:])[0]
 
     def start(self, conv_states, ssm_states):
         """Load the prefill's states; returns the step (token -> logits)."""

@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``nn/streaming.py`` (the reference's
 ``Mamba.step`` / ``allocate_inference_cache``, mamba_simple.py:356-414): a
-functional one-token step over a carried ``(conv_state, ssm_state)``, and a
-prefill that runs the prompt through the selective-scan kernel (K1 on the
-card) and hands its last state to the step.
+one-token step that advances a carried ``(conv_state, ssm_state)`` in place
+(``kernels/mamba_step.py``: two kernels on the card, around the x_proj
+product), and a prefill that runs the prompt through the selective-scan
+kernel (K1 on the card) and hands its last state to the step.  The JAX
+step is functional; here the caller's state tensors are the step's.
 
 Every function takes one forward-direction mixer's parameters as a flat
 dict under the reference Mamba's names (``in_proj.weight``,
@@ -31,11 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from vivim_tpu_torch.kernels.causal_conv1d import (
-    causal_conv1d,
-    causal_conv1d_update,
-)
-from vivim_tpu_torch.kernels.refs import selective_state_update_ref
+from vivim_tpu_torch.kernels.causal_conv1d import causal_conv1d
+from vivim_tpu_torch.kernels.mamba_step import conv_step, ssm_step
 from vivim_tpu_torch.kernels.selective_scan import selective_scan
 from vivim_tpu_torch.nn.quant import matmul_t
 from vivim_tpu_torch.parallel import comm
@@ -92,32 +91,31 @@ def _out_proj(params, y, group=None):
 
 
 def _ssm_params(params):
-    """(conv weight (width, d_inner), dt_rank, d_state, A fp32)."""
+    """(conv weight (width, d_inner), dt_rank, d_state)."""
     conv_w = params["conv1d.weight"][:, 0, :].t()
     dt_rank = params["dt_proj.weight"].shape[1]
-    n = params["A_log"].shape[1]
-    return conv_w, dt_rank, n, -torch.exp(params["A_log"].float())
+    return conv_w, dt_rank, params["A_log"].shape[1]
 
 
 def mamba_step(params, x, conv_state, ssm_state, group=None, norm_eps=1e-6):
-    """One decode step (mamba_simple.py:356-401).
+    """One decode step (mamba_simple.py:356-401), the states stepped in
+    place.
 
     x: (B, d_model) token activations; conv_state: (B, W, d_inner);
-    ssm_state: (B, d_inner, N).  Returns (out (B, d_model), new conv_state,
-    new ssm_state).
+    ssm_state: (B, d_inner, N) fp32.  Writes the next window and state
+    into the given tensors (``conv_step`` and ``ssm_step``) and returns
+    (out (B, d_model), conv_state, ssm_state): those same tensors.
     """
     if group is not None:
         x = comm.copy_to_model(x, group)
     xw, z = _split_proj(params, x)
-    conv_w, dt_rank, n, A = _ssm_params(params)
-    xw, conv_state = causal_conv1d_update(
-        xw, conv_state, conv_w, params.get("conv1d.bias"), "silu")
-    dt, B, C = _dt_b_c(params, _x_proj(params, xw, group), dt_rank, n,
+    conv_w, dt_rank, n = _ssm_params(params)
+    xc = conv_step(xw, conv_state, conv_w, params.get("conv1d.bias"))
+    dt, B, C = _dt_b_c(params, _x_proj(params, xc, group), dt_rank, n,
                        norm_eps)
-    dt = dt @ params["dt_proj.weight"].t().to(xw.dtype)
-    y, ssm_state = selective_state_update_ref(
-        ssm_state, xw, dt, A, B, C, D=params["D"].float(), z=z,
-        dt_bias=params["dt_proj.bias"].float(), dt_softplus=True)
+    dt = dt @ params["dt_proj.weight"].t().to(xc.dtype)
+    y = ssm_step(ssm_state, xc, dt, params["A_log"], B, C, params["D"], z,
+                 params["dt_proj.bias"])
     return _out_proj(params, y, group), conv_state, ssm_state
 
 
@@ -134,7 +132,7 @@ def mamba_prefill(params, x, implementation=None, group=None,
     if group is not None:
         x = comm.copy_to_model(x, group)
     xw, z = _split_proj(params, x)
-    conv_w, dt_rank, n, A = _ssm_params(params)
+    conv_w, dt_rank, n = _ssm_params(params)
     width = conv_w.shape[0]
     pad = torch.nn.functional.pad(xw, (0, 0, max(width - x.shape[1], 0), 0))
     conv_state = pad[:, -width:].contiguous()
@@ -143,7 +141,7 @@ def mamba_prefill(params, x, implementation=None, group=None,
                        norm_eps)
     delta = dt @ params["dt_proj.weight"].t().to(xc.dtype)
     y, ssm_state = selective_scan(
-        xc, delta, A, B, C, D=params["D"].float(), z=z,
+        xc, delta, -torch.exp(params["A_log"].float()), B, C, D=params["D"].float(), z=z,
         delta_bias=params["dt_proj.bias"].float(), delta_softplus=True,
         return_last_state=True, implementation=implementation)
     return _out_proj(params, y, group), conv_state, ssm_state

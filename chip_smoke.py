@@ -18,6 +18,11 @@ Phases, each of which raises on failure (exit code != 0):
    333} at the picked Lc and at Lc = 64, an initial state, per-batch
    A / D / bias), with dt near 0.05 (so the carried state counts) in fp32
    and bf16 and near 1e-3 (softplus small) in fp32, output and last state;
+   and at Granite 4.0-H-Small's prefill (8, 4096, 8192) at d_state 128 in
+   bf16 with no z, as ``streaming.mamba2_prefill`` passes it (x, B and C
+   column views of the conv's output, each head's dt, A, D and dt bias
+   over its 64 channels), timed, its output and last state held on
+   head-aligned channel slices;
 3b. hold K1's training variant and the segment-parallel selective-scan
    backward (K2) against their plain versions at the four stage shapes of
    a training step (scan batch 9), fp32 and bf16, K2 on the chunk-start
@@ -45,9 +50,12 @@ Phases, each of which raises on failure (exit code != 0):
    ``conv_step`` and ``ssm_step``, which step the conv window and the ssm
    state in place) against their plain versions over 4 steps at
    mamba-130m's layer (1, 1536) with d_state 16, 64 and 256 in fp32 and at
-   Jamba's (8, 8192, 16) in bf16, x, z, B and C as strided views; print
-   each kernel's replay us, one eager call's us, the plain version's us
-   and the bytes bound;
+   Jamba's (8, 8192, 16) in bf16, x, z, B and C as strided views, and at
+   Granite 4.0-H-Small's Mamba-2 layer in bf16 as ``streaming.mamba2_step``
+   passes it: ``conv_step`` over the (8, 8448) xBC window, ``ssm_step``
+   per head (128 heads of 64, one group, d_state 128) on column views of
+   one in_proj output and of the conv's output; print each kernel's replay
+   us, one eager call's us, the plain version's us and the bytes bound;
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
    ``run_inference``, whose forward, argmax and confusion counts are one
@@ -360,6 +368,13 @@ LM_DECODE_STEPS = 16
 # d_inner 1536) at three d_state and at Jamba's (batch 8, d_inner 8192)
 STEP_SHAPES = ((1, 1536, 16, torch.float32), (1, 1536, 64, torch.float32),
                (1, 1536, 256, torch.float32), (8, 8192, 16, torch.bfloat16))
+# phases 3 and 3d: Granite 4.0-H-Small's Mamba-2 layer (batch, heads,
+# head_dim, d_state, groups), bf16, its prefill's prompt, and the channels
+# of K1's output held against the plain scan (whole heads: the plain scan
+# holds (batch, L, channels, d_state) fp32 twice)
+GRANITE_MAMBA2 = (8, 128, 64, 128, 1)
+GRANITE_PROMPT = 4096
+GRANITE_HELD = (slice(0, 192), slice(4032, 4160), slice(8000, 8192))
 # phase 9: make_train_step steps per remat level at the training batch (the
 # first checked against none's, the median over the rest), and at the
 # larger batch where the memory remat saves shows
@@ -805,7 +820,82 @@ def phase_kernels(peaks):
                      max_abs_err=err))
     print(f"K1 ragged  float32  L={L} d={d} h0+last: max_abs_err={err:.3e}",
           flush=True)
+    rows.append(granite_scan_row(peaks, gen))
     return rows
+
+
+def granite_scan_inputs(gen):
+    """K1's operands as ``streaming.mamba2_prefill`` passes them at
+    Granite's Mamba-2 layer, bf16: x, B and C column views of the conv's
+    output; dt per head repeated over its channels; A, D and the dt bias
+    fp32 per channel, each head's repeated (A = U[1, 16], the dt bias the
+    inverse softplus of a dt log-uniform in [1e-3, 0.1], as the cell draws
+    them)."""
+    batch, heads, head_dim, n, groups = GRANITE_MAMBA2
+    d = heads * head_dim
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    xbc = rnd(batch, GRANITE_PROMPT, d + 2 * groups * n).to(torch.bfloat16)
+    dt = (0.5 * rnd(batch, GRANITE_PROMPT, heads)).to(torch.bfloat16)
+    per_channel = lambda t: t.float().repeat_interleave(head_dim)
+    A = -per_channel(1 + 15 * rand(heads))[:, None].expand(-1, n).contiguous()
+    step = torch.exp(math.log(1e-3) + math.log(100) * rand(heads))
+    bias = per_channel(step + torch.log(-torch.expm1(-step)))
+    B, C = xbc[..., d:d + groups * n], xbc[..., d + groups * n:]
+    if groups > 1:
+        B, C = (t.unflatten(-1, (groups, n)) for t in (B, C))
+    return (xbc[..., :d], dt.repeat_interleave(head_dim, -1), A, B, C,
+            per_channel(1 + 0.1 * rnd(heads)), bias)
+
+
+def granite_scan_row(peaks, gen):
+    """K1 at Granite's prefill, no z: timed whole, its output and last
+    state held against the plain scan on the channels ``GRANITE_HELD``
+    (channels scan apart; B and C are shared)."""
+    from vivim_tpu_torch.kernels import refs
+    from vivim_tpu_torch.kernels import selective_scan as ss
+
+    batch, heads, head_dim, n, _ = GRANITE_MAMBA2
+    L, d = GRANITE_PROMPT, heads * head_dim
+    u, delta, A, B, C, D, bias = granite_scan_inputs(gen)
+    run = lambda: ss.selective_scan_fwd_cuda(u, delta, A, B, C, D=D, z=None,
+                                             delta_bias=bias,
+                                             delta_softplus=True)
+    got = run()
+    torch.cuda.synchronize()
+    rtol, atol = TOL[torch.bfloat16]
+    err = 0.0
+    for c in GRANITE_HELD:
+        want = refs.selective_scan_ref(u[..., c], delta[..., c], A[c], B, C,
+                                       D=D[c], delta_bias=bias[c],
+                                       delta_softplus=True,
+                                       return_last_state=True)
+        for what, g, w in zip(("y", "last"), (got[0][..., c], got[1][:, c]),
+                              want):
+            torch.testing.assert_close(
+                g.float(), w.float(), rtol=rtol, atol=atol,
+                msg=f"K1 Granite prefill channels {c.start}:{c.stop} {what}")
+            err = max(err, (g.float() - w.float()).abs().max().item())
+        del want
+    lc, grid = picked_chunk(batch, L, d, n)
+    call_ms = cuda_ms(run, 5)
+    ms = device_ms(run, calls=3, repeats=3)
+    nbytes, ops, exps = scan_work(batch, L, d, n, 2)
+    work = (nbytes - batch * L * d * 2, ops, exps)     # no z to read
+    bound_ms, bound_by, term = bound(work, peaks)
+    print(f"K1 Granite prefill bfloat16 b={batch} L={L} d={d} N={n} heads "
+          f"of {head_dim}, no z {grid_text(lc, grid)}: y, last max_abs_err="
+          f"{err:.3e} on {sum(c.stop - c.start for c in GRANITE_HELD)} "
+          f"channels; ms={ms:.3f} (one call with its launch {call_ms:.3f}) "
+          f"bound_ms={bound_ms:.3f} ({term}; {work[0] / 1e6:.1f} MB, "
+          f"{work[2] / 1e9:.2f} G exps; {bound_ms / ms * 100:.1f} % of it)",
+          flush=True)
+    del u, delta, B, C, got
+    return dict(stage="Granite prefill", L=L, d=d, n=n, dtype="bfloat16",
+                l_chunk=lc, grid=grid, max_abs_err=err, ms=ms,
+                call_ms=call_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_term=term, mbytes=work[0] / 1e6)
 
 
 def check_train_pair(u, delta, A, B, C, D, bias, h0, dout, dlast, dtype,
@@ -1126,18 +1216,21 @@ def phase_dwconv(peaks):
     return rows
 
 
-def step_work(batch, d, n, width, elem, which):
+def step_work(batch, d, n, width, elem, which, heads=None, groups=1):
     """(bytes, fp32 operations, exps) of one decode step kernel.
     ``conv_step`` reads and writes the window (W per channel and row),
     reads x, the weight and bias and writes the output; ``ssm_step`` reads
-    and writes the fp32 state, reads x, dt, z, B, C, A_log, D and the dt
-    bias and writes the output: each byte once.  Exps: silu's; per state
-    A's and the decay's, per channel softplus's and silu's."""
+    and writes the fp32 state, reads x, z, each head's dt, A_log, D and dt
+    bias, each group's B and C, and writes the output: each byte once.
+    Exps: silu's; per head and state A's and the decay's, per head
+    softplus's, per channel silu's.  ``heads``: d (Mamba-1) by default."""
     if which == "conv_step":
         return ((batch * d * (2 * width + 2) + d * (width + 1)) * elem,
                 batch * d * (2 * width + 4), batch * d)
-    return (batch * d * n * 8 + (batch * (4 * d + 2 * n) + d * (n + 2))
-            * elem, batch * d * (6 * n + 10), batch * d * (2 * n + 2))
+    heads = heads or d
+    return (batch * d * n * 8 + (batch * (3 * d + heads + 2 * groups * n)
+                                 + heads * (n + 2)) * elem,
+            batch * d * (6 * n + 10), batch * (heads * (2 * n + 1) + d))
 
 
 def step_inputs(batch, d, n, dtype, gen, width=4, dt_rank=8):
@@ -1161,6 +1254,48 @@ def step_inputs(batch, d, n, dtype, gen, width=4, dt_rank=8):
     return conv, ssm
 
 
+def mamba2_step_inputs(batch, heads, head_dim, n, groups, dtype, gen,
+                       width=4):
+    """The decode step's operands as ``streaming.mamba2_step`` passes them:
+    z, the xBC channels and each head's dt column views of one in_proj
+    output, the conv weight viewed from (conv_dim, 1, W); x, B and C column
+    views of the conv's output; A_log, D and the dt bias per head, A_log
+    (heads, N) a broadcast view."""
+    f = lambda *s, scale=1.0: scale * torch.randn(*s, generator=gen,
+                                                  device="cuda")
+    d = heads * head_dim
+    cd = d + 2 * groups * n
+    zxbcdt = f(batch, d + cd + heads).to(dtype)
+    xbc = f(batch, cd).to(dtype)      # the conv's output
+    a_log = torch.log(1 + 15 * torch.rand(heads, generator=gen,
+                                          device="cuda"))
+    conv = dict(x=zxbcdt[:, d:d + cd], conv_state=f(batch, width, cd).to(
+                    dtype),
+                weight=f(cd, 1, width, scale=0.5).to(dtype)[:, 0, :].t(),
+                bias=f(cd, scale=0.1).to(dtype))
+    ssm = dict(ssm_state=f(batch, d, n), x=xbc[:, :d],
+               dt=zxbcdt[:, d + cd:], A_log=a_log.to(dtype)[:, None].expand(
+                   heads, n),
+               B=xbc[:, d:d + groups * n], C=xbc[:, d + groups * n:],
+               D=f(heads).to(dtype), z=zxbcdt[:, :d],
+               dt_bias=f(heads, scale=0.3).to(dtype), head_dim=head_dim,
+               n_groups=groups)
+    return conv, ssm
+
+
+def step_cases(gen):
+    """(batch, d_inner, d_state, dtype, label, heads, groups, conv
+    operands, ssm operands) of each shape phase 3d holds, drawn in turn."""
+    for batch, d, n, dtype in STEP_SHAPES:
+        yield (batch, d, n, dtype, "", d, 1,
+               *step_inputs(batch, d, n, dtype, gen))
+    batch, heads, head_dim, n, groups = GRANITE_MAMBA2
+    yield (batch, heads * head_dim, n, torch.bfloat16,
+           f" Granite, heads of {head_dim}", heads, groups,
+           *mamba2_step_inputs(batch, heads, head_dim, n, groups,
+                               torch.bfloat16, gen))
+
+
 def phase_step_kernels(peaks):
     """Phase 3d: the decode step's kernels against their plain versions
     (``kernels/mamba_step.py``) over 4 steps on copies of the states, then
@@ -1170,8 +1305,8 @@ def phase_step_kernels(peaks):
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
-    for batch, d, n, dtype in STEP_SHAPES:
-        conv, ssm = step_inputs(batch, d, n, dtype, gen)
+    for batch, d, n, dtype, label, heads, groups, conv, ssm in step_cases(
+            gen):
         plain_conv = dict(conv, conv_state=conv["conv_state"].clone())
         plain_ssm = dict(ssm, ssm_state=ssm["ssm_state"].clone())
         rtol, atol = TOL[dtype]
@@ -1184,15 +1319,17 @@ def phase_step_kernels(peaks):
             for which, g, w in zip(errs, got, want):
                 torch.testing.assert_close(
                     g.float(), w.float(), rtol=rtol, atol=atol,
-                    msg=f"{which} ({batch}, {d}, {n}) {dtype_name(dtype)}")
+                    msg=f"{which} ({batch}, {d}, {n}) {dtype_name(dtype)}"
+                        f"{label}")
                 errs[which] = max(errs[which],
                                   (g.float() - w.float()).abs().max().item())
             if not torch.equal(conv["conv_state"], plain_conv["conv_state"]):
-                raise AssertionError(f"conv_step ({batch}, {d}) window")
+                raise AssertionError(f"conv_step ({batch}, {d}){label} "
+                                     "window")
             torch.testing.assert_close(
                 ssm["ssm_state"], plain_ssm["ssm_state"],
                 rtol=TOL[torch.float32][0], atol=TOL[torch.float32][1],
-                msg=f"ssm_step ({batch}, {d}, {n}) state")
+                msg=f"ssm_step ({batch}, {d}, {n}){label} state")
             errs["ssm_step"] = max(errs["ssm_step"], (
                 ssm["ssm_state"] - plain_ssm["ssm_state"]).abs().max().item())
         torch.cuda.synchronize()
@@ -1207,17 +1344,21 @@ def phase_step_kernels(peaks):
             plain_ms = cuda_ms(plain, 20)
             lanes = (mk.ssm_lanes(batch, d, n)[0] if which == "ssm_step"
                      else None)
-            work = step_work(batch, d, n, conv["conv_state"].shape[1],
-                             torch.finfo(dtype).bits // 8, which)
+            dim = conv["x"].shape[1] if which == "conv_step" else d
+            work = step_work(batch, dim, n, conv["conv_state"].shape[1],
+                             torch.finfo(dtype).bits // 8, which, heads,
+                             groups)
             bound_ms, bound_by, term = bound(work, peaks)
-            rows.append(dict(stage="decode step", which=which, batch=batch,
-                             d=d, n=n, dtype=dtype_name(dtype),
+            rows.append(dict(stage="decode step" + label, which=which,
+                             batch=batch, d=dim, n=n, heads=heads,
+                             dtype=dtype_name(dtype),
                              max_abs_err=errs[which], ms=ms, call_ms=call_ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bound_term=term,
                              mbytes=work[0] / 1e6,
                              lanes=lanes))
-            print(f"{which:9s} ({batch}, {d}, N {n:3d}) {dtype_name(dtype):8s}"
+            print(f"{which:9s} ({batch}, {dim}, N {n:3d}) "
+                  f"{dtype_name(dtype):8s}{label}"
                   f"{'' if lanes is None else f' lanes {lanes}'}"
                   f": max_abs_err={errs[which]:.3e} replay_us="
                   f"{1e3 * ms:.2f} (one eager call {1e3 * call_ms:.2f}) "

@@ -97,9 +97,10 @@ def stuck_position():
     from vivim_tpu_torch.nn import attention
     real = attention.gqa_step
 
-    def stuck(params, x, cache, pos, n_heads, n_kv):
+    def stuck(params, x, cache, pos, n_heads, n_kv, scale=None):
         # the step reads the position but advances a copy of it
-        out, cache, _ = real(params, x, cache, pos.clone(), n_heads, n_kv)
+        out, cache, _ = real(params, x, cache, pos.clone(), n_heads, n_kv,
+                             scale)
         return out, cache, pos
     return mock.patch.object(attention, "gqa_step", stuck)
 

@@ -834,6 +834,47 @@ def test_ssm_step_at_every_lane_count_matches_plain_version(cuda, n):
                                    msg=f"{lanes} lanes, state")
 
 
+@pytest.mark.parametrize("case", [(8, 8192, 128, 64, 1, torch.bfloat16),
+                                  (3, 96, 16, 8, 2, torch.float32),
+                                  (2, 120, 24, 4, 3, torch.bfloat16)],
+                         ids=str)
+def test_ssm_step_per_head_matches_plain_version(cuda, case):
+    """``ssm_step`` of a Mamba-2 mixer, against its plain version over 4
+    steps: dt, dt_bias, A_log and D per head of ``head_dim`` channels, B
+    and C per group, read where they lie (column views of in_proj's output
+    and of the conv's; A_log a (heads, N) view of (heads,)); Granite's (8,
+    8192, 128) in bf16 with heads of 64 first."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+
+    batch, d, n, head_dim, groups, dtype = case
+    heads, gn = d // head_dim, groups * n
+    rng = np.random.default_rng(batch + n)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(cuda)
+    A_log = torch.log(1 + 15 * torch.rand(heads, device=cuda))
+    kw = dict(A_log=A_log[:, None].expand(heads, n).to(dtype),
+              D=f(heads).to(dtype), dt_bias=f(heads, scale=0.3).to(dtype),
+              head_dim=head_dim, n_groups=groups)
+    state = f(batch, d, n)
+    want_state = state.clone()
+    rtol, atol = TOL[dtype]
+    for step in range(4):
+        zxdt = f(batch, 2 * d + heads).to(dtype)
+        xbc = f(batch, d + 2 * gn).to(dtype)
+        t = dict(x=xbc[:, :d], B=xbc[:, d:d + gn], C=xbc[:, d + gn:],
+                 z=zxdt[:, :d], dt=zxdt[:, 2 * d:], **kw)
+        c0 = mk.LAUNCHES
+        got = mk.ssm_step(state, **t)
+        assert mk.LAUNCHES == c0 + 1
+        want = mk.plain_ssm_step(want_state, **t)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=f"step {step}")
+        torch.testing.assert_close(state, want_state,
+                                   rtol=TOL[torch.float32][0],
+                                   atol=TOL[torch.float32][1])
+
+
 def test_mamba_step_kernels_in_a_cuda_graph_count_per_replay(cuda):
     """Both kernels captured by ``cuda_graphs.capture``: 2 launches per
     warm-up call and per replay, the replayed states and outputs those of

@@ -273,9 +273,10 @@ def test_mutations_fail_the_tolerance(models, monkeypatch):
     # a K/V position that does not advance in decode
     real = attention.gqa_step
 
-    def stuck(params, x, cache, pos, n_heads, n_kv):
+    def stuck(params, x, cache, pos, n_heads, n_kv, scale=None):
         # the step reads the position but advances a copy of it
-        out, cache, _ = real(params, x, cache, pos.clone(), n_heads, n_kv)
+        out, cache, _ = real(params, x, cache, pos.clone(), n_heads, n_kv,
+                             scale)
         return out, cache, pos
     with monkeypatch.context() as m:
         m.setattr(attention, "gqa_step", stuck)

@@ -27,6 +27,11 @@ them, else a seeded init; ``--n_layer`` cuts it to its first layers) through
 the same ``generate``, on one device, in fp32 or bf16:
   python -m vivim_tpu_torch.cli.bench_generation --hf_dir /path/jamba \
       --n_layer 8 --dtype bfloat16 --batch 8 --promptlen 4096 --genlen 128
+
+A ``"model_type": "granitemoehybrid"`` directory runs Granite 4.0-H
+(``nn/granite.py::load_granite``) the same way:
+  python -m vivim_tpu_torch.cli.bench_generation --hf_dir /path/granite \
+      --n_layer 10 --dtype bfloat16 --batch 8 --promptlen 4096 --genlen 128
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ def main(argv=None):
     p.add_argument("--d_model", type=int, default=768)
     p.add_argument("--n_layer", type=int, default=None,
                    help="layers of a seeded Mamba LM (24 when not given), "
-                        "or the first layers of a Jamba --hf_dir")
+                        "or the first layers of a Jamba or Granite "
+                        "--hf_dir")
     p.add_argument("--hf_dir", type=str, default=None,
                    help="local HF mamba snapshot dir (config.json + "
                         "pytorch_model.bin); overrides the dim flags")
@@ -97,20 +103,24 @@ def main(argv=None):
     from vivim_tpu_torch.cli.lm_eval_harness import load_lm
     from vivim_tpu_torch.nn.lm import generate
 
-    hybrid = args.hf_dir is not None and _model_type(args.hf_dir) == "jamba"
+    hybrid = args.hf_dir is not None and _model_type(args.hf_dir) in (
+        "jamba", "granitemoehybrid")
     if hybrid and (args.tp_shards > 1 or args.dtype == "int8"
                    or args.ckpt):
-        raise SystemExit("a Jamba --hf_dir runs on one device in float32 "
-                         "or bfloat16, from the directory's own weights")
+        raise SystemExit("a Jamba or Granite --hf_dir runs on one device "
+                         "in float32 or bfloat16, from the directory's own "
+                         "weights")
     device, mesh = init_model_parallel(
         args.tp_shards, "model", "--tp_shards", args.device,
         args.dist_backend, "bench_generation")
     if hybrid:
-        from vivim_tpu_torch.nn.jamba import load_jamba
+        from vivim_tpu_torch.nn import granite, jamba
 
+        load = (jamba.load_jamba if _model_type(args.hf_dir) == "jamba"
+                else granite.load_granite)
         cut = {} if args.n_layer is None else {
             "num_hidden_layers": args.n_layer}
-        model, params = load_jamba(
+        model, params = load(
             args.hf_dir, device, torch.bfloat16 if args.dtype == "bfloat16"
             else torch.float32, **cut)
     else:

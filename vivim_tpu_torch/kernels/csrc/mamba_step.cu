@@ -11,11 +11,16 @@
 //
 //   conv_step:  window[b, :, c] <- (window[b, 1:, c], x[b, c])
 //               out[b, c] = silu(bias[c] + sum_k window[b, k, c] w[k, c])
-//   ssm_step:   dt = softplus(dt[b, c] + dt_bias[c])  (threshold 20)
-//               s[b, c, n] <- s[b, c, n] exp(dt A[c, n]) + (dt B[b, n]) x[b, c]
+//   ssm_step:   dt = softplus(dt[b, h] + dt_bias[h])  (threshold 20)
+//               s[b, c, n] <- s[b, c, n] exp(dt A[h, n]) + (dt B[b, g, n]) x[b, c]
 //               with A = -exp(A_log), in fp32
-//               out[b, c] = (sum_n s[b, c, n] C[b, n] + D[c] x[b, c])
+//               out[b, c] = (sum_n s[b, c, n] C[b, g, n] + D[h] x[b, c])
 //                           * silu(z[b, c])
+//               where h = c / head_dim and g = c / group_dim: a Mamba-1
+//               mixer has one channel a head and one group (head_dim 1,
+//               group_dim dim); a Mamba-2 mixer's heads of head_dim
+//               channels share dt, dt_bias, A and D, and its groups of
+//               group_dim channels share B and C.
 //
 // Every sum runs in fp32, in the plain version's order within a channel but
 // for the sum over n.  The activations, the conv window and the parameters
@@ -129,12 +134,16 @@ conv_step_kernel(const ConvArgs a) {
 struct SsmArgs {
   float* state;           // (batch, dim, N), unit N stride
   int64_t s_sb, s_sc;
-  Vec2 x, dt, z, B, C;    // B, C: (batch, N), sc their N stride
-  Vec2 A_log;             // (dim, N): sb the channel stride, sc N's
-  Vec2 D, dt_bias;        // (dim,): sc the stride, sb unused
+  Vec2 x, z;              // (batch, dim)
+  Vec2 dt;                // (batch, heads)
+  Vec2 B, C;              // (batch, groups * N), sc their N stride
+  Vec2 A_log;             // (heads, N): sb the head stride, sc N's
+  Vec2 D, dt_bias;        // (heads,): sc the stride, sb unused
   void* out;              // (batch, dim) contiguous
   int out_type;
   int batch, dim, dstate;
+  int head_dim;           // channels a head (dt, dt_bias, A_log, D)
+  int group_dim;          // channels a group (B, C)
   int lanes;              // threads a channel: a power of two, 1 to 16
   int per_lane;           // states a thread: ceil(N / lanes), 1 to 16
 };
@@ -145,6 +154,8 @@ ssm_step_kernel(const SsmArgs a) {
   const int lane = threadIdx.x & (a.lanes - 1);
   const int c = blockIdx.x * (kThreads / a.lanes) + threadIdx.x / a.lanes;
   const bool live = c < a.dim;
+  const int h = c / a.head_dim;
+  const int bc = c / a.group_dim * a.dstate;   // the group's first B, C
   float* s = a.state + b * a.s_sb + c * a.s_sc;
   // every load first, so that their latencies overlap: the channel's dt,
   // x, D and z (the same for its lanes), then the lane's states n = lane +
@@ -153,18 +164,18 @@ ssm_step_kernel(const SsmArgs a) {
   float dt = 0.f, x = 0.f, D = 0.f, z = 0.f;
   float v[kMaxPerLane], A[kMaxPerLane], Bn[kMaxPerLane], Cn[kMaxPerLane];
   if (live) {
-    dt = a.dt.at(b, c) + a.dt_bias.at(0, c);
+    dt = a.dt.at(b, h) + a.dt_bias.at(0, h);
     x = a.x.at(b, c);
-    D = a.D.at(0, c);
+    D = a.D.at(0, h);
     z = a.z.at(b, c);
 #pragma unroll
     for (int j = 0; j < kMaxPerLane; ++j) {
       const int n = lane + j * a.lanes;
       if (j < a.per_lane && n < a.dstate) {
         v[j] = s[n];
-        A[j] = a.A_log.at(c, n);
-        Bn[j] = a.B.at(b, n);
-        Cn[j] = a.C.at(b, n);
+        A[j] = a.A_log.at(h, n);
+        Bn[j] = a.B.at(b, bc + n);
+        Cn[j] = a.C.at(b, bc + n);
       }
     }
   }
@@ -241,19 +252,23 @@ int vivim_conv_step(void* const* ptrs, const int* types,
 
 // ssm_step.  ptrs: state (fp32), x, dt, z, B, C, A_log, D, dt_bias, out;
 // types: the dtype codes of all but the state, in that order; strides:
-// state (batch, channel; its N stride is 1), x, dt, z (batch, channel each),
-// B, C (batch, n each), A_log (channel, n), D, dt_bias (channel each).  out
-// is (batch, dim) contiguous.  lanes a power of two up to 16, per_lane 1 to
-// 16 states a lane, lanes * per_lane >= dstate (so dstate <= 256).  Returns
-// cudaGetLastError() after the launch (0 = success).
+// state (batch, channel; its N stride is 1), x, z (batch, channel each), dt
+// (batch, head), B, C (batch, group * n + n each), A_log (head, n), D,
+// dt_bias (head each).  out is (batch, dim) contiguous.  lanes a power of two
+// up to 16, per_lane 1 to 16 states a lane, lanes * per_lane >= dstate (so
+// dstate <= 256); head_dim and group_dim divide dim (1 and dim: a Mamba-1
+// mixer).  Returns cudaGetLastError() after the launch (0 = success).
 int vivim_ssm_step(void* const* ptrs, const int* types,
                    const int64_t* strides, int batch, int dim, int dstate,
-                   int lanes, int per_lane, void* stream) {
+                   int lanes, int per_lane, int head_dim, int group_dim,
+                   void* stream) {
   for (int i = 0; i < 9; ++i)
     if (!type_ok(types[i])) return (int)cudaErrorInvalidValue;
   if (batch < 1 || batch > 65535 || dim < 1 || dstate < 1 ||
       lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) != 0 ||
-      per_lane < 1 || per_lane > kMaxPerLane || lanes * per_lane < dstate)
+      per_lane < 1 || per_lane > kMaxPerLane || lanes * per_lane < dstate ||
+      head_dim < 1 || group_dim < 1 || dim % head_dim != 0 ||
+      dim % group_dim != 0)
     return (int)cudaErrorInvalidValue;
   SsmArgs a;
   a.state = static_cast<float*>(ptrs[0]);
@@ -274,6 +289,8 @@ int vivim_ssm_step(void* const* ptrs, const int* types,
   a.dstate = dstate;
   a.lanes = lanes;
   a.per_lane = per_lane;
+  a.head_dim = head_dim;
+  a.group_dim = group_dim;
   const int channels = kThreads / lanes;
   const dim3 grid((unsigned)((dim + channels - 1) / channels),
                   (unsigned)batch);

@@ -8,7 +8,11 @@ dot with the (W, d_inner) weight plus the bias.  ``ssm_step`` steps the fp32
 ssm state (B, d_inner, N) by one token of the selective recurrence (dt
 through its bias and softplus, A = -exp(A_log)) and returns the gated output
 ``(C . state + D x) * silu(z)``.  Both write the states they are given and
-return a new (B, d_inner) output in x's dtype.
+return a new (B, d_inner) output in x's dtype.  A Mamba-2 mixer
+(``nn/streaming.py::mamba2_step``) steps through the same ``ssm_step`` with
+``head_dim`` channels a head sharing dt, dt_bias, A_log and D, and
+``n_groups`` groups of channels sharing B and C: its per-head operands are
+read as they are, with no per-channel copy.
 
 The JAX package's decode step is plain XLA and functional, so no Pallas
 kernel is replaced: on the card each half is one kernel written by hand, in
@@ -71,7 +75,7 @@ def _lib():
                   ctypes.POINTER(ctypes.c_int64)]
         lib.vivim_conv_step.argtypes = arrays + [i32, i32, i32, ptr]
         lib.vivim_conv_step.restype = i32
-        lib.vivim_ssm_step.argtypes = arrays + [i32] * 5 + [ptr]
+        lib.vivim_ssm_step.argtypes = arrays + [i32] * 7 + [ptr]
         lib.vivim_ssm_step.restype = i32
         lib.vivim_cuda_error_string.argtypes = [i32]
         lib.vivim_cuda_error_string.restype = ctypes.c_char_p
@@ -165,10 +169,25 @@ def conv_step(x, conv_state, weight, bias=None):
     return out
 
 
-def plain_ssm_step(ssm_state, x, dt, A_log, B, C, D, z, dt_bias):
+def plain_ssm_step(ssm_state, x, dt, A_log, B, C, D, z, dt_bias,
+                   head_dim=1, n_groups=1):
     """``ssm_step`` in plain PyTorch: ``refs.selective_state_update_ref``
     with A = -exp(A_log) and softplus, its new state copied into
-    ``ssm_state``."""
+    ``ssm_state``; per-head operands repeated over their channels, each
+    group of channels stepped with its own B and C."""
+    if head_dim > 1:
+        dt = dt.repeat_interleave(head_dim, 1)
+        A_log, D, dt_bias = (t.repeat_interleave(head_dim, 0)
+                             for t in (A_log, D, dt_bias))
+    if n_groups > 1:
+        g, n = ssm_state.shape[1] // n_groups, ssm_state.shape[2]
+        outs = []
+        for k in range(n_groups):
+            c, bc = slice(k * g, (k + 1) * g), slice(k * n, (k + 1) * n)
+            outs.append(plain_ssm_step(
+                ssm_state[:, c], x[:, c], dt[:, c], A_log[c], B[:, bc],
+                C[:, bc], D[c], z[:, c], dt_bias[c]))
+        return torch.cat(outs, 1)
     out, new_state = selective_state_update_ref(
         ssm_state, x, dt, -torch.exp(A_log.float()), B, C, D=D.float(), z=z,
         dt_bias=dt_bias.float(), dt_softplus=True)
@@ -189,14 +208,17 @@ def ssm_lanes(batch, dim, n):
     return lanes, -(-n // lanes)
 
 
-def ssm_step(ssm_state, x, dt, A_log, B, C, D, z, dt_bias):
+def ssm_step(ssm_state, x, dt, A_log, B, C, D, z, dt_bias, head_dim=1,
+             n_groups=1):
     """One token of the selective recurrence, in place.
 
     ssm_state: (B, d_inner, N) fp32 with unit N stride, stepped in place;
-    x (the conv's output), dt (before its bias and softplus), z: (B,
-    d_inner); B, C: (B, N); A_log: (d_inner, N); D, dt_bias: (d_inner,);
-    any strides but the state's.  Returns ``(C . state + D x) * silu(z)``,
-    (B, d_inner) in x's dtype, computed in fp32.
+    x (the conv's output), z: (B, d_inner); dt (before its bias and
+    softplus): (B, H); B, C: (B, n_groups * N); A_log: (H, N); D, dt_bias:
+    (H,); any strides but the state's.  H = d_inner / ``head_dim``: channel
+    c reads head c // head_dim's dt, dt_bias, A_log and D, and the B and C
+    of group c // (d_inner / n_groups).  Returns ``(C . state + D x) *
+    silu(z)``, (B, d_inner) in x's dtype, computed in fp32.
     """
     global LAUNCHES
     if ssm_state.dim() != 3:
@@ -210,22 +232,30 @@ def ssm_step(ssm_state, x, dt, A_log, B, C, D, z, dt_bias):
     if not 1 <= n <= MAX_DSTATE:
         raise ValueError(f"d_state {n}: the mamba step kernels take 1 to "
                          f"{MAX_DSTATE}")
-    for what, t in (("x", x), ("dt", dt), ("z", z)):
+    if head_dim < 1 or n_groups < 1 or dim % head_dim or dim % n_groups:
+        raise ValueError(f"head_dim {head_dim} and n_groups {n_groups} "
+                         f"must divide d_inner {dim}")
+    heads = dim // head_dim
+    for what, t in (("x", x), ("z", z)):
         _check(what, t, (batch, dim), x)
+    _check("dt", dt, (batch, heads), x)
     for what, t in (("B", B), ("C", C)):
-        _check(what, t, (batch, n), x)
-    _check("A_log", A_log, (dim, n), x)
+        _check(what, t, (batch, n_groups * n), x)
+    _check("A_log", A_log, (heads, n), x)
     for what, t in (("D", D), ("dt_bias", dt_bias)):
-        _check(what, t, (dim,), x)
+        _check(what, t, (heads,), x)
     _check_batch(batch, x)
     if not x.is_cuda:
-        return plain_ssm_step(ssm_state, x, dt, A_log, B, C, D, z, dt_bias)
-    out = _ssm_launch(ssm_state, x, dt, A_log, B, C, D, z, dt_bias)
+        return plain_ssm_step(ssm_state, x, dt, A_log, B, C, D, z, dt_bias,
+                              head_dim, n_groups)
+    out = _ssm_launch(ssm_state, x, dt, A_log, B, C, D, z, dt_bias,
+                      head_dim=head_dim, n_groups=n_groups)
     LAUNCHES += 1
     return out
 
 
-def _ssm_launch(ssm_state, x, dt, A_log, B, C, D, z, dt_bias, lanes=None):
+def _ssm_launch(ssm_state, x, dt, A_log, B, C, D, z, dt_bias, lanes=None,
+                head_dim=1, n_groups=1):
     """The ssm kernel on checked CUDA operands; returns the output.
     ``lanes`` overrides the threads a channel ``ssm_lanes`` picks (a power
     of two; timing them).  Counts nothing: ``ssm_step`` counts its calls."""
@@ -240,5 +270,6 @@ def _ssm_launch(ssm_state, x, dt, A_log, B, C, D, z, dt_bias, lanes=None):
             [ssm_state.data_ptr()] + [t.data_ptr() for t in operands]
             + [out.data_ptr()],
             [_code(t) for t in operands + (out,)], strides,
-            batch, dim, n, lanes, -(-n // lanes), dev=x.device)
+            batch, dim, n, lanes, -(-n // lanes), head_dim, dim // n_groups,
+            dev=x.device)
     return out

@@ -4,8 +4,10 @@ attention layers of a hybrid LM (``nn/jamba.py``).
 transformers' ``JambaAttention`` (modeling_jamba.py): ``q_proj``,
 ``k_proj``, ``v_proj``, ``o_proj`` without biases, ``n_kv`` key/value heads
 shared by ``n_heads / n_kv`` query heads each, scores scaled by
-``head_dim ** -0.5``, a causal mask, the softmax in fp32, and no positional
-encoding (Jamba's attention has none: its Mamba layers carry the order).
+``head_dim ** -0.5`` (or the model's own ``scale``: Granite's
+``attention_multiplier``), a causal mask, the softmax in fp32, and no
+positional encoding (neither Jamba's nor Granite 4.0-H's attention has one:
+their Mamba layers carry the order).
 
 - ``gqa_prefill``: the prompt's causal attention through
   ``F.scaled_dot_product_attention`` (its softmax runs in fp32), writing the
@@ -44,10 +46,11 @@ def _qkv(params, x, n_heads, n_kv):
     return q, k, v
 
 
-def gqa_prefill(params, x, n_heads, n_kv, max_len=None):
+def gqa_prefill(params, x, n_heads, n_kv, max_len=None, scale=None):
     """x (B, L, d_model) -> (out (B, L, d_model), cache (B, 2, n_kv,
     max_len, head_dim) holding the prompt's keys and values at positions
-    below L, position (1,) int64 = L)."""
+    below L, position (1,) int64 = L).  ``scale``: the scores' (None:
+    head_dim ** -0.5)."""
     global KV_BYTES
     b, L, _ = x.shape
     q, k, v = _qkv(params, x, n_heads, n_kv)
@@ -62,13 +65,14 @@ def gqa_prefill(params, x, n_heads, n_kv, max_len=None):
     q = q.transpose(1, 2)
     k = k.transpose(1, 2).repeat_interleave(group, 1)
     v = v.transpose(1, 2).repeat_interleave(group, 1)
-    y = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    y = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       scale=scale)
     y = y.transpose(1, 2).reshape(b, L, -1)
     pos = torch.full((1,), L, dtype=torch.long, device=x.device)
     return matmul_t(y, params["o_proj.weight"]), cache, pos
 
 
-def gqa_step(params, x, cache, pos, n_heads, n_kv):
+def gqa_step(params, x, cache, pos, n_heads, n_kv, scale=None):
     """x (B, d_model), one token at position ``pos`` -> (out (B, d_model),
     the cache with its key and value written at ``pos``, pos + 1): both
     stepped in place, so the returned cache and position are the given
@@ -84,6 +88,6 @@ def gqa_step(params, x, cache, pos, n_heads, n_kv):
     seen = (torch.arange(cache.shape[3], device=x.device) <= pos)[None, None,
                                                                    None]
     y = F.scaled_dot_product_attention(q, cache[:, 0], cache[:, 1],
-                                       attn_mask=seen)
+                                       attn_mask=seen, scale=scale)
     return matmul_t(y.reshape(b, -1), params["o_proj.weight"]), cache, \
         pos.add_(1)

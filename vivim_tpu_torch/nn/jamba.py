@@ -273,7 +273,8 @@ class JambaLM(nn.Module):
                 run = step = functools.partial(moe.swiglu, ff)
             layers.append(lm_lib.Layer(
                 sub(params, pre + ("self_attn." if attn else "mamba.")),
-                sub(params, pre + "input_layernorm."), attn,
+                sub(params, pre + "input_layernorm."),
+                "attention" if attn else "mamba",
                 sub(params, pre + "pre_ff_layernorm."), run, step))
         return lm_lib.LMParts(
             emb=emb, layers=layers,

@@ -25,14 +25,19 @@ MambaLMHeadModel (mixer_seq_simple.py:83-233) and its generation loop
   instead).  The model keeps one, keyed on the batch, the compute dtype
   and the parameters' tensors; on the CPU the same buffers run eagerly.
 
-The same functions serve a hybrid LM (``nn/jamba.py``): its model splits
-its own dict into ``Layer``s (``split_params``), each a Mamba mixer or a
-grouped-query attention layer (``nn/attention.py``) after its pre-norm,
-then optionally a feed-forward after its own pre-norm (a SwiGLU MLP or the
-dropless MoE block of ``nn/moe.py``).  A Mamba layer carries its (conv
-state, ssm state) and an attention layer its (K/V cache, position) in the
-same two lists, so prefill, decode and the decode graph hold both kinds of
-state side by side.
+The same functions serve a hybrid LM (``nn/jamba.py``, ``nn/granite.py``):
+its model splits its own dict into ``Layer``s (``split_params``), each a
+Mamba mixer, a Mamba-2 mixer (``streaming.Mamba2``) or a grouped-query
+attention layer (``nn/attention.py``) after its pre-norm, then optionally a
+feed-forward after its own pre-norm (a SwiGLU MLP or the dropless MoE block
+of ``nn/moe.py``).  A Mamba layer carries its (conv state, ssm state) and
+an attention layer its (K/V cache, position) in the same two lists, so
+prefill, decode and the decode graph hold both kinds of state side by side.
+``LMParts`` carries the µP scalars of such a model (Granite's: the
+embeddings times ``embedding_multiplier``, each mixer's and feed-forward's
+output times ``residual_multiplier`` before its residual add, the logits
+over ``logits_scaling``) and the attention's softmax scale; at their
+defaults (1, 1, 1, None: 1/sqrt(head_dim)) nothing is multiplied.
 
 The token loop runs every one of ``max_new_tokens`` steps whatever eos
 says, and keeps ``done`` on the device: nothing in a step waits for the
@@ -231,15 +236,16 @@ def sub_params(params, prefix):
 
 @dataclasses.dataclass
 class Layer:
-    """One layer of a split dict: the mixer after the pre-norm ``norm``, a
-    Mamba mixer or (``attention``) a grouped-query attention layer; then,
-    where ``ff`` is given, a feed-forward after the pre-norm ``ff_norm``:
-    ``ff(x)`` over a sequence, ``ff_step(x)`` over one token inside a
-    captured decode step."""
+    """One layer of a split dict: the mixer after the pre-norm ``norm``, of
+    ``kind`` "mamba" (a Mamba mixer's dict), "mamba2" (a
+    ``streaming.Mamba2``) or "attention" (a grouped-query attention
+    layer's dict); then, where ``ff`` is given, a feed-forward after the
+    pre-norm ``ff_norm``: ``ff(x)`` over a sequence, ``ff_step(x)`` over one
+    token inside a captured decode step."""
 
-    mixer: dict
+    mixer: object
     norm: dict
-    attention: bool = False
+    kind: str = "mamba"
     ff_norm: dict | None = None
     ff: object = None
     ff_step: object = None
@@ -262,14 +268,32 @@ class LMParts:
     n_kv_heads: int = 0
     ssm_norm_eps: float = 1e-6   # the dt / B / C norms' (where a mixer has)
     logits_dtype: torch.dtype | None = None   # None: the head's
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attn_scale: float | None = None   # None: head_dim ** -0.5
+
+    def embed(self, tokens):
+        h = self.residual(quant.embed_lookup(self.emb, tokens,
+                                             dtype=self.dtype))
+        m = self.embedding_multiplier
+        return h if m == 1.0 else h * m
 
     def residual(self, h):
         return h.float() if self.residual_in_fp32 else h
 
+    def add(self, h, out):
+        """The residual ``h`` plus a block's ``out`` times the residual
+        multiplier (in out's dtype, as transformers' Granite)."""
+        m = self.residual_multiplier
+        return h + (out if m == 1.0 else out * m).to(h.dtype)
+
     def logits(self, h):
         out = quant.lm_head(h, self.emb if self.head is None else self.head)
-        return out if self.logits_dtype is None else out.to(
-            self.logits_dtype)
+        if self.logits_dtype is not None:
+            out = out.to(self.logits_dtype)
+        return out if self.logits_scaling == 1.0 else (
+            out / self.logits_scaling)
 
 
 def split_params(model: MambaLM, params) -> LMParts:
@@ -346,7 +370,7 @@ def _feed_forward(parts: LMParts, layer: Layer, h, ff):
     """``h`` plus the layer's feed-forward ``ff`` (``layer.ff`` or
     ``layer.ff_step``) of its pre-normed ``h``."""
     x = parts.apply_norm(layer.ff_norm, h).to(parts.dtype)
-    return h + ff(x).to(h.dtype)
+    return parts.add(h, ff(x))
 
 
 def _backbone(parts: LMParts, tokens, mixer_prefill=None, max_len=None):
@@ -357,18 +381,21 @@ def _backbone(parts: LMParts, tokens, mixer_prefill=None, max_len=None):
     mixer_prefill = mixer_prefill or functools.partial(
         streaming.mamba_prefill, implementation=parts.implementation,
         norm_eps=parts.ssm_norm_eps)
-    h = parts.residual(quant.embed_lookup(parts.emb, tokens,
-                                          dtype=parts.dtype))
+    h = parts.embed(tokens)
     conv_states, ssm_states = [], []
     for layer in parts.layers:
         x = parts.apply_norm(layer.norm, h).to(parts.dtype)
-        if layer.attention:
+        if layer.kind == "attention":
             with span("lm.attn"):
                 out, cs, ss = attention.gqa_prefill(
-                    layer.mixer, x, parts.n_heads, parts.n_kv_heads, max_len)
+                    layer.mixer, x, parts.n_heads, parts.n_kv_heads, max_len,
+                    parts.attn_scale)
+        elif layer.kind == "mamba2":
+            out, cs, ss = streaming.mamba2_prefill(layer.mixer, x,
+                                                   parts.implementation)
         else:
             out, cs, ss = mixer_prefill(layer.mixer, x)
-        h = h + out.to(h.dtype)
+        h = parts.add(h, out)
         if layer.ff is not None:
             h = _feed_forward(parts, layer, h, layer.ff)
         conv_states.append(cs)
@@ -395,17 +422,19 @@ def decode_step(parts: LMParts, token, conv_states, ssm_states,
     an attention layer's its K/V cache and position."""
     mixer_step = mixer_step or functools.partial(
         streaming.mamba_step, norm_eps=parts.ssm_norm_eps)
-    h = parts.residual(quant.embed_lookup(parts.emb, token,
-                                          dtype=parts.dtype))
+    h = parts.embed(token)
     new_cs, new_ss = [], []
     for layer, cs, ss in zip(parts.layers, conv_states, ssm_states):
         x = parts.apply_norm(layer.norm, h).to(parts.dtype)
-        if layer.attention:
+        if layer.kind == "attention":
             out, cs, ss = attention.gqa_step(layer.mixer, x, cs, ss,
-                                             parts.n_heads, parts.n_kv_heads)
+                                             parts.n_heads, parts.n_kv_heads,
+                                             parts.attn_scale)
+        elif layer.kind == "mamba2":
+            out, cs, ss = streaming.mamba2_step(layer.mixer, x, cs, ss)
         else:
             out, cs, ss = mixer_step(layer.mixer, x, cs, ss)
-        h = h + out.to(h.dtype)
+        h = parts.add(h, out)
         if layer.ff_step is not None:
             h = _feed_forward(parts, layer, h, layer.ff_step)
         new_cs.append(cs)
@@ -491,8 +520,9 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
     an eager loop of ``decode_step``, else the model's ``DecodeGraph``.
 
     Spans (``utils/profiling.py::span``): ``lm.generate`` holds the
-    prefill's ``lm.forward`` (and in it each attention layer's ``lm.attn``
-    and each MoE block's ``lm.moe``), each token's ``lm.draw`` (the draw,
+    prefill's ``lm.forward`` (and in it each Mamba mixer's recurrence in
+    ``lm.ssm``, each attention layer's ``lm.attn`` and each MoE block's
+    ``lm.moe``), each token's ``lm.draw`` (the draw,
     the eos mask, the score's copy), the decode graph's ``graph.key`` and,
     on the card, each token's ``graph.replay``.
     """

@@ -23,7 +23,15 @@ batched expert products, so every shape is static.
   all experts in fp32, the top k probabilities as the gates, not
   renormalised, and every token computed by every expert it chose (no
   capacity, nothing dropped), each expert a SwiGLU MLP.  It is separate
-  from the Switch block above and shares none of its dispatch.
+  from the Switch block above and shares none of its dispatch.  The same
+  functions run Granite 4.0-H's block (transformers'
+  ``GraniteMoeHybridMoE`` and ``shared_mlp``): with ``renormalize`` the
+  gates are a softmax over the top k router logits (so they sum to 1); the
+  experts may be stacked, ``input_linear.weight`` (E, 2F, M) (gate rows,
+  then up rows) and ``output_linear.weight`` (E, M, F); and a shared
+  SwiGLU expert (``shared.input_linear.weight``, ``shared.
+  output_linear.weight``) runs on every token and adds to the routed sum,
+  in fp32.
 
 The router runs in fp32 whatever the activations' dtype (logits, softmax,
 the slot counts); slots are integers.  The expert GELU is the tanh
@@ -82,17 +90,51 @@ def _route(params, xt, top_k):
     return torch.topk(torch.softmax(logits, -1), top_k, dim=-1)
 
 
-def dropless_moe(params, x, top_k: int):
+def _route_renormalised(params, xt, top_k):
+    """The top k of the fp32 router logits, then a softmax over those k
+    (``GraniteMoeHybridTopKGating``): (gates (T, k) fp32 summing to 1,
+    experts (T, k) int64)."""
+    logits = xt.float() @ params["router.weight"].float().t()
+    top, experts = torch.topk(logits, top_k, dim=-1)
+    return torch.softmax(top, -1), experts
+
+
+def glu(x, w_in, w_out):
+    """``w_out`` of silu(first half) * second half of ``w_in`` x: a stacked
+    expert's or the shared expert's SwiGLU (``GraniteMoeHybridMLP``)."""
+    g, u = matmul_t(x, w_in).chunk(2, -1)
+    return matmul_t(F.silu(g) * u, w_out)
+
+
+def _expert(params, x, e):
+    """Expert ``e``'s SwiGLU of x (T, M)."""
+    if "input_linear.weight" in params:
+        return glu(x, params["input_linear.weight"][e],
+                   params["output_linear.weight"][e])
+    return swiglu(params, x, f"experts.{e}.")
+
+
+def _add_shared(params, x, out):
+    """``out`` (fp32) plus the shared expert of x, where there is one."""
+    if "shared.input_linear.weight" in params:
+        out += glu(x, params["shared.input_linear.weight"],
+                   params["shared.output_linear.weight"]).float()
+    return out
+
+
+def dropless_moe(params, x, top_k: int, renormalize: bool = False):
     """The dropless top-k block over a whole sequence: x (..., M) -> (...,
     M).  ``params``: ``router.weight`` (E, M) and ``experts.{e}.
-    {gate,up,down}_proj.weight``.  The tokens are sorted by expert and each
+    {gate,up,down}_proj.weight`` or the stacked experts, and the shared
+    expert where there is one.  The tokens are sorted by expert and each
     expert runs once on its own (the group sizes are read on the host, so
-    this runs eagerly, in the span ``lm.moe``); the gated outputs are
-    summed per token in fp32."""
+    this runs eagerly, in the span ``lm.moe``); the gated outputs, and the
+    shared expert's, are summed per token in fp32."""
     with span("lm.moe"):
         M = x.shape[-1]
         xt = x.reshape(-1, M)
-        gates, experts = _route(params, xt, top_k)
+        route = _route_renormalised if renormalize else _route
+        gates, experts = route(params, xt, top_k)
         E = params["router.weight"].shape[0]
         flat = experts.reshape(-1)
         counts = torch.bincount(flat, minlength=E)
@@ -103,32 +145,42 @@ def dropless_moe(params, x, top_k: int):
         start = 0
         for e, n in enumerate(counts.tolist()):
             if n:
-                ys[start:start + n] = swiglu(params, xs[start:start + n],
-                                             f"experts.{e}.")
+                ys[start:start + n] = _expert(params, xs[start:start + n], e)
             start += n
         out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
         out.index_add_(0, rows, ys.float() * gates.reshape(-1)[order, None])
-        return out.to(x.dtype).reshape(x.shape)
+        return _add_shared(params, xt, out).to(x.dtype).reshape(x.shape)
 
 
-def dropless_moe_step(params, x, top_k: int):
+def dropless_moe_step(params, x, top_k: int, renormalize: bool = False):
     """The same block with static shapes, for a decode step a CUDA graph
     captures: x (B, M) -> (B, M).  Every expert runs on every token and its
     output is weighted by the token's gate for it, 0 where the token did
     not choose it: the same sum as ``dropless_moe``, with no host read.
-    The step's distinct chosen experts are added to the device's
+    Stacked experts run as two batched products over all of them.  The
+    step's distinct chosen experts are added to the device's
     ``EXPERTS_READ``."""
-    gates, experts = _route(params, x, top_k)
+    route = _route_renormalised if renormalize else _route
+    gates, experts = route(params, x, top_k)
     E = params["router.weight"].shape[0]
     weight = torch.zeros(x.shape[0], E, dtype=torch.float32,
                          device=x.device).scatter_(1, experts, gates)
     chosen = torch.zeros(E, dtype=torch.bool, device=x.device)
     experts_read(x.device).add_(
         chosen.scatter_(0, experts.reshape(-1), True).sum())
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e in range(E):
-        out.addcmul_(swiglu(params, x, f"experts.{e}."), weight[:, e, None])
-    return out.to(x.dtype)
+    if "input_linear.weight" in params:
+        # (E, B, 2F), then (E, B, M): every expert on every row at once
+        g, u = torch.matmul(
+            x, params["input_linear.weight"].transpose(1, 2)).chunk(2, -1)
+        y = torch.matmul(F.silu(g) * u,
+                         params["output_linear.weight"].transpose(1, 2))
+        out = torch.einsum("ebm,be->bm", y.float(), weight)
+    else:
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for e in range(E):
+            out.addcmul_(swiglu(params, x, f"experts.{e}."),
+                         weight[:, e, None])
+    return _add_shared(params, x, out).to(x.dtype)
 
 
 def moe_capacity(n_tokens: int, n_experts: int,

@@ -19,6 +19,19 @@ dt, B and C (``dt_layernorm.weight``, ``b_layernorm.weight``,
 they normalise the three parts of ``x_proj``'s output before ``dt_proj``
 and the scan, with ``norm_eps``.  Activations are time-major.
 
+A Mamba-2 mixer (``mamba2_prefill`` / ``mamba2_step``, transformers'
+``GraniteMoeHybridMambaLayer``) runs on the same two kernels: ``in_proj``
+gives the gate z, the conv's input xBC (x, then B and C of each group) and
+one dt a head; the conv runs over xBC; the recurrence is Mamba-1's with
+each head's dt, dt_bias, A and D shared by its channels (K1 reads them
+repeated over the channels, ``ssm_step`` per head); y then passes the gated
+RMSNorm ``w * rms(y * silu(z))`` in fp32 before ``out_proj``.  Its
+parameters, and the constants both read, are a ``Mamba2`` built once per
+split of the parameters (``mamba2``).
+
+Each prefill opens the span ``lm.ssm`` around its recurrence: the scan and
+the preparation of its arguments, not the projections or the conv.
+
 Given a process ``group``, ``mamba_prefill`` and ``mamba_step`` run one
 rank's channel split of a tensor-parallel mixer (``parallel.
 tensor_parallel.split_tp_params``: the rank's x and z rows of in_proj, its
@@ -31,13 +44,17 @@ before the whole out bias.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.nn.functional as F
 
 from vivim_tpu_torch.kernels.causal_conv1d import causal_conv1d
 from vivim_tpu_torch.kernels.mamba_step import conv_step, ssm_step
 from vivim_tpu_torch.kernels.selective_scan import selective_scan
 from vivim_tpu_torch.nn.quant import matmul_t
 from vivim_tpu_torch.parallel import comm
+from vivim_tpu_torch.utils.profiling import span
 
 
 def allocate_cache(batch: int, d_model: int, d_state: int = 16,
@@ -140,8 +157,124 @@ def mamba_prefill(params, x, implementation=None, group=None,
     dt, B, C = _dt_b_c(params, _x_proj(params, xc, group), dt_rank, n,
                        norm_eps)
     delta = dt @ params["dt_proj.weight"].t().to(xc.dtype)
-    y, ssm_state = selective_scan(
-        xc, delta, -torch.exp(params["A_log"].float()), B, C, D=params["D"].float(), z=z,
-        delta_bias=params["dt_proj.bias"].float(), delta_softplus=True,
-        return_last_state=True, implementation=implementation)
+    with span("lm.ssm"):
+        y, ssm_state = selective_scan(
+            xc, delta, -torch.exp(params["A_log"].float()), B, C,
+            D=params["D"].float(), z=z,
+            delta_bias=params["dt_proj.bias"].float(), delta_softplus=True,
+            return_last_state=True, implementation=implementation)
     return _out_proj(params, y, group), conv_state, ssm_state
+
+
+@dataclasses.dataclass
+class Mamba2:
+    """A Mamba-2 mixer as its prefill and step read it: ``params`` under
+    transformers' names (``in_proj.weight`` (d_inner + conv_dim + heads,
+    d_model), ``conv1d.weight`` (conv_dim, 1, W), ``conv1d.bias``,
+    ``dt_bias``, ``A_log``, ``D`` (heads,), ``norm.weight`` (d_inner,),
+    ``out_proj.weight``; ``in_proj.bias`` / ``out_proj.bias`` where the
+    mixer has them), conv_dim = d_inner + 2 n_groups d_state; and the
+    constants built from them once: K1's per-channel ``A`` (d_inner,
+    d_state) = -exp(A_log), ``D`` and ``dt_bias`` (d_inner,), fp32, each
+    head's repeated over its channels; the step's ``A_log_heads`` (heads,
+    d_state), a view."""
+
+    params: dict
+    n_groups: int
+    d_state: int
+    head_dim: int
+    norm_eps: float
+    A: torch.Tensor
+    D: torch.Tensor
+    dt_bias: torch.Tensor
+    A_log_heads: torch.Tensor
+
+    @property
+    def d_inner(self):
+        return self.params["norm.weight"].shape[0]
+
+
+def mamba2(params, n_groups, d_state, norm_eps):
+    """``Mamba2`` of one mixer's parameter dict: the constants built
+    here, once per split of the parameters, so no call copies them."""
+    heads = params["A_log"].shape[0]
+    head_dim = params["norm.weight"].shape[0] // heads
+    per_channel = lambda t: t.float().repeat_interleave(head_dim).contiguous()
+    a_log = params["A_log"]
+    return Mamba2(
+        params, n_groups, d_state, head_dim, norm_eps,
+        A=(-torch.exp(per_channel(a_log)))[:, None].expand(
+            -1, d_state).contiguous(),
+        D=per_channel(params["D"]), dt_bias=per_channel(params["dt_bias"]),
+        A_log_heads=a_log[:, None].expand(heads, d_state))
+
+
+def _mamba2_split(m: Mamba2, x):
+    """(z, xBC, dt) of ``in_proj``'s output: column views."""
+    p = m.params
+    zxbcdt = matmul_t(x, p["in_proj.weight"])
+    if "in_proj.bias" in p:
+        zxbcdt = zxbcdt + p["in_proj.bias"]
+    d, cd = m.d_inner, p["conv1d.weight"].shape[0]
+    return zxbcdt[..., :d], zxbcdt[..., d:d + cd], zxbcdt[..., d + cd:]
+
+
+def gated_norm(m: Mamba2, y, z):
+    """transformers' ``GraniteMoeHybridRMSNormGated``: ``w * rms(y *
+    silu(z))`` over all d_inner channels, in fp32, back in y's dtype."""
+    f = y.float()
+    if z is not None:
+        f = f * F.silu(z.float())
+    f = f * torch.rsqrt((f * f).mean(-1, keepdim=True) + m.norm_eps)
+    return m.params["norm.weight"] * f.to(y.dtype)
+
+
+def _mamba2_out(m: Mamba2, y):
+    out = matmul_t(y, m.params["out_proj.weight"])
+    if "out_proj.bias" in m.params:
+        out = out + m.params["out_proj.bias"]
+    return out
+
+
+def mamba2_prefill(m: Mamba2, x, implementation=None):
+    """A Mamba-2 mixer over the prompt, emitting its decode states.
+
+    x: (B, L, d_model).  Returns (out (B, L, d_model), conv_state (B, W,
+    conv_dim): the last W pre-conv xBC inputs, left-padded with zeros,
+    ssm_state (B, d_inner, d_state) fp32: the scan's last state).  The scan
+    is K1 on the card, with each head's dt, dt_bias, A and D over its
+    channels and no z: the gate acts in the norm.
+    """
+    z, xbc, dt = _mamba2_split(m, x)
+    conv_w = m.params["conv1d.weight"][:, 0, :].t()
+    width = conv_w.shape[0]
+    pad = F.pad(xbc, (0, 0, max(width - x.shape[1], 0), 0))
+    conv_state = pad[:, -width:].contiguous()
+    xbc = causal_conv1d(xbc, conv_w, m.params.get("conv1d.bias"), "silu")
+    d, gn = m.d_inner, m.n_groups * m.d_state
+    with span("lm.ssm"):
+        B, C = xbc[..., d:d + gn], xbc[..., d + gn:]
+        if m.n_groups > 1:
+            B = B.unflatten(-1, (m.n_groups, m.d_state))
+            C = C.unflatten(-1, (m.n_groups, m.d_state))
+        y, ssm_state = selective_scan(
+            xbc[..., :d], dt.repeat_interleave(m.head_dim, -1), m.A, B, C,
+            D=m.D, delta_bias=m.dt_bias, delta_softplus=True,
+            return_last_state=True, implementation=implementation)
+    return _mamba2_out(m, gated_norm(m, y, z)), conv_state, ssm_state
+
+
+def mamba2_step(m: Mamba2, x, conv_state, ssm_state):
+    """One decode step of a Mamba-2 mixer, its states stepped in place:
+    ``conv_step`` over the xBC window, ``ssm_step`` per head (gated by z
+    there), the RMSNorm.  x: (B, d_model); returns (out (B, d_model),
+    conv_state, ssm_state), the given state tensors."""
+    z, xbc, dt = _mamba2_split(m, x)
+    conv_w = m.params["conv1d.weight"][:, 0, :].t()
+    xbc = conv_step(xbc, conv_state, conv_w, m.params.get("conv1d.bias"))
+    d, gn = m.d_inner, m.n_groups * m.d_state
+    y = ssm_step(ssm_state, xbc[:, :d], dt, m.A_log_heads,
+                 xbc[:, d:d + gn], xbc[:, d + gn:], m.params["D"], z,
+                 m.params["dt_bias"], head_dim=m.head_dim,
+                 n_groups=m.n_groups)
+    return _mamba2_out(m, gated_norm(m, y, None)), conv_state, ssm_state

@@ -56,6 +56,14 @@ Phases, each of which raises on failure (exit code != 0):
    per head (128 heads of 64, one group, d_state 128) on column views of
    one in_proj output and of the conv's output; print each kernel's replay
    us, one eager call's us, the plain version's us and the bytes bound;
+3e. hold the prefill MoE's combine kernel (``kernels/moe_combine.py``)
+   against its plain version, bit for bit, and against a second call of
+   itself, at Granite 4.0-H-Small's prefill (32,768 tokens, top-10 of 72,
+   M 4096, a shared expert, bf16) and at Jamba's (top-2 of 16, none); print
+   its replay ms, one call's ms with its checks, the plain version's ms,
+   the parent form's ms (an fp32 gate product of every row, ``index_add_``
+   into a zeroed fp32 sum, the shared row added in fp32, a cast) and the
+   bytes bound;
 4. serve: full-width MiT-b3 Vivim (3 classes, random weights from a seed)
    answers 4 requests of one (1, 5, 256, 256, 3) clip through the port's
    ``run_inference``, whose forward, argmax and confusion counts are one
@@ -159,13 +167,22 @@ Phases, each of which raises on failure (exit code != 0):
    that captures the decode graph, then 3 requests of (8, 4096) prompts
    and 16 new tokens with the counts zeroed just before them: 7 K1 a
    prefill, none in the 48 replays, no capture, no conv, the decode step's
-   two kernels 2 x 7 a replay; (c) the replayed
+   two kernels 2 x 7 a replay, the MoE combine 4 a prefill (one a MoE
+   layer) and none in the replays; (c) the replayed
    hybrid step (Mamba step, GQA step against the K/V cache, dropless MoE
    step) within 1e-2 of the eager loop's scores, teacher-forced; (d) the
    decode graph's K/V position after a request, and its keys and values at
    the served positions within 0.05 (median, relative) of a prefill's over
    the served sequence; (e) prefill ms, decode ms per step, experts read
    per step, peak memory;
+8c. Granite 4.0-H-Small (the benchmark's configuration file: the first 10
+   layers, published widths) in bf16 from the seeded init: a ``generate``
+   that captures the decode graph, then 2 requests of (8, 4096) prompts
+   and 16 new tokens with the counts zeroed just before them: 9 K1 and 10
+   MoE combines a prefill, neither in the 32 replays, no capture; one
+   prefill's logits with the combine kernel against the same prefill with
+   the parent's combine (``index_add_`` in fp32), and each prefill's ms;
+   peak memory of the requests;
 9. remat, a trainer checkpoint into the infer CLI, and the host tools:
    (a) MiT-b3 Vivim built by the training CLIs' ``build_model`` at each
    ``-remat`` level (none, pre_scan, blocks; dropouts and drop-path on at
@@ -285,7 +302,7 @@ Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3d (a
 quick check of the kernels on the card); ``--jamba-only`` runs phase 8b
 alone after the build, ``--dstate-only`` phase 13, ``--train-replay-only``
-phase 5c.
+phase 5c, ``--moe-combine-only`` phases 3e, 8b and 8c.
 """
 
 from __future__ import annotations
@@ -455,6 +472,19 @@ JAMBA_BATCH = 8
 JAMBA_PROMPT = 4096
 JAMBA_GEN = 16
 JAMBA_REQUESTS = 3
+# phase 3e: the MoE combine at the Granite and Jamba cells' prefill, 8 x 4096
+# tokens of width 4096 in bf16: (label, top-k, experts, shared expert),
+# and its calls a prefill (one a MoE layer)
+COMBINE_SHAPES = (("Granite", 10, 72, True, 10), ("Jamba", 2, 16, False, 4))
+COMBINE_TOKENS = 8 * 4096
+COMBINE_WIDTH = 4096
+# phase 8c: Granite as the benchmark's Granite cell runs it (its
+# configuration file), the cell's batch and prompt, fewer new tokens
+GRANITE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "perfbench", "configs",
+                              "granite-4.0-h-small-10l.json")
+GRANITE_GEN = 16
+GRANITE_REQUESTS = 2
 
 
 def nvidia_smi(query):
@@ -1384,6 +1414,112 @@ class Requests:
         return iter(self.batches)
 
 
+def combine_work(tokens, k, m, shared, elem):
+    """(bytes, fp32 operations, exps) of one MoE combine: the k sorted rows
+    of every token and its shared row read once, its row written once, its
+    k positions and gates read; a product and a sum a choice and value,
+    and a sum for the shared row."""
+    return ((tokens * m * (k + 1 + shared) * elem + tokens * k * 8),
+            tokens * m * (2 * k + shared), 0)
+
+
+def combine_inputs(tokens, k, experts, m, shared, gen):
+    """The combine's operands as ``dropless_moe`` makes them, bf16: a top k
+    of random router logits a token, sorted by expert (stable), ``pos`` the
+    inverse of the sort, renormalised gates, random expert outputs in
+    sorted order and the shared expert's output."""
+    dev = "cuda"
+    top, chosen = torch.topk(torch.randn(tokens, experts, generator=gen,
+                                         device=dev), k, dim=-1)
+    order = torch.argsort(chosen.reshape(-1), stable=True)
+    pos = torch.empty(tokens * k, dtype=torch.int32, device=dev)
+    pos[order] = torch.arange(tokens * k, dtype=torch.int32, device=dev)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    return (rnd(tokens * k, m), pos.view(tokens, k), torch.softmax(top, -1),
+            rnd(tokens, m) if shared else None)
+
+
+def parent_combine(ys, pos, gates, shared=None):
+    """The combine as ``dropless_moe`` took it before its kernel: an fp32
+    gate product of every sorted row, ``index_add_`` into a zeroed fp32
+    sum, the shared row added in fp32, one cast (the yardstick of phases 3e
+    and 8c)."""
+    tokens, k = pos.shape
+    order = torch.empty(tokens * k, dtype=torch.long, device=pos.device)
+    order[pos.reshape(-1).long()] = torch.arange(tokens * k,
+                                                 device=pos.device)
+    out = torch.zeros((tokens, ys.shape[1]), dtype=torch.float32,
+                      device=ys.device)
+    out.index_add_(0, order // k, ys.float() * gates.reshape(-1)[order, None])
+    if shared is not None:
+        out += shared.float()
+    return out.to(ys.dtype)
+
+
+def phase_combine(peaks):
+    """Phase 3e: the prefill MoE's combine kernel at ``COMBINE_SHAPES``,
+    bit-equal to its plain version and to a second call, beside the parent
+    form; device ms (CUDA-graph replay of the launch alone), one call's ms
+    with its checks (the host read of pos's range), plain and parent ms,
+    the bytes bound."""
+    from vivim_tpu_torch.kernels import moe_combine as mc
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = []
+    T, m = COMBINE_TOKENS, COMBINE_WIDTH
+    for label, k, experts, shared, per_prefill in COMBINE_SHAPES:
+        ops = combine_inputs(T, k, experts, m, shared, gen)
+        c0 = mc.LAUNCHES
+        got = mc.moe_combine(*ops)
+        again = mc.moe_combine(*ops)
+        want = mc.plain_moe_combine(*ops)
+        torch.cuda.synchronize()
+        if mc.LAUNCHES != c0 + 2:
+            raise AssertionError(f"MoE combine {label}: {mc.LAUNCHES - c0} "
+                                 "launches in 2 calls")
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"MoE combine {label}: {err:.3e} from the "
+                                 "plain version (bit-equal expected)")
+        if not torch.equal(got, again):
+            raise AssertionError(f"MoE combine {label}: two calls differ")
+        del want, again
+        parent = parent_combine(*ops)
+        parent_err = (parent.float() - got.float()).abs().max().item()
+        scale = got.float().abs().max().item()
+        del parent
+        plain_ms = cuda_ms(lambda: mc.plain_moe_combine(*ops), 3)
+        parent_ms = cuda_ms(lambda: parent_combine(*ops), 3)
+        call_ms = cuda_ms(lambda: mc.moe_combine(*ops), 5)
+        out = torch.empty_like(got)
+        ms = device_ms(lambda: mc._launch(*ops, out), calls=5, repeats=5)
+        if not torch.equal(out, got):
+            raise AssertionError(f"MoE combine {label}: the replayed "
+                                 "launch's output differs")
+        work = combine_work(T, k, m, shared, 2)
+        bound_ms, bound_by, term = bound(work, peaks)
+        print(f"MoE combine {label} bfloat16 T={T} k={k} of {experts} M={m} "
+              f"shared={shared}: bit-equal to the plain version and to a "
+              f"second call; the parent form within {parent_err:.3e} (|out| "
+              f"max {scale:.3f}); device_ms={ms:.4f} (one call with its "
+              f"checks {call_ms:.4f}) bound_ms={bound_ms:.4f} ({term}; "
+              f"{work[0] / 1e9:.3f} GB; {bound_ms / ms * 100:.1f} % of it) "
+              f"plain_ms={plain_ms:.2f} parent_ms={parent_ms:.2f}; per "
+              f"prefill ({per_prefill} calls): device {per_prefill * ms:.2f} "
+              f"ms, parent {per_prefill * parent_ms:.1f} ms", flush=True)
+        rows.append(dict(stage=f"{label} prefill", tokens=T, k=k,
+                         experts=experts, m=m, shared=shared,
+                         dtype="bfloat16", ms=ms, call_ms=call_ms,
+                         plain_ms=plain_ms, parent_ms=parent_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         gbytes=work[0] / 1e9, parent_err=parent_err,
+                         calls_per_prefill=per_prefill))
+        del ops, got, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def make_requests(n, clip_len, size, num_classes, seed=0, batch=1):
     """(batch, T, S, S, 3) normalized clips and one-hot (batch, T, S, S, C)
     masks of random discs, made by numpy from ``seed``."""
@@ -1439,12 +1575,14 @@ def counts():
 def reset_counts():
     from vivim_tpu_torch.kernels import dwconv3d as dk
     from vivim_tpu_torch.kernels import mamba_step as mk
+    from vivim_tpu_torch.kernels import moe_combine as mc
     from vivim_tpu_torch.kernels import selective_scan as ss
     from vivim_tpu_torch.utils import cuda_graphs
 
     ss.LAUNCHES = ss.TRAIN_LAUNCHES = ss.BWD_LAUNCHES = 0
     dk.LAUNCHES = dk.BWD_LAUNCHES = 0
     mk.LAUNCHES = 0
+    mc.LAUNCHES = 0
     cuda_graphs.CAPTURES = cuda_graphs.REPLAYS = 0
 
 
@@ -1454,6 +1592,14 @@ def step_launches():
     from vivim_tpu_torch.kernels import mamba_step as mk
 
     return mk.LAUNCHES
+
+
+def combine_launches():
+    """The prefill MoE's combine launches (one a MoE layer a prefill) since
+    ``reset_counts``."""
+    from vivim_tpu_torch.kernels import moe_combine as mc
+
+    return mc.LAUNCHES
 
 
 def graph_counts():
@@ -3277,6 +3423,7 @@ def phase_jamba(peaks):
                                          num_hidden_layers=JAMBA_LAYERS)
     cfg = model.cfg
     n_mamba = sum(not cfg.is_attention(i) for i in range(JAMBA_LAYERS))
+    n_moe = len(cfg.moe_layers())
     g = torch.Generator(device="cuda").manual_seed(21)
     prompts = [torch.randint(0, cfg.vocab_size, (JAMBA_BATCH, JAMBA_PROMPT),
                              generator=g, device="cuda")
@@ -3287,29 +3434,35 @@ def phase_jamba(peaks):
     run(prompts[-1])                    # the capture
     warm, warm_graphs = counts(), graph_counts()
     if (warm != launches(k1=n_mamba) or warm_graphs["captures"] != 1
-            or step_launches() != graph_launches(2 * n_mamba, 1, JAMBA_GEN)):
+            or step_launches() != graph_launches(2 * n_mamba, 1, JAMBA_GEN)
+            or combine_launches() != n_moe):
         raise AssertionError(f"Jamba's first generate: {warm}, "
                              f"{warm_graphs}, {step_launches()} step kernel "
-                             "launches")
+                             f"launches, {combine_launches()} MoE combines")
     read0 = int(moe.experts_read("cuda"))
     reset_counts()
     outs = [run(p) for p in prompts[:JAMBA_REQUESTS]]
     torch.cuda.synchronize()
     got, graphs, stepped = counts(), graph_counts(), step_launches()
+    combined = combine_launches()
     want = launches(k1=n_mamba * JAMBA_REQUESTS)
     want_graphs = {"captures": 0, "replays": JAMBA_GEN * JAMBA_REQUESTS}
     want_steps = 2 * n_mamba * JAMBA_GEN * JAMBA_REQUESTS
-    if got != want or graphs != want_graphs or stepped != want_steps:
+    if (got != want or graphs != want_graphs or stepped != want_steps
+            or combined != n_moe * JAMBA_REQUESTS):
         raise AssertionError(f"{JAMBA_REQUESTS} Jamba generates launched "
-                             f"{got}, {graphs}, {stepped} step kernels; "
-                             f"expected {want}, {want_graphs}, {want_steps}")
+                             f"{got}, {graphs}, {stepped} step kernels, "
+                             f"{combined} MoE combines; expected {want}, "
+                             f"{want_graphs}, {want_steps}, "
+                             f"{n_moe * JAMBA_REQUESTS}")
     per_step = ((int(moe.experts_read("cuda")) - read0)
                 / (JAMBA_GEN * JAMBA_REQUESTS) / len(cfg.moe_layers()))
     print(f"jamba: {JAMBA_REQUESTS} generates of ({JAMBA_BATCH}, "
           f"{JAMBA_PROMPT}) + {JAMBA_GEN}: K1 {got['K1 inference']} ("
           f"{n_mamba} a prefill, none in {graphs['replays']} decode "
           f"replays), no capture, no conv, the decode step's kernels "
-          f"{stepped} (2 x {n_mamba} a replay); {per_step:.2f} distinct "
+          f"{stepped} (2 x {n_mamba} a replay), the MoE combine {combined} "
+          f"({n_moe} a prefill, none in the replays); {per_step:.2f} distinct "
           f"experts "
           f"of {cfg.num_experts} a step in each MoE layer", flush=True)
     # (c) the replayed step against the eager loop, teacher-forced
@@ -3373,11 +3526,110 @@ def phase_jamba(peaks):
     secs = time.perf_counter() - t0
     print(f"jamba: phase {secs:.1f} s", flush=True)
     return got, dict(scan_row=row, launches=got, graphs=graphs,
-                     step_kernel_launches=stepped,
+                     step_kernel_launches=stepped, combine_launches=combined,
                      experts_per_step=per_step, decode_err=step_err,
                      kv_rel_median=kv_median, kv_rel_max=kv_max,
                      prefill_ms=prefill_ms, decode_ms=decode_ms,
                      peak_gib=peak / 2**30, secs=secs)
+
+
+def phase_granite():
+    """Phase 8c: Granite on the LM's serving path at the cell's widths.
+    ``load_granite`` of a directory holding the benchmark's configuration
+    file (10 layers, 9 Mamba-2 and 1 attention, each with its MoE block),
+    bf16 from the seeded init; one ``generate`` (the decode graph's
+    capture), then, with the counts zeroed just before them,
+    ``GRANITE_REQUESTS`` requests of (8, 4096) prompts and ``GRANITE_GEN``
+    new tokens: K1 once a Mamba-2 layer and the MoE combine once a layer in
+    each prefill, neither in the replayed decode, no capture, one replay a
+    new token; their peak memory; then one prefill with the combine kernel,
+    with its plain version and with the parent's form: the last logits of
+    the plain version's bit-equal to the kernel's, the parent's within its
+    roundings, and each prefill's ms."""
+    from vivim_tpu_torch.kernels import moe_combine as mc
+    from vivim_tpu_torch.nn import granite, lm, moe
+
+    t0 = time.perf_counter()
+    with open(GRANITE_CONFIG) as f:
+        config = json.load(f)
+    with tempfile.TemporaryDirectory() as snap:
+        with open(os.path.join(snap, "config.json"), "w") as f:
+            json.dump(config, f)
+        model, params = granite.load_granite(snap, "cuda", torch.bfloat16,
+                                             seed=0)
+    cfg = model.cfg
+    n_layers = cfg.num_hidden_layers
+    n_mamba = sum(kind == "mamba" for kind in cfg.layer_types)
+    batch = GRANITE_MAMBA2[0]
+    g = torch.Generator(device="cuda").manual_seed(27)
+    prompts = [torch.randint(0, cfg.vocab_size, (batch, GRANITE_PROMPT),
+                             generator=g, device="cuda")
+               for _ in range(GRANITE_REQUESTS + 1)]
+    run = lambda toks: lm.generate(model, params, toks, GRANITE_GEN,
+                                   top_k=1)
+    reset_counts()
+    run(prompts[-1])                    # the capture
+    warm, warm_graphs, warm_combined = (counts(), graph_counts(),
+                                        combine_launches())
+    if (warm != launches(k1=n_mamba) or warm_graphs["captures"] != 1
+            or warm_combined != n_layers):
+        raise AssertionError(f"Granite's first generate: {warm}, "
+                             f"{warm_graphs}, {warm_combined} MoE combines")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for p in prompts[:GRANITE_REQUESTS]:
+        run(p)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    got, graphs, combined = counts(), graph_counts(), combine_launches()
+    want = launches(k1=n_mamba * GRANITE_REQUESTS)
+    want_graphs = {"captures": 0,
+                   "replays": GRANITE_GEN * GRANITE_REQUESTS}
+    if (got != want or graphs != want_graphs
+            or combined != n_layers * GRANITE_REQUESTS):
+        raise AssertionError(f"{GRANITE_REQUESTS} Granite generates "
+                             f"launched {got}, {graphs}, {combined} MoE "
+                             f"combines; expected {want}, {want_graphs}, "
+                             f"{n_layers * GRANITE_REQUESTS}")
+    print(f"granite: {GRANITE_REQUESTS} generates of ({batch}, "
+          f"{GRANITE_PROMPT}) + {GRANITE_GEN}: K1 {got['K1 inference']} "
+          f"({n_mamba} a prefill), the MoE combine {combined} ({n_layers} a "
+          f"prefill), none in {graphs['replays']} decode replays, no "
+          f"capture; peak memory {peak / 1e9:.2f} GB", flush=True)
+    # one prefill with the kernel, its plain version and the parent form
+    parts = lm.split_params(model, params)
+    prefill = lambda: lm.prefill(parts, prompts[0],
+                                 max_len=GRANITE_PROMPT + GRANITE_GEN)[0]
+    logits, ms = {}, {}
+    try:
+        for name, combine in (("kernel", mc.moe_combine),
+                              ("plain", mc.plain_moe_combine),
+                              ("parent", parent_combine)):
+            moe.moe_combine = combine
+            with torch.no_grad():
+                logits[name] = prefill().float()
+                ms[name] = cuda_ms(prefill, 3)
+    finally:
+        moe.moe_combine = mc.moe_combine
+    parent_err = (logits["parent"] - logits["kernel"]).abs().max().item()
+    print(f"granite: prefill ms with the combine kernel {ms['kernel']:.1f}, "
+          f"with its plain version {ms['plain']:.1f}, with the parent form "
+          f"{ms['parent']:.1f}; last logits: the plain version's "
+          + ("bit-equal to" if torch.equal(logits["plain"], logits["kernel"])
+             else "DIFFERENT from")
+          + f" the kernel's, the parent form's within {parent_err:.3e} "
+          f"(|logits| max {logits['kernel'].abs().max().item():.3f})",
+          flush=True)
+    if not torch.equal(logits["plain"], logits["kernel"]):
+        raise AssertionError("Granite's prefill logits with the plain "
+                             "combine differ from the kernel's")
+    del model, params, parts, prompts, logits
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"granite: phase {secs:.1f} s", flush=True)
+    return got, dict(launches=got, graphs=graphs, combine_launches=combined,
+                     peak_gb=peak / 1e9, prefill_ms=ms,
+                     parent_logit_err=parent_err, secs=secs)
 
 
 def remat_run(level, batches, dev, segformer="b3", check=None):
@@ -5694,6 +5946,9 @@ def main():
     parser.add_argument("--train-replay-only", action="store_true",
                         help="run phase 5c (the replayed train step) alone "
                              "after the build")
+    parser.add_argument("--moe-combine-only", action="store_true",
+                        help="run phases 3e, 8b and 8c (the prefill MoE's "
+                             "combine) alone after the build")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -5733,6 +5988,15 @@ def main():
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
               "--dstate-only: phase 13 alone", flush=True)
         return
+    if args.moe_combine_only:
+        phase_combine(peaks)
+        t0 = done("3e MoE combine", t0)
+        phase_jamba(peaks)
+        t0 = done("8b Jamba", t0)
+        phase_granite()
+        print(f"total: {time.perf_counter() - t_start:.1f} s; "
+              "--moe-combine-only: phases 3e, 8b and 8c", flush=True)
+        return
     if args.train_replay_only:
         print(json.dumps({"train_replay": phase_train_replay()}))
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
@@ -5747,6 +6011,8 @@ def main():
     t0 = done("3c 3-D depthwise conv", t0)
     step_rows = phase_step_kernels(peaks)
     t0 = done("3d decode step kernels", t0)
+    combine_rows = phase_combine(peaks)
+    t0 = done("3e MoE combine", t0)
     if args.kernels_only:
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
               "--kernels-only: stopped after phase 3d", flush=True)
@@ -5770,6 +6036,8 @@ def main():
     t0 = done("8 LM serving", t0)
     jamba_launched, jamba_perf = phase_jamba(peaks)
     t0 = done("8b Jamba", t0)
+    granite_launched, granite_perf = phase_granite()
+    t0 = done("8c Granite", t0)
     with work:
         reset_counts()
         remat_perf = phase_remat()
@@ -5802,7 +6070,7 @@ def main():
     paths = {"serve": serve_launched, "train": train_launched,
              "train_cli": cli_launched, "binary_edge": binary_launched,
              "lm": lm_launched, "jamba": jamba_launched,
-             "remat": remat_launched,
+             "granite": granite_launched, "remat": remat_launched,
              "infer_ckpt": infer_launched, "profile": tools_launched,
              "parallel": par_launched, "lm_parallel": lmp_launched,
              "moe_lm": moe_launched, "moe_ep": ep_launched,
@@ -5920,6 +6188,11 @@ def main():
                       "lm": lm_summary,
                       "jamba": {k: v for k, v in jamba_perf.items()
                                 if k != "scan_row"},
+                      "granite": granite_perf,
+                      "moe_combine": {
+                          "rows": combine_rows,
+                          "launches": (jamba_perf["combine_launches"]
+                                       + granite_perf["combine_launches"])},
                       "remat": remat_perf,
                       "infer_ckpt": infer_perf, "tools": tools_perf,
                       "parallel": par_perf, "lm_parallel": lmp_summary,

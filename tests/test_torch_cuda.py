@@ -948,3 +948,114 @@ def test_mamba_step_refuses_what_the_kernels_do_not_take(cuda):
         mk.ssm_step(**dict(ssm, ssm_state=ssm["ssm_state"].transpose(
             1, 2).contiguous().transpose(1, 2)))
     assert mk.LAUNCHES == c0
+
+
+# the prefill MoE's combine (kernels/moe_combine.py): (tokens, experts, k, M,
+# shared) Granite-like (top-10 of 12 with a shared expert) and Jamba-like
+# (top-2 of 16, none) at ragged T, and top-4 and top-6 (the kernel's
+# registers for 2, 4, 8 or 16 choices); M 36 in bf16 is no whole 16-byte
+# vector a row, so it runs the kernel's one-value path
+COMBINE_CASES = [(1, 12, 10, 64, True), (333, 12, 10, 256, True),
+                 (129, 12, 10, 4096, True), (1000, 16, 2, 512, False),
+                 (77, 16, 2, 36, False), (65, 8, 4, 128, True),
+                 (31, 12, 6, 4096, False)]
+
+
+def _combine_inputs(dev, tokens, experts, k, m, shared, dtype, seed=0,
+                    offset=0):
+    """The combine's operands as ``dropless_moe`` makes them (a random top
+    k a token sorted by expert, ``pos`` the inverse of the sort,
+    renormalised gates); ``offset`` elements shift ys off 16-byte
+    alignment."""
+    g = torch.Generator().manual_seed(seed)
+    top, chosen = torch.topk(torch.randn(tokens, experts, generator=g), k)
+    order = torch.argsort(chosen.reshape(-1), stable=True)
+    pos = torch.empty(tokens * k, dtype=torch.int32)
+    pos[order] = torch.arange(tokens * k, dtype=torch.int32)
+    flat = torch.randn(offset + tokens * k * m, generator=g).to(dtype)
+    ys = flat.to(dev)[offset:].view(tokens * k, m)
+    sh = (torch.randn(tokens, m, generator=g).to(dtype).to(dev) if shared
+          else None)
+    return ys, pos.view(tokens, k).to(dev), torch.softmax(top, -1).to(dev), sh
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", COMBINE_CASES)
+def test_moe_combine_kernel_matches_plain_version(cuda, case, dtype, offset):
+    """Exact: the kernel takes the plain version's fp32 operations in its
+    order (each product rounded, then added, j = 0 .. k-1, then the shared
+    row; no fma) and rounds once, so the two are bit-equal.  ``offset`` 1
+    takes the unaligned one-value path."""
+    from vivim_tpu_torch.kernels import moe_combine as mc
+
+    ops = _combine_inputs(cuda, *case, dtype, offset=offset)
+    c0 = mc.LAUNCHES
+    got = mc.moe_combine(*ops)
+    assert mc.LAUNCHES == c0 + 1
+    want = mc.plain_moe_combine(*ops)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_moe_combine_kernel_is_deterministic_and_allocates_only_out(cuda):
+    """No atomics: two calls are bit-equal.  A call allocates its bf16
+    output and nothing of fp32 (T k, M) or (T, M) size."""
+    from vivim_tpu_torch.kernels import moe_combine as mc
+
+    ops = _combine_inputs(cuda, 4096, 72, 10, 1024, True, torch.bfloat16)
+    first = mc.moe_combine(*ops)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    second = mc.moe_combine(*ops)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert torch.equal(first, second)
+    assert second.numel() * 2 <= grown < second.numel() * 2 + (1 << 20)
+
+
+def test_dropless_block_on_the_card_vs_the_cpu(cuda):
+    """The block with stacked top-3-of-8 experts and a shared expert, fp32:
+    one combine launch, within 1e-5 of the CPU (the GEMMs' sums run in
+    another order)."""
+    from vivim_tpu_torch.kernels import moe_combine as mc
+    from vivim_tpu_torch.nn import moe
+
+    g = torch.Generator().manual_seed(3)
+    m, f, e = 64, 48, 8
+    r = lambda *s: torch.randn(*s, generator=g) / s[-1] ** 0.5
+    params = {"router.weight": r(e, m), "input_linear.weight": r(e, 2 * f, m),
+              "output_linear.weight": r(e, m, f),
+              "shared.input_linear.weight": r(2 * f, m),
+              "shared.output_linear.weight": r(m, f)}
+    x = torch.randn(3, 41, m, generator=g)
+    want = moe.dropless_moe(params, x, 3, renormalize=True)
+    c0 = mc.LAUNCHES
+    with torch.no_grad():
+        got = moe.dropless_moe({k: v.to(cuda) for k, v in params.items()},
+                               x.to(cuda), 3, renormalize=True)
+    assert mc.LAUNCHES == c0 + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_moe_combine_refuses_what_the_kernel_does_not_take(cuda):
+    """fp16 rows, a wrong shape, a pos out of range and a tensor that
+    requires grad raise before any launch."""
+    from vivim_tpu_torch.kernels import moe_combine as mc
+
+    ys, pos, gates, sh = _combine_inputs(cuda, 9, 12, 10, 64, True,
+                                         torch.bfloat16)
+    c0 = mc.LAUNCHES
+    with pytest.raises(ValueError, match="float16"):
+        mc.moe_combine(ys.half(), pos, gates, sh.half())
+    with pytest.raises(ValueError, match="rows"):
+        mc.moe_combine(ys[:-1], pos, gates, sh)
+    bad = pos.clone()
+    bad[4, 9] = ys.shape[0]
+    with pytest.raises(ValueError, match="pos in"):
+        mc.moe_combine(ys, bad, gates, sh)
+    with pytest.raises(ValueError, match="backward"):
+        mc.moe_combine(ys, pos, gates.clone().requires_grad_(), sh)
+    assert mc.LAUNCHES == c0

@@ -334,6 +334,26 @@ def test_renormalised_top10_and_shared_expert_match_a_per_token_loop():
                want) < 1e-5
 
 
+def test_generate_combines_once_per_layer_in_the_prefill_only(models,
+                                                               monkeypatch):
+    """Every layer's MoE block combines its routed rows through
+    ``moe_combine`` once in a prefill; the decode steps never call it."""
+    port, _, _ = models
+    calls = []
+    combine = moe.moe_combine
+    monkeypatch.setattr(moe, "moe_combine",
+                        lambda *a: calls.append(a[0].shape) or combine(*a))
+    parts = port.split_params(lm.lm_params(port))
+    x = tokens(2, 7)
+    with torch.no_grad():
+        _, cs, ss = lm.prefill(parts, x[:, :5], max_len=7)
+        assert calls == [(2 * 5 * TINY["num_experts_per_tok"],
+                          TINY["hidden_size"])] * TINY["num_hidden_layers"]
+        for t in (5, 6):
+            lm.decode_step(parts, x[:, t], cs, ss)
+    assert len(calls) == TINY["num_hidden_layers"]
+
+
 def test_generate_reads_the_chosen_experts_of_every_layer(models):
     port, _, _ = models
     read = int(moe.experts_read("cpu"))
@@ -398,8 +418,7 @@ def test_mutations_fail_the_tolerance(models, monkeypatch, mutation):
         elif mutation == "gates_not_renormalised":   # Jamba's rule
             monkeypatch.setattr(moe, "_route_renormalised", moe._route)
         elif mutation == "no_shared_expert":
-            monkeypatch.setattr(moe, "_add_shared",
-                                lambda params, x, out: out)
+            monkeypatch.setattr(moe, "_shared", lambda params, x: None)
         elif mutation == "a_per_channel":
             parts = dataclasses.replace(parts, layers=[
                 dataclasses.replace(layer, mixer=wrong_head_a(layer.mixer))

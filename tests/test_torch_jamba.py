@@ -200,6 +200,25 @@ def test_dropless_block_matches_a_per_token_loop(models):
     assert gap(moe.dropless_moe_step(params, x, 2), want) < 1e-5
 
 
+def test_generate_combines_once_per_moe_layer_in_the_prefill_only(
+        models, monkeypatch):
+    """Each MoE layer (the odd ones) combines through ``moe_combine`` once
+    in a prefill, with no shared expert; the decode steps never call it."""
+    port, _, _ = models
+    calls = []
+    combine = moe.moe_combine
+    monkeypatch.setattr(moe, "moe_combine",
+                        lambda *a: calls.append(a[3]) or combine(*a))
+    parts = port.split_params(lm.lm_params(port))
+    x = tokens(2, 7)
+    with torch.no_grad():
+        _, cs, ss = lm.prefill(parts, x[:, :5], max_len=7)
+        assert len(port.cfg.moe_layers()) == 4 and calls == [None] * 4
+        for t in (5, 6):
+            lm.decode_step(parts, x[:, t], cs, ss)
+    assert len(calls) == 4
+
+
 def test_generate_reads_two_to_four_experts_per_layer_and_step(models):
     port, _, _ = models
     params = lm.lm_params(port)

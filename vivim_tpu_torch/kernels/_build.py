@@ -22,7 +22,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ("selective_scan_fwd", "selective_scan_bwd", "dwconv3d",
-           "mamba_step")
+           "mamba_step", "moe_combine")
 # -split-compile=0: nvcc optimises a source's kernels on every core (each
 # source instantiates its kernels for every d_state family)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vivim_tpu_torch.kernels.moe_combine import moe_combine
 from vivim_tpu_torch.nn import lm as lm_lib
 from vivim_tpu_torch.nn import streaming
 from vivim_tpu_torch.nn.mamba import MambaV3
@@ -114,11 +115,19 @@ def _expert(params, x, e):
     return swiglu(params, x, f"experts.{e}.")
 
 
+def _shared(params, x):
+    """The shared expert's output of x, or None where there is none."""
+    if "shared.input_linear.weight" not in params:
+        return None
+    return glu(x, params["shared.input_linear.weight"],
+               params["shared.output_linear.weight"])
+
+
 def _add_shared(params, x, out):
     """``out`` (fp32) plus the shared expert of x, where there is one."""
-    if "shared.input_linear.weight" in params:
-        out += glu(x, params["shared.input_linear.weight"],
-                   params["shared.output_linear.weight"]).float()
+    shared = _shared(params, x)
+    if shared is not None:
+        out += shared.float()
     return out
 
 
@@ -129,7 +138,8 @@ def dropless_moe(params, x, top_k: int, renormalize: bool = False):
     expert where there is one.  The tokens are sorted by expert and each
     expert runs once on its own (the group sizes are read on the host, so
     this runs eagerly, in the span ``lm.moe``); the gated outputs, and the
-    shared expert's, are summed per token in fp32."""
+    shared expert's, are summed per token in fp32 by ``kernels.moe_combine``
+    (one kernel on the card)."""
     with span("lm.moe"):
         M = x.shape[-1]
         xt = x.reshape(-1, M)
@@ -140,6 +150,10 @@ def dropless_moe(params, x, top_k: int, renormalize: bool = False):
         counts = torch.bincount(flat, minlength=E)
         order = torch.argsort(flat, stable=True)
         rows = order // top_k                   # the token of each choice
+        # the sorted row of each choice: the inverse of the sort
+        pos = torch.empty_like(flat, dtype=torch.int32)
+        pos[order] = torch.arange(flat.numel(), dtype=torch.int32,
+                                  device=x.device)
         xs = xt[rows]
         ys = torch.empty_like(xs)
         start = 0
@@ -147,9 +161,10 @@ def dropless_moe(params, x, top_k: int, renormalize: bool = False):
             if n:
                 ys[start:start + n] = _expert(params, xs[start:start + n], e)
             start += n
-        out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
-        out.index_add_(0, rows, ys.float() * gates.reshape(-1)[order, None])
-        return _add_shared(params, xt, out).to(x.dtype).reshape(x.shape)
+        del xs
+        out = moe_combine(ys, pos.view(experts.shape), gates.contiguous(),
+                          _shared(params, xt))
+        return out.reshape(x.shape)
 
 
 def dropless_moe_step(params, x, top_k: int, renormalize: bool = False):

@@ -302,7 +302,8 @@ Each phase prints its seconds.  Without CUDA the script exits non-zero
 before printing any result.  ``--kernels-only`` stops after phase 3d (a
 quick check of the kernels on the card); ``--jamba-only`` runs phase 8b
 alone after the build, ``--dstate-only`` phase 13, ``--train-replay-only``
-phase 5c, ``--moe-combine-only`` phases 3e, 8b and 8c.
+phase 5c, ``--moe-combine-only`` phases 3e, 8b and 8c, ``--falcon-only``
+phase 8d.
 """
 
 from __future__ import annotations
@@ -485,6 +486,19 @@ GRANITE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "granite-4.0-h-small-10l.json")
 GRANITE_GEN = 16
 GRANITE_REQUESTS = 2
+# phase 8d: Falcon-H1-34B's Mamba-2 layer (batch, heads, head_dim, d_state,
+# groups), bf16, the channels of K1's output held against the plain scan
+# (whole heads inside one group: (batch, L, channels, d_state) fp32 twice),
+# and its configuration file, cut to FALCON_LAYERS layers for the decode
+# graph's check over FALCON_GEN tokens of FALCON_PROMPT-token prompts
+FALCON_MAMBA2 = (8, 32, 128, 256, 2)
+FALCON_HELD = (slice(0, 128), slice(2048, 2176), slice(3968, 4096))
+FALCON_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "perfbench", "configs",
+                             "falcon-h1-34b-18l.json")
+FALCON_LAYERS = 2
+FALCON_PROMPT = 512
+FALCON_GEN = 16
 
 
 def nvidia_smi(query):
@@ -3239,13 +3253,13 @@ def phase_lm(peaks=None, dev="cuda", config=LM_CONFIG, prompt=LM_PROMPT,
     for dtype, p in variants.items():
         parts = lm.split_params(model, p)
         with torch.no_grad():
-            _, cs, ssm = lm.prefill(parts, toks)
+            _, states = lm.prefill(parts, toks)
             tok = toks[:, -1]
 
             def step():
-                lm.decode_step(parts, tok, cs, ssm)
+                lm.decode_step(parts, tok, states)
 
-            replay = lm.decode_graph(model, parts, p, cs, ssm).start(cs, ssm)
+            replay = lm.decode_graph(model, parts, p, states).start(states)
             k0 = step_launches()
             replay(tok)
             k1 = step_launches()
@@ -3487,17 +3501,16 @@ def phase_jamba(peaks):
     # the served positions those of a prefill over the served sequence
     dg = model._decoding_cache
     a = next(i for i in range(JAMBA_LAYERS) if cfg.is_attention(i))
-    cache, pos = dg.states[a], dg.states[dg.n_layer + a]
+    cache, pos = dg.states[a]
     parts = lm.split_params(model, params)
     full = outs[-1][0]
     with torch.no_grad():
-        _, caches, positions = lm.prefill(parts, full,
-                                          max_len=full.shape[1])
-    if int(pos) != full.shape[1] or int(positions[a]) != int(pos):
+        _, states = lm.prefill(parts, full, max_len=full.shape[1])
+    if int(pos) != full.shape[1] or int(states[a][1]) != int(pos):
         raise AssertionError(f"Jamba's K/V position {int(pos)} after "
                              f"{JAMBA_GEN} steps from {JAMBA_PROMPT}")
     got_kv = cache[:, :, :, JAMBA_PROMPT:].float()
-    want_kv = caches[a][:, :, :, JAMBA_PROMPT:].float()
+    want_kv = states[a][0][:, :, :, JAMBA_PROMPT:].float()
     rel = (got_kv - want_kv).norm(dim=-1) / want_kv.norm(dim=-1)
     kv_median, kv_max = rel.median().item(), rel.max().item()
     if not kv_median <= 0.05:
@@ -3509,7 +3522,7 @@ def phase_jamba(peaks):
           f"within {kv_median:.3e} (median) and {kv_max:.3e} (max) relative "
           f"of a prefill over the served sequence (median bound 0.05)",
           flush=True)
-    del outs, toks, scores, e_toks, e_scores, caches, positions, full
+    del outs, toks, scores, e_toks, e_scores, states, full
     del got_kv, want_kv
     # (e) prefill and decode ms
     with torch.no_grad():
@@ -3666,6 +3679,137 @@ def remat_run(level, batches, dev, segformer="b3", check=None):
             if not math.isfinite(float(m[k])):
                 raise AssertionError(f"remat {level} {k} {float(m[k])}")
     return [(ms, n, (None, m)) for ms, n, (_, m) in log], peak
+
+
+def phase_falcon():
+    """Phase 8d: Falcon-H1's shapes on the card, correctness only.  K1 at
+    its prefill (8, 4096, 4096 channels, N 256, 2 groups) bf16 without z,
+    as ``mamba2_prefill`` passes it, its output and last state held against
+    the plain scan on the channels ``FALCON_HELD``; ``conv_step`` and the
+    per-head ``ssm_step`` at (8, 4096, N 256, heads of 128, 2 groups) bf16
+    against their plain versions over 4 steps; and the decode graph of
+    ``load_falcon_h1`` (the benchmark's configuration cut to
+    ``FALCON_LAYERS`` parallel layers, bf16, seeded) against the eager loop
+    of ``decode_step`` on the prefill's states, teacher-forced on the same
+    tokens."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+    from vivim_tpu_torch.kernels import refs
+    from vivim_tpu_torch.kernels import selective_scan as ss
+    from vivim_tpu_torch.nn import falcon_h1, lm
+    from vivim_tpu_torch.utils import cuda_graphs
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    batch, heads, head_dim, n, groups = FALCON_MAMBA2
+    d = heads * head_dim
+    rtol, atol = TOL[torch.bfloat16]
+    # (a) K1 at the prefill, grouped B and C as the mixer passes them
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    rand = lambda *sh: torch.rand(*sh, generator=gen, device="cuda")
+    xbc = rnd(batch, GRANITE_PROMPT, d + 2 * groups * n).to(torch.bfloat16)
+    dt = (0.5 * rnd(batch, GRANITE_PROMPT, heads)).to(torch.bfloat16)
+    per_channel = lambda t: t.float().repeat_interleave(head_dim)
+    A = -per_channel(1 + 15 * rand(heads))[:, None].expand(-1, n).contiguous()
+    step = torch.exp(math.log(1e-3) + math.log(100) * rand(heads))
+    bias = per_channel(step + torch.log(-torch.expm1(-step)))
+    D = per_channel(1 + 0.1 * rnd(heads))
+    u, delta = xbc[..., :d], dt.repeat_interleave(head_dim, -1)
+    B = xbc[..., d:d + groups * n].unflatten(-1, (groups, n))
+    C = xbc[..., d + groups * n:].unflatten(-1, (groups, n))
+    y, last = ss.selective_scan(u, delta, A, B, C, D=D, delta_bias=bias,
+                                delta_softplus=True, return_last_state=True)
+    torch.cuda.synchronize()
+    scan_err = 0.0
+    for c in FALCON_HELD:
+        g = c.start // (d // groups)
+        want = refs.selective_scan_ref(u[..., c], delta[..., c], A[c],
+                                       B[:, :, g], C[:, :, g], D=D[c],
+                                       delta_bias=bias[c],
+                                       delta_softplus=True,
+                                       return_last_state=True)
+        for what, got, w in zip(("y", "last"), (y[..., c], last[:, c]),
+                                want):
+            torch.testing.assert_close(
+                got.float(), w.float(), rtol=rtol, atol=atol,
+                msg=f"K1 Falcon prefill channels {c.start}:{c.stop} {what}")
+            scan_err = max(scan_err,
+                           (got.float() - w.float()).abs().max().item())
+        del want
+    del xbc, dt, u, delta, B, C, y, last
+    print(f"falcon: K1 at ({batch}, {GRANITE_PROMPT}, {d}, N {n}), "
+          f"{groups} groups, heads of {head_dim}, bf16, no z: y, last "
+          f"max_abs_err={scan_err:.3e} on "
+          f"{sum(c.stop - c.start for c in FALCON_HELD)} channels of both "
+          f"groups (rtol {rtol}, atol {atol})", flush=True)
+    # (b) the decode step's kernels at the mixer's shape
+    conv, ssm = mamba2_step_inputs(batch, heads, head_dim, n, groups,
+                                   torch.bfloat16, gen)
+    plain_conv = dict(conv, conv_state=conv["conv_state"].clone())
+    plain_ssm = dict(ssm, ssm_state=ssm["ssm_state"].clone())
+    step_err = {"conv_step": 0.0, "ssm_step": 0.0}
+    for _ in range(4):
+        got = mk.conv_step(**conv), mk.ssm_step(**ssm)
+        want = (mk.plain_conv_step(**plain_conv),
+                mk.plain_ssm_step(**plain_ssm))
+        torch.cuda.synchronize()
+        for which, g, w in zip(step_err, got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                       atol=atol, msg=f"{which} Falcon")
+            step_err[which] = max(step_err[which],
+                                  (g.float() - w.float()).abs().max().item())
+        torch.testing.assert_close(ssm["ssm_state"], plain_ssm["ssm_state"],
+                                   rtol=6e-4, atol=2e-3,
+                                   msg="ssm_step Falcon state")
+    print(f"falcon: conv_step ({batch}, {d + 2 * groups * n}) and ssm_step "
+          f"({batch}, {d}, N {n}, heads of {head_dim}, {groups} groups) "
+          f"bf16 over 4 steps: max_abs_err {step_err['conv_step']:.3e} / "
+          f"{step_err['ssm_step']:.3e}; the fp32 states within 6e-4 / 2e-3",
+          flush=True)
+    del conv, ssm, plain_conv, plain_ssm
+    # (c) the parallel layers' decode graph against the eager loop
+    with open(FALCON_CONFIG) as f:
+        config = dict(json.load(f), num_hidden_layers=FALCON_LAYERS)
+    with tempfile.TemporaryDirectory() as snap:
+        with open(os.path.join(snap, "config.json"), "w") as f:
+            json.dump(config, f)
+        model, params = falcon_h1.load_falcon_h1(snap, "cuda",
+                                                 torch.bfloat16, seed=0)
+    vocab = model.cfg.vocab_size
+    prompt = torch.randint(0, vocab, (batch, FALCON_PROMPT), generator=gen,
+                           device="cuda")
+    teacher = torch.randint(0, vocab, (batch, FALCON_GEN), generator=gen,
+                            device="cuda")
+    parts = lm.split_params(model, params)
+    with torch.no_grad():
+        _, states = lm.prefill(parts, prompt,
+                               max_len=FALCON_PROMPT + FALCON_GEN)
+        eager = [tuple(t.clone() for t in s) for s in states]
+        replay = lm.decode_graph(model, parts, params, states).start(states)
+        r0, k0 = cuda_graphs.REPLAYS, mk.LAUNCHES
+        err = scale = 0.0
+        for t in range(FALCON_GEN):
+            got = replay(teacher[:, t]).float()
+            want, eager = lm.decode_step(parts, teacher[:, t], eager)
+            err = max(err, (got - want.float()).abs().max().item())
+            scale = max(scale, want.float().abs().max().item())
+        replays, launched = cuda_graphs.REPLAYS - r0, mk.LAUNCHES - k0
+    positions = [int(s[3]) for s in model._decoding_cache.states]
+    if not err <= 1e-2 or positions != [FALCON_PROMPT + FALCON_GEN] * \
+            FALCON_LAYERS or replays != FALCON_GEN or launched != \
+            2 * 2 * FALCON_LAYERS * FALCON_GEN:
+        raise AssertionError(
+            f"Falcon's decode graph: logits {err:.3e} from the eager "
+            f"loop's, positions {positions}, {replays} replays, {launched} "
+            "step kernels")
+    print(f"falcon: {FALCON_LAYERS} parallel layers at published widths, "
+          f"({batch}, {FALCON_PROMPT}) prompts: {FALCON_GEN} replayed steps "
+          f"within {err:.3e} of the eager loop's logits (atol 1e-2; |logits| "
+          f"max {scale:.2f}), positions {positions}, {launched} step kernel "
+          f"launches (2 a mixer a step, replayed and eager); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del model, params, parts, states, eager
+    torch.cuda.empty_cache()
+    return dict(scan_err=scan_err, step_err=step_err, decode_err=err)
 
 
 def phase_remat(dev="cuda", segformer="b3", size=256, clip_len=5,
@@ -5691,13 +5835,13 @@ def phase_dstate_lm(d_state, dev="cuda", config=LM_CONFIG, batch=LMP_BATCH,
             next_token_loss(model(toks), toks).backward()
 
         with torch.no_grad():
-            _, cs, ssm = lm.prefill(parts, toks)
+            _, states = lm.prefill(parts, toks)
             tok = toks[:, -1]
             reset_counts()
             summary["prefill_ms"] = cuda_ms(lambda: lm.prefill(parts, toks),
                                             5)
             summary["decode_ms_per_token"] = cuda_ms(
-                lambda: [lm.decode_step(parts, tok, cs, ssm)
+                lambda: [lm.decode_step(parts, tok, states)
                          for _ in range(LM_DECODE_STEPS)], 3) / LM_DECODE_STEPS
         summary["step_ms"] = cuda_ms(step, 3)
         add(counts())
@@ -5949,6 +6093,9 @@ def main():
     parser.add_argument("--moe-combine-only", action="store_true",
                         help="run phases 3e, 8b and 8c (the prefill MoE's "
                              "combine) alone after the build")
+    parser.add_argument("--falcon-only", action="store_true",
+                        help="run phase 8d (Falcon-H1's shapes) alone after "
+                             "the build")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -5997,6 +6144,11 @@ def main():
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
               "--moe-combine-only: phases 3e, 8b and 8c", flush=True)
         return
+    if args.falcon_only:
+        phase_falcon()
+        print(f"total: {time.perf_counter() - t_start:.1f} s; "
+              "--falcon-only: phase 8d alone", flush=True)
+        return
     if args.train_replay_only:
         print(json.dumps({"train_replay": phase_train_replay()}))
         print(f"total: {time.perf_counter() - t_start:.1f} s; "
@@ -6038,6 +6190,8 @@ def main():
     t0 = done("8b Jamba", t0)
     granite_launched, granite_perf = phase_granite()
     t0 = done("8c Granite", t0)
+    phase_falcon()
+    t0 = done("8d Falcon-H1", t0)
     with work:
         reset_counts()
         remat_perf = phase_remat()

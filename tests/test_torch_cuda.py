@@ -921,14 +921,14 @@ def test_lm_decode_graph_steps_through_the_kernels(cuda):
     parts = lm.split_params(model, params)
     prompt = torch.ones(2, 5, dtype=torch.long, device=cuda)
     with torch.no_grad():
-        _, cs, ss = lm.prefill(parts, prompt)
-        step = lm.decode_graph(model, parts, params, cs, ss).start(cs, ss)
+        _, states = lm.prefill(parts, prompt)
+        step = lm.decode_graph(model, parts, params, states).start(states)
         for t in range(4):
             tok = torch.full((2,), t + 3, dtype=torch.long, device=cuda)
             c0 = mk.LAUNCHES
             got = step(tok)
             assert mk.LAUNCHES - c0 == 2 * 2
-            want, cs, ss = lm.decode_step(parts, tok, cs, ss)
+            want, states = lm.decode_step(parts, tok, states)
             torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     torch.cuda.synchronize()
 
@@ -1059,3 +1059,94 @@ def test_moe_combine_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="backward"):
         mc.moe_combine(ys, pos, gates.clone().requires_grad_(), sh)
     assert mc.LAUNCHES == c0
+
+
+# Falcon-H1's parallel layer (nn/falcon_h1.py): a tiny config of the
+# published keys, fp32 on the card, seeded by load_falcon_h1's own init
+FALCON_TINY = {
+    "attention_in_multiplier": 0.8, "attention_out_multiplier": 0.5,
+    "embedding_multiplier": 2.5, "head_dim": 8, "hidden_size": 32,
+    "intermediate_size": 48, "key_multiplier": 0.4,
+    "lm_head_multiplier": 0.25, "mamba_d_conv": 4, "mamba_d_head": 8,
+    "mamba_d_ssm": 64, "mamba_d_state": 16, "mamba_n_groups": 2,
+    "mamba_n_heads": 8, "mamba_norm_before_gate": False,
+    "mamba_rms_norm": True, "mlp_multipliers": [0.6, 0.7],
+    "model_type": "falcon_h1", "num_attention_heads": 4,
+    "num_hidden_layers": 2, "num_key_value_heads": 2, "rms_norm_eps": 1e-5,
+    "rope_theta": 100, "ssm_in_multiplier": 0.5,
+    "ssm_multipliers": [0.9, 0.8, 0.7, 1.3, 0.6], "ssm_out_multiplier": 0.3,
+    "vocab_size": 64, "initializer_range": 0.2}
+
+
+def _falcon(tmp_path, n_layer=2):
+    import json
+
+    from vivim_tpu_torch.nn import falcon_h1
+
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(dict(FALCON_TINY, num_hidden_layers=n_layer), f)
+    return falcon_h1.load_falcon_h1(str(tmp_path), "cuda", seed=1)
+
+
+def test_parallel_decode_graph_replays_equal_eager_decode(cuda, tmp_path):
+    """The replayed step of the parallel layers (each layer's conv window,
+    ssm state, K/V cache and position stepped in place) against the eager
+    ``decode_step`` on the prefill's own states, 6 tokens: the same
+    kernels in the same order, so fp32 agrees to 1e-5."""
+    from vivim_tpu_torch.nn import lm
+
+    model, params = _falcon(tmp_path)
+    parts = lm.split_params(model, params)
+    prompt = torch.arange(10, device=cuda).reshape(2, 5) % 64
+    with torch.no_grad():
+        _, states = lm.prefill(parts, prompt, max_len=11)
+        step = lm.decode_graph(model, parts, params, states).start(states)
+        for t in range(6):
+            tok = torch.full((2,), t + 3, dtype=torch.long, device=cuda)
+            got = step(tok)
+            want, states = lm.decode_step(parts, tok, states)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    dg = model._decoding_cache
+    for g, w in zip(dg.states, states):
+        for a, b in zip(g, w):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_rope_position_advances_inside_replays(cuda, tmp_path):
+    """After k replays each layer's position is the prompt's length plus k,
+    and the keys the replays wrote (rotated at their device-side
+    positions) equal a prefill's over the served sequence to 1e-4 (fp32,
+    the prefill's batched products against the step's)."""
+    from vivim_tpu_torch.nn import lm
+
+    model, params = _falcon(tmp_path)
+    parts = lm.split_params(model, params)
+    prompt = torch.arange(10, device=cuda).reshape(2, 5) % 64
+    with torch.no_grad():
+        out = lm.generate(model, params, prompt, 6, top_k=1)
+        _, states = lm.prefill(parts, out, max_len=11)
+    for (_, _, cache, pos), (_, _, want, want_pos) in zip(
+            model._decoding_cache.states, states):
+        assert int(pos) == int(want_pos) == 11
+        torch.testing.assert_close(cache[:, :, :, 5:], want[:, :, :, 5:],
+                                   rtol=0, atol=1e-4)
+
+
+def test_falcon_decode_replay_launches_two_step_kernels_a_layer(cuda,
+                                                               tmp_path):
+    """18 parallel layers, as the benchmark's cut: 36 ``mamba_step``
+    launches a replay (conv_step and ssm_step a Mamba-2 mixer)."""
+    from vivim_tpu_torch.kernels import mamba_step as mk
+    from vivim_tpu_torch.nn import lm
+
+    model, params = _falcon(tmp_path, n_layer=18)
+    parts = lm.split_params(model, params)
+    prompt = torch.ones(2, 5, dtype=torch.long, device=cuda)
+    with torch.no_grad():
+        _, states = lm.prefill(parts, prompt, max_len=8)
+        step = lm.decode_graph(model, parts, params, states).start(states)
+        for t in range(3):
+            c0 = mk.LAUNCHES
+            step(torch.full((2,), t, dtype=torch.long, device=cuda))
+            assert mk.LAUNCHES - c0 == 36
+    torch.cuda.synchronize()

@@ -219,17 +219,20 @@ def test_prefill_then_decode_steps_match_full_forward(groups):
     x = tokens(2, 10, seed=5)
     parts = port.split_params(lm.lm_params(port))
     with torch.no_grad():
-        logits, cs, ss = lm.prefill(parts, x[:, :6], max_len=10)
+        logits, states = lm.prefill(parts, x[:, :6], max_len=10)
         got = [logits]
         for t in range(6, 9):
-            logits, cs2, ss2 = lm.decode_step(parts, x[:, t], cs, ss)
-            assert all(a is b for a, b in zip(cs + ss, cs2 + ss2))
+            logits, states2 = lm.decode_step(parts, x[:, t], states)
+            assert all(a is b for s, s2 in zip(states, states2)
+                       for a, b in zip(s, s2))
             got.append(logits)
         want = reference(x[:, :9])[:, 5:]
     assert gap(torch.stack(got, 1), want) < ATOL
-    assert cs[0].shape == (2, 4, 64 + 2 * groups * 16)
-    assert ss[0].shape == (2, 64, 16) and ss[0].dtype == torch.float32
-    assert cs[2].shape == (2, 2, 2, 10, 8) and int(ss[2]) == 9
+    window, ssm = states[0]
+    assert window.shape == (2, 4, 64 + 2 * groups * 16)
+    assert ssm.shape == (2, 64, 16) and ssm.dtype == torch.float32
+    cache, pos = states[2]
+    assert cache.shape == (2, 2, 2, 10, 8) and int(pos) == 9
 
 
 @pytest.mark.parametrize("groups", [1, 2])
@@ -346,11 +349,11 @@ def test_generate_combines_once_per_layer_in_the_prefill_only(models,
     parts = port.split_params(lm.lm_params(port))
     x = tokens(2, 7)
     with torch.no_grad():
-        _, cs, ss = lm.prefill(parts, x[:, :5], max_len=7)
+        _, states = lm.prefill(parts, x[:, :5], max_len=7)
         assert calls == [(2 * 5 * TINY["num_experts_per_tok"],
                           TINY["hidden_size"])] * TINY["num_hidden_layers"]
         for t in (5, 6):
-            lm.decode_step(parts, x[:, t], cs, ss)
+            lm.decode_step(parts, x[:, t], states)
     assert len(calls) == TINY["num_hidden_layers"]
 
 
@@ -373,10 +376,10 @@ def test_ssm_span_opens_once_per_mamba_layer_in_prefill_only(models,
     parts = port.split_params(lm.lm_params(port))
     x = tokens(2, 7)
     with torch.no_grad():
-        _, cs, ss = lm.prefill(parts, x, max_len=10)
+        _, states = lm.prefill(parts, x, max_len=10)
         assert opened == ["lm.ssm"] * 3
-        graph = lm.decode_graph(port, parts, lm.lm_params(port), cs, ss)
-        step = graph.start(cs, ss)
+        graph = lm.decode_graph(port, parts, lm.lm_params(port), states)
+        step = graph.start(states)
         for t in range(3):
             step(x[:, t])
     assert opened == ["lm.ssm"] * 3
@@ -439,8 +442,8 @@ def test_a_per_channel_mutation_also_fails_in_decode(models):
         dataclasses.replace(layer, mixer=wrong_head_a(layer.mixer))
         if layer.kind == "mamba2" else layer for layer in parts.layers])
     with torch.no_grad():
-        _, cs, ss = lm.prefill(parts, x[:, :2], max_len=11)
-        got = [lm.decode_step(bad, x[:, t], cs, ss)[0] for t in range(2, 10)]
+        _, states = lm.prefill(parts, x[:, :2], max_len=11)
+        got = [lm.decode_step(bad, x[:, t], states)[0] for t in range(2, 10)]
         want = reference(x[:, :10])[:, 2:]
         assert gap(torch.stack(got, 1), want) > ATOL
 

@@ -157,20 +157,20 @@ def test_decode_graph_steps_equal_plain_decode_steps(kind):
     rng = np.random.default_rng(1)
     prompt = torch.from_numpy(rng.integers(0, 50, (2, 5)))
     with torch.no_grad():
-        _, cs, ssm = tlm.prefill(parts, prompt)
-        before = [s.clone() for s in cs + ssm]
-        step = tlm.decode_graph(model, parts, params, cs, ssm).start(cs, ssm)
-        want_cs, want_ss = [s.clone() for s in cs], [s.clone() for s in ssm]
+        _, states = tlm.prefill(parts, prompt)
+        flat = [t for s in states for t in s]
+        before = [t.clone() for t in flat]
+        step = tlm.decode_graph(model, parts, params, states).start(states)
+        want_states = [tuple(t.clone() for t in s) for s in states]
         for t in rng.integers(0, 50, (8, 2)):
             tok = torch.from_numpy(t)
             got = step(tok).clone()
-            want, want_cs, want_ss = tlm.decode_step(parts, tok, want_cs,
-                                                     want_ss)
+            want, want_states = tlm.decode_step(parts, tok, want_states)
             assert torch.equal(got, want)
     dg = model._decoding_cache
-    for g, w in zip(dg.states, want_cs + want_ss):
-        assert torch.equal(g, w)
-    for b, s in zip(before, cs + ssm):
+    for g, w in zip(dg.states, want_states):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+    for b, s in zip(before, flat):
         assert torch.equal(b, s)
 
 
@@ -397,15 +397,14 @@ def test_captured_decode_matches_eager_on_the_card(cuda, kind):
     prompt = torch.ones(2, 5, dtype=torch.long, device=cuda)
     atol = 1e-5 if kind == "float32" else 5e-2
     with torch.no_grad():
-        _, cs, ssm = tlm.prefill(parts, prompt)
+        _, states = tlm.prefill(parts, prompt)
         r0 = cuda_graphs.REPLAYS
-        step = tlm.decode_graph(model, parts, params, cs, ssm).start(cs, ssm)
-        want_cs, want_ss = cs, ssm
+        step = tlm.decode_graph(model, parts, params, states).start(states)
+        want_states = states
         for t in range(8):
             tok = torch.full((2,), t + 3, dtype=torch.long, device=cuda)
             got = step(tok)
-            want, want_cs, want_ss = tlm.decode_step(parts, tok, want_cs,
-                                                     want_ss)
+            want, want_states = tlm.decode_step(parts, tok, want_states)
             torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                        atol=atol)
         assert cuda_graphs.REPLAYS - r0 == 8

@@ -165,14 +165,15 @@ def test_prefill_then_decode_steps_match_full_forward(models):
     x = tokens(2, 10, seed=5)
     parts = port.split_params(lm.lm_params(port))
     with torch.no_grad():
-        logits, cs, ss = lm.prefill(parts, x[:, :6], max_len=10)
+        logits, states = lm.prefill(parts, x[:, :6], max_len=10)
         got = [logits]
         for t in range(6, 9):
-            logits, cs, ss = lm.decode_step(parts, x[:, t], cs, ss)
+            logits, states = lm.decode_step(parts, x[:, t], states)
             got.append(logits)
         want = reference(x[:, :9])[:, 5:]
     assert gap(torch.stack(got, 1), want) < ATOL
-    assert cs[4].shape == (2, 2, 2, 10, 8) and int(ss[4]) == 9
+    cache, pos = states[4]
+    assert cache.shape == (2, 2, 2, 10, 8) and int(pos) == 9
 
 
 def per_token_moe(params, x, top_k):
@@ -212,10 +213,10 @@ def test_generate_combines_once_per_moe_layer_in_the_prefill_only(
     parts = port.split_params(lm.lm_params(port))
     x = tokens(2, 7)
     with torch.no_grad():
-        _, cs, ss = lm.prefill(parts, x[:, :5], max_len=7)
+        _, states = lm.prefill(parts, x[:, :5], max_len=7)
         assert len(port.cfg.moe_layers()) == 4 and calls == [None] * 4
         for t in (5, 6):
-            lm.decode_step(parts, x[:, t], cs, ss)
+            lm.decode_step(parts, x[:, t], states)
     assert len(calls) == 4
 
 

@@ -298,27 +298,29 @@ def test_decode_graph_step_copies_no_state(monkeypatch):
     seen = []
     real = tlm.decode_step
 
-    def recording(parts, token, cs, ss, mixer_step=None):
-        out = real(parts, token, cs, ss, mixer_step)
-        seen.append((cs, ss, out[1], out[2]))
+    def recording(parts, token, states, mixer_step=None):
+        out = real(parts, token, states, mixer_step)
+        seen.append((states, out[1]))
         return out
     monkeypatch.setattr(tlm, "decode_step", recording)
+    flat = lambda records: [t for r in records for t in r]
     with torch.no_grad():
-        _, cs, ss = tlm.prefill(parts, prompt)
-        dg = tlm.decode_graph(model, parts, params, cs, ss)
-        step = dg.start(cs, ss)
-        before = [s.clone() for s in dg.states]
+        _, states = tlm.prefill(parts, prompt)
+        dg = tlm.decode_graph(model, parts, params, states)
+        step = dg.start(states)
+        before = [s.clone() for s in flat(dg.states)]
         with mode:
             step(torch.tensor([3, 4]))
-    states = {s.data_ptr() for s in dg.states}
-    into_states = [(p, k) for p, k in mode.copies if p in states]
+    graph_states = flat(dg.states)
+    ptrs = {s.data_ptr() for s in graph_states}
+    into_states = [(p, k) for p, k in mode.copies if p in ptrs]
     assert into_states and all(k for _, k in into_states)
     assert len(into_states) == 2 * cfg.n_layer
-    in_cs, in_ss, out_cs, out_ss = seen[-1]
-    assert all(a is b for a, b in zip(out_cs + out_ss, dg.states))
-    assert all(a is b for a, b in zip(in_cs + in_ss, dg.states))
+    given, returned = seen[-1]
+    assert all(a is b for a, b in zip(flat(returned), graph_states))
+    assert all(a is b for a, b in zip(flat(given), graph_states))
     assert all(s.isfinite().all() and not torch.equal(a, s)
-               for a, s in zip(before, dg.states))
+               for a, s in zip(before, graph_states))
 
 
 def _ok_ssm(rng):

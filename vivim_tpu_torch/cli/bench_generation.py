@@ -29,9 +29,12 @@ the same ``generate``, on one device, in fp32 or bf16:
       --n_layer 8 --dtype bfloat16 --batch 8 --promptlen 4096 --genlen 128
 
 A ``"model_type": "granitemoehybrid"`` directory runs Granite 4.0-H
-(``nn/granite.py::load_granite``) the same way:
+(``nn/granite.py::load_granite``) the same way, and a ``"falcon_h1"`` one
+Falcon-H1 (``nn/falcon_h1.py::load_falcon_h1``):
   python -m vivim_tpu_torch.cli.bench_generation --hf_dir /path/granite \
       --n_layer 10 --dtype bfloat16 --batch 8 --promptlen 4096 --genlen 128
+  python -m vivim_tpu_torch.cli.bench_generation --hf_dir /path/falcon-h1 \
+      --n_layer 18 --dtype bfloat16 --batch 8 --promptlen 4096 --genlen 128
 """
 
 from __future__ import annotations
@@ -50,8 +53,8 @@ def main(argv=None):
     p.add_argument("--d_model", type=int, default=768)
     p.add_argument("--n_layer", type=int, default=None,
                    help="layers of a seeded Mamba LM (24 when not given), "
-                        "or the first layers of a Jamba or Granite "
-                        "--hf_dir")
+                        "or the first layers of a Jamba, Granite or "
+                        "Falcon-H1 --hf_dir")
     p.add_argument("--hf_dir", type=str, default=None,
                    help="local HF mamba snapshot dir (config.json + "
                         "pytorch_model.bin); overrides the dim flags")
@@ -104,20 +107,22 @@ def main(argv=None):
     from vivim_tpu_torch.nn.lm import generate
 
     hybrid = args.hf_dir is not None and _model_type(args.hf_dir) in (
-        "jamba", "granitemoehybrid")
+        "jamba", "granitemoehybrid", "falcon_h1")
     if hybrid and (args.tp_shards > 1 or args.dtype == "int8"
                    or args.ckpt):
-        raise SystemExit("a Jamba or Granite --hf_dir runs on one device "
-                         "in float32 or bfloat16, from the directory's own "
-                         "weights")
+        raise SystemExit("a Jamba, Granite or Falcon-H1 --hf_dir runs on one "
+                         "device in float32 or bfloat16, from the "
+                         "directory's own weights")
     device, mesh = init_model_parallel(
         args.tp_shards, "model", "--tp_shards", args.device,
         args.dist_backend, "bench_generation")
     if hybrid:
-        from vivim_tpu_torch.nn import granite, jamba
+        from vivim_tpu_torch.nn import falcon_h1, granite, jamba
 
-        load = (jamba.load_jamba if _model_type(args.hf_dir) == "jamba"
-                else granite.load_granite)
+        load = {"jamba": jamba.load_jamba,
+                "granitemoehybrid": granite.load_granite,
+                "falcon_h1": falcon_h1.load_falcon_h1}[
+            _model_type(args.hf_dir)]
         cut = {} if args.n_layer is None else {
             "num_hidden_layers": args.n_layer}
         model, params = load(

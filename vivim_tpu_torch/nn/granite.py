@@ -236,6 +236,36 @@ class DecoderLayer(nn.Module):
         self.shared_mlp = SharedMLP(cfg)
 
 
+@torch.no_grad()
+def init_modules(model, std, gen):
+    """Linear, expert and embedding weights ~ N(0, std), biases 0, norms 1;
+    the depthwise conv U(+-width^-0.5) (PyTorch's default, as mamba_ssm
+    keeps it); each Mamba-2 mixer (a ``MambaMixer``) as mamba_ssm's
+    ``Mamba2`` initialises it: A = U[1, 16] (``A_log`` its log), dt
+    log-uniform in [1e-3, 0.1] (floored at 1e-4) through the inverse
+    softplus into ``dt_bias``, ``D`` = 1."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding, ParallelExperts)):
+            nn.init.normal_(m.weight, std=std, generator=gen)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Conv1d):
+            bound = m.weight.shape[-1] ** -0.5
+            nn.init.uniform_(m.weight, -bound, bound, generator=gen)
+            if m.bias is not None:
+                nn.init.uniform_(m.bias, -bound, bound, generator=gen)
+        elif isinstance(m, RMSNorm):
+            m.weight.fill_(1.0)
+        elif isinstance(m, MambaMixer):
+            h = m.A_log.shape[0]
+            u = lambda: torch.rand(h, generator=gen, device=m.A_log.device)
+            m.A_log.copy_(torch.log(1 + 15 * u()))
+            lo, hi = math.log(1e-3), math.log(0.1)
+            dt = torch.exp(lo + (hi - lo) * u()).clamp(min=1e-4)
+            m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+            m.D.fill_(1.0)
+
+
 class GraniteHybridLM(nn.Module):
     """tokens (B, L) -> logits (B, L, vocab) in fp32."""
 
@@ -255,36 +285,9 @@ class GraniteHybridLM(nn.Module):
         # generate's DecodeGraph
         self._decoding_cache = None
 
-    @torch.no_grad()
     def init_parameters(self, gen):
-        """Linear, expert and embedding weights ~ N(0, initializer_range),
-        biases 0, norms 1; the depthwise conv U(+-width^-0.5) (PyTorch's
-        default, as mamba_ssm keeps it); each Mamba-2 layer as mamba_ssm's
-        ``Mamba2`` initialises it: A = U[1, 16] (``A_log`` its log), dt
-        log-uniform in [1e-3, 0.1] (floored at 1e-4) through the inverse
-        softplus into ``dt_bias``, ``D`` = 1."""
-        std = self.cfg.initializer_range
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding, ParallelExperts)):
-                nn.init.normal_(m.weight, std=std, generator=gen)
-                if getattr(m, "bias", None) is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.Conv1d):
-                bound = m.weight.shape[-1] ** -0.5
-                nn.init.uniform_(m.weight, -bound, bound, generator=gen)
-                if m.bias is not None:
-                    nn.init.uniform_(m.bias, -bound, bound, generator=gen)
-            elif isinstance(m, RMSNorm):
-                m.weight.fill_(1.0)
-            elif isinstance(m, MambaMixer):
-                h = m.A_log.shape[0]
-                u = lambda: torch.rand(h, generator=gen,
-                                       device=m.A_log.device)
-                m.A_log.copy_(torch.log(1 + 15 * u()))
-                lo, hi = math.log(1e-3), math.log(0.1)
-                dt = torch.exp(lo + (hi - lo) * u()).clamp(min=1e-4)
-                m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
-                m.D.fill_(1.0)
+        """``init_modules`` at ``initializer_range``."""
+        init_modules(self, self.cfg.initializer_range, gen)
 
     def split_params(self, params) -> lm_lib.LMParts:
         """A flat dict under this model's names as ``lm.LMParts``: what

@@ -25,19 +25,24 @@ MambaLMHeadModel (mixer_seq_simple.py:83-233) and its generation loop
   instead).  The model keeps one, keyed on the batch, the compute dtype
   and the parameters' tensors; on the CPU the same buffers run eagerly.
 
-The same functions serve a hybrid LM (``nn/jamba.py``, ``nn/granite.py``):
-its model splits its own dict into ``Layer``s (``split_params``), each a
-Mamba mixer, a Mamba-2 mixer (``streaming.Mamba2``) or a grouped-query
-attention layer (``nn/attention.py``) after its pre-norm, then optionally a
+The same functions serve a hybrid LM (``nn/jamba.py``, ``nn/granite.py``,
+``nn/falcon_h1.py``): its model splits its own dict into ``Layer``s
+(``split_params``), each a Mamba mixer, a Mamba-2 mixer
+(``streaming.Mamba2``), a grouped-query attention layer
+(``nn/attention.py``) or both of the last two side by side on one input
+(``Parallel``, Falcon-H1's) after its pre-norm, then optionally a
 feed-forward after its own pre-norm (a SwiGLU MLP or the dropless MoE block
-of ``nn/moe.py``).  A Mamba layer carries its (conv state, ssm state) and
-an attention layer its (K/V cache, position) in the same two lists, so
-prefill, decode and the decode graph hold both kinds of state side by side.
-``LMParts`` carries the µP scalars of such a model (Granite's: the
-embeddings times ``embedding_multiplier``, each mixer's and feed-forward's
-output times ``residual_multiplier`` before its residual add, the logits
-over ``logits_scaling``) and the attention's softmax scale; at their
-defaults (1, 1, 1, None: 1/sqrt(head_dim)) nothing is multiplied.
+of ``nn/moe.py``).  Each layer carries one record of decode state, a tuple
+in one list: a Mamba layer its (conv state, ssm state), an attention layer
+its (K/V cache, position), a parallel layer its (conv state, ssm state, K/V
+cache, position); prefill, decode and the decode graph hold every kind side
+by side.  ``LMParts`` carries the µP scalars of such a model (Granite's:
+the embeddings times ``embedding_multiplier``, each mixer's and
+feed-forward's output times ``residual_multiplier`` before its residual
+add, the logits over ``logits_scaling``; Falcon-H1's: the logits times
+``lm_head_multiplier``), the attention's softmax scale and its rotary
+positions (``rope``, Falcon-H1's); at their defaults (1, 1, 1, 1, None:
+1/sqrt(head_dim), None: no positions) nothing is multiplied or rotated.
 
 The token loop runs every one of ``max_new_tokens`` steps whatever eos
 says, and keeps ``done`` on the device: nothing in a step waits for the
@@ -235,13 +240,27 @@ def sub_params(params, prefix):
 
 
 @dataclasses.dataclass
+class Parallel:
+    """A Mamba-2 mixer and grouped-query attention on one normed input x
+    (transformers' ``FalconH1DecoderLayer``): ``ssm(x) * ssm_out +
+    attn(x * attn_in) * attn_out``, each product in the activations'
+    dtype."""
+
+    attn: dict
+    ssm: streaming.Mamba2
+    attn_in: float
+    attn_out: float
+    ssm_out: float
+
+
+@dataclasses.dataclass
 class Layer:
     """One layer of a split dict: the mixer after the pre-norm ``norm``, of
     ``kind`` "mamba" (a Mamba mixer's dict), "mamba2" (a
-    ``streaming.Mamba2``) or "attention" (a grouped-query attention
-    layer's dict); then, where ``ff`` is given, a feed-forward after the
-    pre-norm ``ff_norm``: ``ff(x)`` over a sequence, ``ff_step(x)`` over one
-    token inside a captured decode step."""
+    ``streaming.Mamba2``), "attention" (a grouped-query attention layer's
+    dict) or "parallel" (a ``Parallel``); then, where ``ff`` is given, a
+    feed-forward after the pre-norm ``ff_norm``: ``ff(x)`` over a sequence,
+    ``ff_step(x)`` over one token inside a captured decode step."""
 
     mixer: object
     norm: dict
@@ -271,7 +290,9 @@ class LMParts:
     embedding_multiplier: float = 1.0
     residual_multiplier: float = 1.0
     logits_scaling: float = 1.0
+    lm_head_multiplier: float = 1.0
     attn_scale: float | None = None   # None: head_dim ** -0.5
+    rope: attention.Rope | None = None   # None: no positions
 
     def embed(self, tokens):
         h = self.residual(quant.embed_lookup(self.emb, tokens,
@@ -292,8 +313,20 @@ class LMParts:
         out = quant.lm_head(h, self.emb if self.head is None else self.head)
         if self.logits_dtype is not None:
             out = out.to(self.logits_dtype)
-        return out if self.logits_scaling == 1.0 else (
-            out / self.logits_scaling)
+        if self.logits_scaling != 1.0:
+            out = out / self.logits_scaling
+        return scaled(out, self.lm_head_multiplier)
+
+    def attn_args(self):
+        """The attention calls' trailing arguments: the scale, then the
+        rope where the model has one."""
+        return ((self.attn_scale,) if self.rope is None
+                else (self.attn_scale, self.rope))
+
+
+def scaled(t, m):
+    """``t`` times the multiplier ``m`` (``t`` itself at 1)."""
+    return t if m == 1.0 else t * m
 
 
 def split_params(model: MambaLM, params) -> LMParts:
@@ -331,7 +364,7 @@ def forward_parts(parts: LMParts, tokens, mixer_prefill=None):
     """Full-sequence logits (B, L, V) of split parameters, each mixer
     through ``mixer_prefill(mixer params, x)`` (``mamba_prefill`` when
     None; the hook a tensor-parallel forward uses)."""
-    h, _, _ = _backbone(parts, tokens, mixer_prefill)
+    h, _ = _backbone(parts, tokens, mixer_prefill)
     return parts.logits(h)
 
 
@@ -373,127 +406,153 @@ def _feed_forward(parts: LMParts, layer: Layer, h, ff):
     return parts.add(h, ff(x))
 
 
+def _mixer_prefill(parts: LMParts, layer: Layer, x, mixer_prefill,
+                   max_len):
+    """(out, the layer's decode state) of its mixer over a sequence."""
+    if layer.kind == "attention":
+        with span("lm.attn"):
+            out, *state = attention.gqa_prefill(
+                layer.mixer, x, parts.n_heads, parts.n_kv_heads, max_len,
+                *parts.attn_args())
+    elif layer.kind == "mamba2":
+        out, *state = streaming.mamba2_prefill(layer.mixer, x,
+                                               parts.implementation)
+    elif layer.kind == "parallel":
+        p = layer.mixer
+        ssm, *state = streaming.mamba2_prefill(p.ssm, x, parts.implementation)
+        with span("lm.attn"):
+            attn, *kv = attention.gqa_prefill(
+                p.attn, scaled(x, p.attn_in), parts.n_heads,
+                parts.n_kv_heads, max_len, *parts.attn_args())
+        out = scaled(ssm, p.ssm_out) + scaled(attn, p.attn_out)
+        state += kv
+    else:
+        out, *state = mixer_prefill(layer.mixer, x)
+    return out, tuple(state)
+
+
+def _mixer_step(parts: LMParts, layer: Layer, x, state, mixer_step):
+    """(out, the layer's state) of its mixer over one token, the state
+    stepped in place."""
+    if layer.kind == "attention":
+        out, *state = attention.gqa_step(layer.mixer, x, *state,
+                                         parts.n_heads, parts.n_kv_heads,
+                                         *parts.attn_args())
+    elif layer.kind == "mamba2":
+        out, *state = streaming.mamba2_step(layer.mixer, x, *state)
+    elif layer.kind == "parallel":
+        p = layer.mixer
+        ssm, *ssm_state = streaming.mamba2_step(p.ssm, x, *state[:2])
+        attn, *kv = attention.gqa_step(
+            p.attn, scaled(x, p.attn_in), *state[2:], parts.n_heads,
+            parts.n_kv_heads, *parts.attn_args())
+        out = scaled(ssm, p.ssm_out) + scaled(attn, p.attn_out)
+        state = ssm_state + kv
+    else:
+        out, *state = mixer_step(layer.mixer, x, *state)
+    return out, tuple(state)
+
+
 def _backbone(parts: LMParts, tokens, mixer_prefill=None, max_len=None):
     """The tokens (B, L) through every layer and ``norm_f``: (hidden states
-    (B, L, d_model), conv states, ssm states), one state of each per
-    layer (an attention layer's: its K/V cache of ``max_len`` positions, L
-    when None, and its position)."""
+    (B, L, d_model), the layers' decode states, one record a layer; an
+    attention layer's K/V cache holds ``max_len`` positions, L when
+    None)."""
     mixer_prefill = mixer_prefill or functools.partial(
         streaming.mamba_prefill, implementation=parts.implementation,
         norm_eps=parts.ssm_norm_eps)
     h = parts.embed(tokens)
-    conv_states, ssm_states = [], []
+    states = []
     for layer in parts.layers:
         x = parts.apply_norm(layer.norm, h).to(parts.dtype)
-        if layer.kind == "attention":
-            with span("lm.attn"):
-                out, cs, ss = attention.gqa_prefill(
-                    layer.mixer, x, parts.n_heads, parts.n_kv_heads, max_len,
-                    parts.attn_scale)
-        elif layer.kind == "mamba2":
-            out, cs, ss = streaming.mamba2_prefill(layer.mixer, x,
-                                                   parts.implementation)
-        else:
-            out, cs, ss = mixer_prefill(layer.mixer, x)
+        out, state = _mixer_prefill(parts, layer, x, mixer_prefill, max_len)
         h = parts.add(h, out)
         if layer.ff is not None:
             h = _feed_forward(parts, layer, h, layer.ff)
-        conv_states.append(cs)
-        ssm_states.append(ss)
+        states.append(state)
     h = parts.apply_norm(parts.norm_f, h).to(parts.dtype)
-    return h, conv_states, ssm_states
+    return h, states
 
 
 def prefill(parts: LMParts, tokens, mixer_prefill=None, max_len=None):
-    """The prompt (B, L0) through every layer: (last logits (B, V), conv
-    states, ssm states), one of each per layer; ``max_len``: the positions
+    """The prompt (B, L0) through every layer: (last logits (B, V), the
+    layers' decode states, one record a layer); ``max_len``: the positions
     an attention layer's K/V cache holds (the prompt and every token decode
     will add)."""
-    h, conv_states, ssm_states = _backbone(parts, tokens, mixer_prefill,
-                                           max_len)
-    return parts.logits(h[:, -1]), conv_states, ssm_states
+    h, states = _backbone(parts, tokens, mixer_prefill, max_len)
+    return parts.logits(h[:, -1]), states
 
 
-def decode_step(parts: LMParts, token, conv_states, ssm_states,
-                mixer_step=None):
+def decode_step(parts: LMParts, token, states, mixer_step=None):
     """One token (B,) through every layer from the carried states, each
-    stepped in place: (logits (B, V), conv states, ssm states), the lists of
-    the same tensors.  A Mamba layer's states are its window and ssm state,
-    an attention layer's its K/V cache and position."""
+    stepped in place: (logits (B, V), states), a list of records of the
+    same tensors.  A Mamba layer's record is its (window, ssm state), an
+    attention layer's its (K/V cache, position), a parallel layer's its
+    (window, ssm state, K/V cache, position)."""
     mixer_step = mixer_step or functools.partial(
         streaming.mamba_step, norm_eps=parts.ssm_norm_eps)
     h = parts.embed(token)
-    new_cs, new_ss = [], []
-    for layer, cs, ss in zip(parts.layers, conv_states, ssm_states):
+    new_states = []
+    for layer, state in zip(parts.layers, states):
         x = parts.apply_norm(layer.norm, h).to(parts.dtype)
-        if layer.kind == "attention":
-            out, cs, ss = attention.gqa_step(layer.mixer, x, cs, ss,
-                                             parts.n_heads, parts.n_kv_heads,
-                                             parts.attn_scale)
-        elif layer.kind == "mamba2":
-            out, cs, ss = streaming.mamba2_step(layer.mixer, x, cs, ss)
-        else:
-            out, cs, ss = mixer_step(layer.mixer, x, cs, ss)
+        out, state = _mixer_step(parts, layer, x, state, mixer_step)
         h = parts.add(h, out)
         if layer.ff_step is not None:
             h = _feed_forward(parts, layer, h, layer.ff_step)
-        new_cs.append(cs)
-        new_ss.append(ss)
+        new_states.append(state)
     h = parts.apply_norm(parts.norm_f, h).to(parts.dtype)
-    return parts.logits(h), new_cs, new_ss
+    return parts.logits(h), new_states
 
 
 class DecodeGraph:
-    """``decode_step`` over static buffers: a token (B,), each Mamba layer's
-    conv state (B, W, d_inner) and fp32 ssm state (B, d_inner, N), each
-    attention layer's K/V cache (B, 2, n_kv, max_len, head_dim) and int64
-    position (1,), and the logits (B, V).  Each call steps the static
-    states in place (``decode_step`` writes every state where it lies) and
-    returns the static logits, which the next call overwrites.  On the card
-    the step is one CUDA graph (``cuda_graphs.capture``), warmed up and
-    captured here on zero states, before ``start`` loads any live state;
-    on the CPU it runs eagerly."""
+    """``decode_step`` over static buffers: a token (B,), each layer's
+    record of state (a Mamba layer's conv state (B, W, d_inner) and fp32
+    ssm state (B, d_inner, N); an attention layer's K/V cache (B, 2, n_kv,
+    max_len, head_dim) and int64 position (1,); a parallel layer's four),
+    and the logits (B, V).  Each call steps the static states in place
+    (``decode_step`` writes every state where it lies) and returns the
+    static logits, which the next call overwrites.  On the card the step is
+    one CUDA graph (``cuda_graphs.capture``), warmed up and captured here on
+    zero states, before ``start`` loads any live state; on the CPU it runs
+    eagerly."""
 
-    def __init__(self, parts: LMParts, params, conv_states, ssm_states):
-        self.key = decode_key(params, conv_states, ssm_states)
+    def __init__(self, parts: LMParts, params, states):
+        self.key = decode_key(params, states)
         self.parts = parts   # holds the weights the graph reads alive
-        self.states = [torch.zeros_like(s) for s in conv_states + ssm_states]
-        self.n_layer = len(conv_states)
-        token = torch.zeros(conv_states[0].shape[0], dtype=torch.long,
-                            device=conv_states[0].device)
+        self.states = [tuple(torch.zeros_like(t) for t in s) for s in states]
+        first = states[0][0]
+        token = torch.zeros(first.shape[0], dtype=torch.long,
+                            device=first.device)
         self.step = (cuda_graphs.capture(self._step, (token,))
                      if token.is_cuda else self._step)
 
     def _step(self, token):
-        n = self.n_layer
-        return decode_step(self.parts, token, self.states[:n],
-                           self.states[n:])[0]
+        return decode_step(self.parts, token, self.states)[0]
 
-    def start(self, conv_states, ssm_states):
+    def start(self, states):
         """Load the prefill's states; returns the step (token -> logits)."""
-        for dst, src in zip(self.states, conv_states + ssm_states):
-            dst.copy_(src)
+        for dst, src in zip(self.states, states):
+            for d, s in zip(dst, src):
+                d.copy_(s)
         return self.step
 
 
-def decode_key(params, conv_states, ssm_states):
+def decode_key(params, states):
     """A decode graph's key: the parameters' tensors and the states'
     shapes and dtypes (the batch and the compute dtype among them)."""
     return cuda_graphs.tensors_key(params), tuple(
-        cuda_graphs.signature(s) for s in conv_states + ssm_states)
+        cuda_graphs.signature(t) for s in states for t in s)
 
 
-def decode_graph(model: MambaLM, parts, params, conv_states, ssm_states):
+def decode_graph(model: MambaLM, parts, params, states):
     """The model's ``DecodeGraph`` for these parameters and states: the
     cached one when its key matches, else a new one that replaces it."""
     cached = model._decoding_cache
     with span("graph.key"):
-        stale = cached is None or cached.key != decode_key(
-            params, conv_states, ssm_states)
+        stale = cached is None or cached.key != decode_key(params, states)
     if stale:
         model._decoding_cache = None   # its graph's memory goes first
-        model._decoding_cache = DecodeGraph(parts, params, conv_states,
-                                            ssm_states)
+        model._decoding_cache = DecodeGraph(parts, params, states)
     return model._decoding_cache
 
 
@@ -521,8 +580,9 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
 
     Spans (``utils/profiling.py::span``): ``lm.generate`` holds the
     prefill's ``lm.forward`` (and in it each Mamba mixer's recurrence in
-    ``lm.ssm``, each attention layer's ``lm.attn`` and each MoE block's
-    ``lm.moe``), each token's ``lm.draw`` (the draw,
+    ``lm.ssm``, each attention layer's or parallel layer's attention branch
+    in ``lm.attn`` and each MoE block's ``lm.moe``), each token's
+    ``lm.draw`` (the draw,
     the eos mask, the score's copy), the decode graph's ``graph.key`` and,
     on the card, each token's ``graph.replay``.
     """
@@ -533,21 +593,18 @@ def generate(model: MambaLM, params, tokens, max_new_tokens, generator=None,
             generator = torch.Generator(device=dev).manual_seed(0)
         parts = split_params(model, params)
         with span("lm.forward"):
-            logits, conv_states, ssm_states = prefill(
-                parts, tokens, mixer_prefill,
-                tokens.shape[1] + max_new_tokens)
+            logits, states = prefill(parts, tokens, mixer_prefill,
+                                     tokens.shape[1] + max_new_tokens)
         if mixer_prefill is None and mixer_step is None:
-            step = decode_graph(model, parts, params, conv_states,
-                                ssm_states).start(conv_states, ssm_states)
+            step = decode_graph(model, parts, params, states).start(states)
         else:
             # a tensor-parallel decode over gloo copies its collectives
             # through the host, which a CUDA graph cannot capture
             _log.info("generate: mixer hooks given -> eager decode loop")
 
             def step(token):
-                nonlocal conv_states, ssm_states
-                out, conv_states, ssm_states = decode_step(
-                    parts, token, conv_states, ssm_states, mixer_step)
+                nonlocal states
+                out, states = decode_step(parts, token, states, mixer_step)
                 return out
 
         prompt_len = tokens.shape[1]

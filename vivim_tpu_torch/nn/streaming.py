@@ -20,14 +20,18 @@ they normalise the three parts of ``x_proj``'s output before ``dt_proj``
 and the scan, with ``norm_eps``.  Activations are time-major.
 
 A Mamba-2 mixer (``mamba2_prefill`` / ``mamba2_step``, transformers'
-``GraniteMoeHybridMambaLayer``) runs on the same two kernels: ``in_proj``
-gives the gate z, the conv's input xBC (x, then B and C of each group) and
-one dt a head; the conv runs over xBC; the recurrence is Mamba-1's with
-each head's dt, dt_bias, A and D shared by its channels (K1 reads them
-repeated over the channels, ``ssm_step`` per head); y then passes the gated
-RMSNorm ``w * rms(y * silu(z))`` in fp32 before ``out_proj``.  Its
-parameters, and the constants both read, are a ``Mamba2`` built once per
-split of the parameters (``mamba2``).
+``GraniteMoeHybridMambaLayer`` and ``FalconH1Mixer``) runs on the same two
+kernels: ``in_proj`` gives the gate z, the conv's input xBC (x, then B and
+C of each group) and one dt a head; the conv runs over xBC; the recurrence
+is Mamba-1's with each head's dt, dt_bias, A and D shared by its channels
+(K1 reads them repeated over the channels, ``ssm_step`` per head); y then
+passes the gated RMSNorm ``w * rms(y * silu(z))`` in fp32 before
+``out_proj``, over all d_inner channels (Granite) or over each of
+``norm_groups`` groups of them (Falcon-H1: one a group of B and C).
+Falcon-H1's µP multipliers act around ``in_proj``: its input times
+``in_multiplier``, its output times the vector ``mup`` (one factor for each
+of the z, x, B, C and dt segments).  Its parameters, and the constants both
+read, are a ``Mamba2`` built once per split of the parameters (``mamba2``).
 
 Each prefill opens the span ``lm.ssm`` around its recurrence: the scan and
 the preparation of its arguments, not the projections or the conv.
@@ -52,6 +56,7 @@ import torch.nn.functional as F
 from vivim_tpu_torch.kernels.causal_conv1d import causal_conv1d
 from vivim_tpu_torch.kernels.mamba_step import conv_step, ssm_step
 from vivim_tpu_torch.kernels.selective_scan import selective_scan
+from vivim_tpu_torch.nn import quant
 from vivim_tpu_torch.nn.quant import matmul_t
 from vivim_tpu_torch.parallel import comm
 from vivim_tpu_torch.utils.profiling import span
@@ -177,7 +182,10 @@ class Mamba2:
     constants built from them once: K1's per-channel ``A`` (d_inner,
     d_state) = -exp(A_log), ``D`` and ``dt_bias`` (d_inner,), fp32, each
     head's repeated over its channels; the step's ``A_log_heads`` (heads,
-    d_state), a view."""
+    d_state), a view.  Falcon-H1's: ``in_multiplier``, ``mup`` (in_proj's
+    width,) in the weights' dtype or None, the gated norm over
+    ``norm_groups`` groups, its weight times the fp32 normed value before
+    the one rounding (``norm_weight_fp32``; Granite rounds first)."""
 
     params: dict
     n_groups: int
@@ -188,44 +196,70 @@ class Mamba2:
     D: torch.Tensor
     dt_bias: torch.Tensor
     A_log_heads: torch.Tensor
+    in_multiplier: float = 1.0
+    mup: torch.Tensor | None = None
+    norm_groups: int = 1
+    norm_weight_fp32: bool = False
 
     @property
     def d_inner(self):
         return self.params["norm.weight"].shape[0]
 
 
-def mamba2(params, n_groups, d_state, norm_eps):
+def mamba2(params, n_groups, d_state, norm_eps, in_multiplier=1.0,
+           zxbcdt_multipliers=None, norm_groups=1, norm_weight_fp32=False):
     """``Mamba2`` of one mixer's parameter dict: the constants built
-    here, once per split of the parameters, so no call copies them."""
+    here, once per split of the parameters, so no call copies them.
+    ``zxbcdt_multipliers``: Falcon-H1's five factors of in_proj's z, x, B,
+    C and dt segments, made one vector in the weights' dtype."""
     heads = params["A_log"].shape[0]
-    head_dim = params["norm.weight"].shape[0] // heads
+    d = params["norm.weight"].shape[0]
+    head_dim = d // heads
     per_channel = lambda t: t.float().repeat_interleave(head_dim).contiguous()
     a_log = params["A_log"]
+    mup = None
+    if zxbcdt_multipliers is not None:
+        gn = n_groups * d_state
+        mup = torch.cat([torch.full((n,), float(f)) for n, f in zip(
+            (d, d, gn, gn, heads), zxbcdt_multipliers)]).to(
+            quant.compute_dtype(params)).to(a_log.device)
     return Mamba2(
         params, n_groups, d_state, head_dim, norm_eps,
         A=(-torch.exp(per_channel(a_log)))[:, None].expand(
             -1, d_state).contiguous(),
         D=per_channel(params["D"]), dt_bias=per_channel(params["dt_bias"]),
-        A_log_heads=a_log[:, None].expand(heads, d_state))
+        A_log_heads=a_log[:, None].expand(heads, d_state),
+        in_multiplier=in_multiplier, mup=mup, norm_groups=norm_groups,
+        norm_weight_fp32=norm_weight_fp32)
 
 
 def _mamba2_split(m: Mamba2, x):
     """(z, xBC, dt) of ``in_proj``'s output: column views."""
     p = m.params
+    if m.in_multiplier != 1.0:
+        x = x * m.in_multiplier
     zxbcdt = matmul_t(x, p["in_proj.weight"])
     if "in_proj.bias" in p:
         zxbcdt = zxbcdt + p["in_proj.bias"]
+    if m.mup is not None:
+        zxbcdt = zxbcdt * m.mup
     d, cd = m.d_inner, p["conv1d.weight"].shape[0]
     return zxbcdt[..., :d], zxbcdt[..., d:d + cd], zxbcdt[..., d + cd:]
 
 
 def gated_norm(m: Mamba2, y, z):
-    """transformers' ``GraniteMoeHybridRMSNormGated``: ``w * rms(y *
-    silu(z))`` over all d_inner channels, in fp32, back in y's dtype."""
+    """transformers' ``GraniteMoeHybridRMSNormGated`` (``norm_groups`` 1)
+    and ``FalconH1RMSNormGated`` (gate before the norm): ``w * rms(y *
+    silu(z))`` over each of ``norm_groups`` groups of channels, in fp32,
+    back in y's dtype."""
     f = y.float()
     if z is not None:
         f = f * F.silu(z.float())
-    f = f * torch.rsqrt((f * f).mean(-1, keepdim=True) + m.norm_eps)
+    f = f.unflatten(-1, (m.norm_groups, -1))
+    f = (f * torch.rsqrt((f * f).mean(-1, keepdim=True) + m.norm_eps)
+         ).flatten(-2)
+    if m.norm_weight_fp32:
+        return (m.params["norm.weight"] * f).to(y.dtype)
     return m.params["norm.weight"] * f.to(y.dtype)
 
 
